@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA H100.
 
-    python3 chip_smoke.py [--phases kernels,allocator,des] [--seed 0]
+    python3 chip_smoke.py [--phases kernels,allocator,...] [--seed 0]
 
 Run from the root of a checkout; it needs one CUDA card and builds every
 kernel from the sources in the checkout (nvcc into ``build/``, Triton at
@@ -11,8 +11,11 @@ first launch).  Phases:
 1. kernels: each kernel against its plain PyTorch version on the card at
    the fleet shapes, exact equality required (K1 at (512,) and (4096,),
    K2 at (512, 4096), random quantized scores with about half masked plus
-   an all-masked case; K3 whole epochs for 4 criteria x {pooled, rrr});
-   times of kernel, plain version and the PyTorch yardstick call;
+   an all-masked case; K3 whole epochs for 4 criteria x {pooled, rrr}; K4
+   at (512, 4096, 2), (300, 257, 3), (128, 128, 8) and (1, 1, 1) on
+   quarter-quantized and on non-dyadic inputs, with an exhausted row, a
+   blocked column and an all-infeasible case); times of kernel, plain
+   version and the PyTorch yardstick call;
 2. allocator: the main path, ``OnlineAllocator(device="cuda")`` with
    ``begin_epoch(use_kernel="fused")``/``commit_epoch``, 3 epochs per
    criterion x policy at the fleet size (512 frameworks x 4096 agents), on
@@ -26,12 +29,24 @@ first launch).  Phases:
    6-agent cluster the fused path must equal the numpy epoch;
 3. des: ``SparkMesosSim`` at the fleet size with async fused epochs, run
    until every job has finished, and a small simulation that must equal
-   the same simulation on the CPU.
+   the same simulation on the CPU;
+4. serve: the allocator-as-a-service front end
+   (``repro_torch.launch.alloc_serve.serve``) at the fleet size, rPS-DSF
+   pooled, 4 request profiles x 8 rounds without the epoch cache, on the
+   per-grant backend (K4 once a pick).  The same serve with K4 swapped for
+   its plain version must give the same decisions, grant for grant, and K4
+   must launch exactly once per grant plus once per epoch (the pick that
+   ends it).  Then the same fleet serve on the fused path (K3) and on
+   ``"auto"`` with the cache, and the ``--inject-faults`` chaos serve, which
+   must stay available with between 1 and the 6 injected dispatch failures;
+5. gang: ``repro_torch.launch.cluster_sim.run`` and ``run_des`` on the card,
+   equal to the same runs on the CPU.
 
-After every phase the allocator fault counters must be zero.  Launches
-are counted per path, from zero just before it to just after it: K3 over
-the allocator's fleet epochs, K1/K2 over the tiles-loop replays; each
-must have launched.  The last lines are the kernels
+Outside the chaos serve the allocator fault counters must be zero.
+Launches are counted per path, from zero just before it to just after it:
+K3 over the allocator's fleet epochs, K1/K2 over the tiles-loop replays,
+K4 over the fleet serve on the per-grant backend; each must have
+launched.  The last lines are the kernels
 JSON, the ``nvidia-smi`` name and power limit, and the device JSON.
 """
 from __future__ import annotations
@@ -154,7 +169,113 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def device_times(fn):
+    """Run fn() under torch.profiler (CUDA activity) -> ({kernel name:
+    device us}, None), or (None, reason) when the profiler does not start
+    or records no device time here.  fn runs either way."""
+    from torch.profiler import ProfilerActivity, profile
+
+    try:        # a measurement, not a check: a profiler fault is reported
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as exc:
+        prof, why = None, f"profiler did not start: {exc!r}"
+    try:
+        fn()
+    finally:
+        if prof is not None:
+            prof.stop()
+    if prof is None:
+        return None, why
+    times = {e.key: e.self_device_time_total for e in prof.key_averages()
+             if getattr(e, "self_device_time_total", 0) > 0}
+    if not times:
+        return None, "the profiler recorded no device time"
+    return times, None
+
+
+K4_KERNELS = ("_psdsf_score_tiles_body", "_argmin_partials_body")
+
+
 # -- phase 1: kernels against their plain versions ---------------------------
+
+PSDSF_SHAPES = ((FLEET_N, FLEET_J, 2), (300, 257, 3), (128, 128, 8),
+                (1, 1, 1))
+
+
+def psdsf_inputs(rng, N, J, R, family, dev):
+    """K4's inputs: quarter-quantized (many exact ties, zero x) or
+    non-dyadic (phi in {1, 2, 3}, residuals in thirds: division rounding),
+    with one exhausted row (d = 3e38, as the per-grant backend marks it:
+    inf and NaN scores) and one blocked column (zero residual)."""
+    import torch
+
+    if family == "quantized":
+        x = rng.integers(0, 16, N) / 4
+        phi = np.ones(N)
+        d = rng.integers(1, 12, (N, R)) / 4
+        res = rng.integers(0, 24, (J, R)) / 4
+    else:
+        x = rng.uniform(0, 20, N)
+        phi = np.array([1.0, 2.0, 3.0])[np.arange(N) % 3]
+        d = rng.uniform(0.5, 5, (N, R))
+        res = rng.integers(0, 25, (J, R)) / 3
+    d[N // 2] = 3.0e38
+    res[J // 2] = 0.0
+    return [torch.as_tensor(a, dtype=torch.float32, device=dev)
+            for a in (x, phi, d, res)]
+
+
+def psdsf_phase(rng, dev):
+    """K4 against its plain version: exact (val, n, j) at every shape and
+    input family, and on an all-infeasible case; -> the kernels row."""
+    import torch
+
+    from repro_torch.kernels.psdsf_score import ops as k4
+
+    for N, J, R in PSDSF_SHAPES:
+        for family in ("quantized", "non-dyadic"):
+            args = psdsf_inputs(rng, N, J, R, family, dev)
+            cases = [("", args)]
+            cases.append((" all-infeasible", args[:2] + [args[2] + 100.0,
+                                                         args[3]]))
+            for label, a in cases:
+                got = k4.psdsf_argmin(*a)
+                want = k4.psdsf_argmin_ref(*a)
+                got = [float(got[0]), int(got[1]), int(got[2])]
+                want = [float(want[0]), int(want[1]), int(want[2])]
+                check(got == want, f"K4 at ({N}, {J}, {R}) {family}{label}: "
+                      f"{got} != {want}")
+                check(label == "" or got[1] == -1,
+                      f"K4 at ({N}, {J}, {R}): all-infeasible found {got}")
+    N, J, R = PSDSF_SHAPES[0]
+    args = psdsf_inputs(rng, N, J, R, "non-dyadic", dev)
+    ms = cuda_ms(lambda: k4.psdsf_argmin(*args), 200)
+    plain = cuda_ms(lambda: k4.psdsf_argmin_ref(*args), 50)
+
+    def launches_50():
+        for _ in range(50):
+            k4.psdsf_argmin(*args)
+        torch.cuda.synchronize()
+
+    times, why = device_times(launches_50)
+    log("K4 device time a launch (torch.profiler, 50 launches): " + (
+        why or ", ".join(f"{k} {v / 50:.2f} us" for k, v in times.items()
+                         if k in K4_KERNELS)))
+    # each input read once, (val, n, j) written once; per cell 5 operations
+    # a resource (quotient, two selects, max, feasibility compare) and 3 more
+    # (product, mask, min)
+    nbytes = sum(a.numel() * a.element_size() for a in args) + 12
+    ops = N * J * (5 * R + 3)
+    log(f"K4 psdsf_argmin ({N}, {J}, {R}): {ms:.4f} ms, plain {plain:.4f} ms; "
+        f"equal to the plain version on {len(PSDSF_SHAPES)} shapes x 2 "
+        "families + all-infeasible")
+    return dict(ms=ms, plain_ms=plain, library_ms=None, max_abs_err=0.0,
+                bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                             ops / F32_OPS_PER_S) * 1e3,
+                bound_by=("operations" if ops / F32_OPS_PER_S >
+                          nbytes / HBM_BYTES_PER_S else "bytes"))
+
 
 def kernels_phase(rng, dev, agents, fws):
     import torch
@@ -284,7 +405,8 @@ def kernels_phase(rng, dev, agents, fws):
 
 # -- phase 2: the allocator main path ----------------------------------------
 
-LAUNCH_COUNTERS = ("masked_argmin1d", "masked_argmin2d", "persistent_epoch")
+LAUNCH_COUNTERS = ("masked_argmin1d", "masked_argmin2d", "persistent_epoch",
+                   "psdsf_argmin")
 
 
 def counters():
@@ -293,7 +415,8 @@ def counters():
 
     return {"masked_argmin1d": tiles.masked_argmin1d,
             "masked_argmin2d": tiles.masked_argmin2d,
-            "persistent_epoch": k3.persistent_epoch}
+            "persistent_epoch": k3.persistent_epoch,
+            "psdsf_argmin": tiles.psdsf_argmin}
 
 
 def reset_counts():
@@ -397,7 +520,7 @@ def allocator_phase(dev, agents, fws, seed, epochs=3):
     from repro_torch.core.online import OnlineAllocator
     from repro_torch.core.simulator import HETEROGENEOUS_AGENTS, PI, WC
 
-    launches = dict.fromkeys(LAUNCH_COUNTERS, 0)
+    launches = dict.fromkeys(LAUNCH_COUNTERS[:3], 0)
     for crit in CRITERIA:
         for pol in POLICIES:
             # the default path: the allocator's fused epochs on K3
@@ -546,10 +669,216 @@ def des_phase(dev, agents, seed):
     return launches
 
 
+# -- phase 4: the allocator-as-a-service front end ----------------------------
+
+def serve_once(label, dev, faults_ok=False, **kw):
+    """One ``alloc_serve.serve`` run; -> (stats, wall seconds, the grants of
+    every epoch as (fid, agent, executors) lists).  Prints decisions/s, the
+    epoch latency p50/p99 (host clock around each ``drain_epoch``, which
+    ends in the epoch's readback) and the service's own per-decision
+    p50/p99."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.launch import alloc_serve
+
+    grants, epoch_ms = [], []
+    drain = alloc_serve.AllocatorService.drain_epoch
+
+    def recording_drain(self):
+        t0 = time.perf_counter()
+        out = drain(self)
+        epoch_ms.append((time.perf_counter() - t0) * 1e3)
+        grants.append([(g.fid, g.agent, g.n_executors) for g in out])
+        return out
+
+    with mock.patch.object(alloc_serve.AllocatorService, "drain_epoch",
+                           recording_drain):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = alloc_serve.serve(device=dev, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    faults = out["health"]["faults"]
+    if not faults_ok:
+        check(not any(faults[k] for k in ("dispatch_failures",
+                                          "commit_failures",
+                                          "host_fallbacks", "quarantines")),
+              f"serve {label}: fault counters {faults}")
+    lat = out["latency"]
+    cache = out["cache"]
+    log(f"serve {label}: {out['epochs']} epochs, {out['decisions']} "
+        f"decisions in {wall:.3f} s wall, {out['decisions_per_s']:.1f} "
+        f"decisions/s; epoch latency p50 {np.percentile(epoch_ms, 50):.2f} "
+        f"ms p99 {np.percentile(epoch_ms, 99):.2f} ms; per decision p50 "
+        f"{lat['p50_ms']:.4f} ms p99 {lat['p99_ms']:.4f} ms"
+        + ("" if cache is None else
+           f"; cache hits {cache['hits']} misses {cache['misses']}"))
+    return out, wall, grants
+
+
+def pergrant_split(dev, fleet):
+    """Where a per-grant pick's time goes, on a short instrumented serve
+    (host timers, under torch.profiler): K4's host enqueue of its two
+    launches, the (n, j) readback (the rest of the select, which waits for
+    the kernel), the engine's apply (host bookkeeping and the in-place
+    mirror writes) and the rest of the allocator's grant loop; on the
+    device, K4's kernels, the other kernels and copies, and the device's
+    busy share of the epochs.  -> the split in microseconds a pick."""
+    from types import SimpleNamespace
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.core import engine
+    from repro_torch.kernels.psdsf_score import ops as k4
+
+    host = dict(launch=0.0, select=0.0, apply=0.0)
+    launch, select, apply = (k4.psdsf_argmin, engine.BatchedEpoch.select,
+                             engine.BatchedEpoch.apply)
+
+    def timed(fn, key):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            host[key] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    # the engine reaches K4 through its module alias _kops; the wrapper
+    # itself stays in place, so its launch count keeps counting
+    backend = SimpleNamespace(psdsf_argmin=timed(launch, "launch"))
+    n0 = launch.launches
+    run = {}
+
+    def serve():
+        run["out"] = serve_once("pergrant, instrumented", dev,
+                                **dict(fleet, rounds=2))[0]
+        torch.cuda.synchronize()
+
+    with mock.patch.object(engine, "_kops", backend), \
+            mock.patch.object(engine.BatchedEpoch, "select",
+                              timed(select, "select")), \
+            mock.patch.object(engine.BatchedEpoch, "apply",
+                              timed(apply, "apply")):
+        times, why = device_times(serve)
+    picks = launch.launches - n0
+    epoch_s = run["out"]["latency"]["total_s"]
+    us = lambda sec: sec / picks * 1e6  # noqa: E731
+    split = dict(
+        k4_host_us=us(host["launch"]),
+        readback_us=us(host["select"] - host["launch"]),
+        apply_us=us(host["apply"]),
+        rest_us=us(epoch_s - host["select"] - host["apply"]),
+        epoch_us=us(epoch_s))
+    if times:
+        k4_dev = sum(v for k, v in times.items() if k in K4_KERNELS)
+        split.update(k4_device_us=k4_dev / picks,
+                     other_device_us=(sum(times.values()) - k4_dev) / picks,
+                     device_busy_share=sum(times.values()) / (epoch_s * 1e6))
+    log("per-grant split (us a pick, instrumented run, " + (
+        why or "device times by torch.profiler") + "): " + ", ".join(
+        f"{k} {v:.4g}" for k, v in split.items()))
+    if times:
+        log("device time by kernel (us a pick): " + ", ".join(
+            f"{k} {v / picks:.2f}" for k, v in sorted(
+                times.items(), key=lambda kv: -kv[1])[:8]))
+    return split
+
+
+def serve_phase(dev, seed):
+    """-> K4's launches over the fleet serve on the per-grant backend."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.kernels.psdsf_score import ops as k4
+    from repro_torch.launch import alloc_serve
+
+    fleet = dict(n_agents=FLEET_J, n_frameworks=FLEET_N, n_profiles=4,
+                 rounds=8, criterion="rpsdsf", server_policy="pooled",
+                 seed=seed)
+    reset_counts()
+    out, _wall, grants_k4 = serve_once("pergrant (K4)", dev,
+                                       use_kernel="pergrant",
+                                       epoch_cache=False, **fleet)
+    n = read_counts()
+    want = out["decisions"] + out["epochs"]
+    check(n["psdsf_argmin"] == want and n["persistent_epoch"] == 0,
+          f"serve pergrant: launches {n}, expected K4 = decisions + epochs "
+          f"= {want}")
+    with mock.patch.object(k4, "psdsf_argmin", k4.psdsf_argmin_ref):
+        _, _, grants_plain = serve_once("pergrant (K4's plain version)", dev,
+                                        use_kernel="pergrant",
+                                        epoch_cache=False, **fleet)
+    check(grants_k4 == grants_plain, "serve pergrant: K4 decisions differ "
+          "from its plain version's")
+    log(f"serve pergrant: K4 == plain version over {len(grants_k4)} epochs, "
+        f"{out['decisions']} decisions; K4 launches {n['psdsf_argmin']} = "
+        "decisions + epochs")
+    pergrant_split(dev, dict(fleet, use_kernel="pergrant", epoch_cache=False))
+    reset_counts()
+    _, _, grants = serve_once("fused (K3)", dev, use_kernel="fused",
+                              epoch_cache=False, **fleet)
+    log(f"serve fused: launches {read_counts()}; decisions per epoch "
+        f"{[len(g) for g in grants]}")
+    run = {}
+
+    def fused():      # again for 2 rounds, under the profiler
+        run["out"] = serve_once("fused (K3), profiled", dev,
+                                use_kernel="fused", epoch_cache=False,
+                                **dict(fleet, rounds=2))[0]
+        torch.cuda.synchronize()
+
+    times, why = device_times(fused)
+    if times:
+        share = sum(times.values()) / 1e6 / run["out"]["latency"]["total_s"]
+        why = f"device busy share {share:.4f} (torch.profiler)"
+    log(f"serve fused, profiled: {why}")
+    reset_counts()
+    serve_once("auto + cache", dev, use_kernel="auto", epoch_cache=True,
+               **fleet)
+    log(f"serve auto + cache: launches {read_counts()}")
+    # the chaos serve: alloc_serve's own availability asserts
+    out = alloc_serve.main(["--smoke", "--inject-faults", "--device",
+                            str(dev), "--seed", str(seed)])
+    f = out["health"]["faults"]
+    check(1 <= f["dispatch_failures"] <= 6,
+          f"chaos serve: {f['dispatch_failures']} dispatch failures, "
+          "expected 1 to the 6 injected")
+    log(f"serve chaos: {out['epochs']} epochs, dispatch failures "
+        f"{f['dispatch_failures']}, host fallbacks {f['host_fallbacks']}, "
+        f"quarantines {f['quarantines']}, status {out['health']['status']}")
+    return n["psdsf_argmin"]
+
+
+# -- phase 5: the gang entry points -------------------------------------------
+
+def gang_phase(dev, seed):
+    from repro_torch.launch import cluster_sim
+
+    logs = {d: cluster_sim.run("rpsdsf", seed, verbose=False, batched=True,
+                               device=d) for d in (dev, "cpu")}
+    check(logs[dev] == logs["cpu"] and all(
+        np.isfinite(list(e.values())).all() for e in logs[dev]),
+        "gang: cluster_sim.run on the card differs from the CPU run")
+    des = {}
+    for d in (dev, "cpu"):
+        r, fair, _slow = cluster_sim.run_des("rpsdsf", seed, verbose=False,
+                                             device=d)
+        des[d] = (r.makespan, float(r.timeline.sum()), fair)
+    check(des[dev] == des["cpu"] and np.isfinite(des[dev][0]),
+          "gang: cluster_sim.run_des on the card differs from the CPU run")
+    log(f"gang: run rpsdsf {len(logs[dev])} epochs, last jain "
+        f"{logs[dev][-1]['jain']:.4f}; run_des makespan {des[dev][0]:.1f} s, "
+        f"jain-tw {des[dev][2]['jain_tw_mean']:.4f}; card == CPU")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,allocator,des",
-                    help="comma list of kernels, allocator, des")
+    ap.add_argument("--phases", default="kernels,allocator,des,serve,gang",
+                    help="comma list of kernels, allocator, des, serve, gang")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -580,6 +909,7 @@ def main(argv=None):
     rows = {}
     if "kernels" in phases:
         rows = kernels_phase(rng, dev, agents, fws)
+        rows["psdsf_argmin"] = psdsf_phase(rng, dev)
     launches = {}
     if "allocator" in phases:
         launches = allocator_phase(dev, agents, fws, args.seed)
@@ -589,6 +919,14 @@ def main(argv=None):
             check(n > 0, f"main path never launched {name}")
     if "des" in phases:
         des_phase(dev, agents, args.seed)
+    if "serve" in phases:
+        launches["psdsf_argmin"] = serve_phase(dev, args.seed)
+        log(f"launches (K4 over the fleet serve on the per-grant backend): "
+            f"{launches['psdsf_argmin']}")
+        check(launches["psdsf_argmin"] > 0, "main path never launched "
+              "psdsf_argmin")
+    if "gang" in phases:
+        gang_phase(dev, args.seed)
     meta = {
         "masked_argmin1d": dict(
             route="triton",
@@ -602,8 +940,12 @@ def main(argv=None):
             route="cuda",
             source="src/repro_torch/kernels/epoch_persistent/csrc/epoch.cu",
             replaces="src/repro/kernels/epoch_persistent/ops.py:49"),
+        "psdsf_argmin": dict(
+            route="triton",
+            source="src/repro_torch/kernels/psdsf_score/kernel.py",
+            replaces="src/repro/kernels/psdsf_score/kernel.py:168"),
     }
-    if rows and launches:
+    if set(rows) == set(launches) == set(meta):
         out = [dict(name=name, **meta[name], launches=launches[name],
                     **rows[name]) for name in meta]
         log(json.dumps({"kernels": out}))

@@ -34,9 +34,12 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core import criteria
+from repro_torch.core.engine_torch import resolve_device
 from repro_torch.core.policies import make_policy
+from repro_torch.kernels.psdsf_score import ops as _kops
 
 _KBIG = 3.0e38  # unsatisfiable-demand sentinel for the kernel backend
                 # (matches repro.kernels.psdsf_score BIG up to headroom)
@@ -73,11 +76,6 @@ AUTO_KERNEL_FLOOR_CELLS = min(AUTO_KERNEL_MIN_CELLS.values())
 AUTO_SHARD_MIN_CELLS = 1 << 20
 AUTO_MESH_MIN_CELLS = 1 << 20
 
-def _kernel_backend():
-    raise NotImplementedError(
-        "use_kernel='pergrant' needs the fused psdsf_argmin kernel, which "
-        "is not ported yet (queued); use use_kernel='fused' or False")
-
 
 class BatchedEpoch:
     """Incremental scorer + selector for one allocation epoch.
@@ -93,8 +91,9 @@ class BatchedEpoch:
         allocator's *inferred* demands when oblivious).
     usage : (N, R) aggregate held resources — only consulted for the
         oblivious DRF/TSF usage-share surrogate.
-    use_kernel : opt in to the PER-GRANT Pallas ``psdsf_score``
-        scoring/argmin backend: one kernel launch + scalar readback per
+    use_kernel : opt in to the PER-GRANT ``psdsf_argmin`` scoring/argmin
+        backend (the Triton kernel K4 on a CUDA ``device``, its plain
+        version on the CPU): one kernel launch + scalar readback per
         pick, against device-resident mirrors of the kernel inputs that are
         uploaded once per epoch and updated incrementally per grant.
         Engaged only when it matches the numpy semantics: characterized
@@ -103,8 +102,10 @@ class BatchedEpoch:
         128-wide tiles may differ from the numpy path when scores are
         exactly equal.  For the fully fused alternative (whole epoch in one
         dispatch, wider criterion/policy coverage) see
-        :mod:`repro.core.engine_jax` via
+        :mod:`repro_torch.core.engine_torch` via
         ``OnlineAllocator.allocate_batched(use_kernel=True)``.
+    device : torch device of the per-grant backend's mirrors; resolved
+        (``"cuda"`` without a card raises) only when that backend engages.
     """
 
     def __init__(self, criterion, policy: str, *, X, D, C, FREE, phi, allowed,
@@ -115,7 +116,7 @@ class BatchedEpoch:
                  per_agent_limit: Optional[int] = None,
                  usage: Optional[np.ndarray] = None,
                  tsf_use_allowed: bool = True,
-                 use_kernel: bool = False):
+                 use_kernel: bool = False, device="cuda"):
         self.crit = criteria.get_criterion(criterion)
         self.mode = mode
         self.lookahead = lookahead
@@ -146,13 +147,18 @@ class BatchedEpoch:
                                 self.D, _KBIG)
             self._kres = self.cap.copy()
             # device-resident mirrors of the kernel inputs: uploaded ONCE per
-            # epoch and updated in O(1)/O(R) per grant, so the per-grant path
-            # stops re-uploading O(N*R + J*R) floats on every pick.
-            _, jnp = _kernel_backend()
-            self._dev_tot = jnp.asarray(self.tot, jnp.float32)
-            self._dev_phi = jnp.asarray(self.phi, jnp.float32)
-            self._dev_kd = jnp.asarray(self._kd, jnp.float32)
-            self._dev_kres = jnp.asarray(self._kres, jnp.float32)
+            # epoch and updated in place in O(1)/O(R) per grant, so the
+            # per-grant path stops re-uploading O(N*R + J*R) floats on every
+            # pick.
+            dev = resolve_device(device)
+
+            def mirror(a):      # a fresh f32 copy: never aliases the view
+                return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+            self._dev_tot = mirror(self.tot)
+            self._dev_phi = mirror(self.phi)
+            self._dev_kd = mirror(self._kd)
+            self._dev_kres = mirror(self._kres)
             self.policy = None
             return
         self.policy = make_policy(policy, J, rng, tie, bf_metric)
@@ -227,16 +233,16 @@ class BatchedEpoch:
         )
 
     def _select_kernel(self) -> Optional[tuple[int, int]]:
-        """Fused Pallas score+feasibility+argmin (rPS-DSF pooled).
+        """Fused score+feasibility+argmin (rPS-DSF pooled), K4.
 
         Operates on the cached device mirrors (see ``__init__``); the only
-        host<->device traffic per pick is the scalar ``(n, j)`` readback
-        (the fully fused alternative is :mod:`repro.core.engine_jax`)."""
-        ops, _ = _kernel_backend()
-        _, n, j = ops.psdsf_argmin(
+        host<->device traffic per pick is the ``(n, j)`` readback, one
+        sync (the fully fused alternative is
+        :mod:`repro_torch.core.engine_torch`)."""
+        _, n, j = _kops.psdsf_argmin(
             self._dev_tot, self._dev_phi, self._dev_kd, self._dev_kres,
         )
-        n, j = int(n), int(j)
+        n, j = torch.stack((n, j)).tolist()
         if n < 0:
             return None
         return n, j
@@ -258,18 +264,17 @@ class BatchedEpoch:
         if self.kernel:
             # masks ride on the kernel inputs: exhausted frameworks get an
             # unsatisfiable demand row, blocked servers zero residuals.  Only
-            # the touched row/column moves host->device.
-            _, jnp = _kernel_backend()
+            # the touched row/column moves host->device, in place.
             self.cap[j] = self.C[j] - self.X[:, j] @ self.D
             self._kres[j] = self.cap[j]
             if self.limit is not None and self.used[j] >= self.limit:
                 self._kres[j] = 0.0
-            self._dev_tot = self._dev_tot.at[n].add(float(n_units))
-            self._dev_kres = self._dev_kres.at[j].set(
-                jnp.asarray(self._kres[j], jnp.float32))
+            self._dev_tot[n] += float(n_units)
+            self._dev_kres[j] = torch.as_tensor(self._kres[j],
+                                                dtype=torch.float32)
             if self.tot[n] >= self.wanted[n]:
                 self._kd[n] = _KBIG
-                self._dev_kd = self._dev_kd.at[n].set(_KBIG)
+                self._dev_kd[n] = _KBIG
             return
         # feasibility: column j saw FREE change; row n may have hit `wanted`
         wants = self.tot < self.wanted

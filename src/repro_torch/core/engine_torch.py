@@ -15,7 +15,7 @@ runs the loop:
     plain versions.  Exact ties across 128-wide tiles resolve in tile order
     (the reference's ``use_pallas=True`` caveat);
   * ``None`` — the plain loop of tensor operations, the counterpart of the
-    reference's default ``jnp`` loop.
+    reference's default loop of array operations.
 
 All three give the reference's grant sequences bit for bit: f32 scores,
 the global two-pass tie-low rule (``atol=1e-9 + rtol=1e-6 * |min|``), and

@@ -924,8 +924,9 @@ class OnlineAllocator:
             incremental path.  Fused RRR pre-draws its server permutations
             from the allocator rng (see the engine_jax module docstring for
             the cross-epoch rng-stream caveat).
-          * ``"pergrant"`` — the legacy per-grant Pallas ``psdsf_score``
-            backend (one kernel launch + readback per pick; characterized
+          * ``"pergrant"`` — the legacy per-grant ``psdsf_argmin``
+            backend (the Triton kernel K4 on the card, its plain version on
+            the CPU; one kernel launch + readback per pick; characterized
             rPS-DSF + pooled only), kept for benchmarking the boundary cost.
           * ``False`` — pure numpy incremental epoch.
 
@@ -1469,7 +1470,7 @@ class OnlineAllocator:
 
     def _allocate_batched_host(self, per_agent_limit, tie, kernel,
                                view, TD):
-        """The numpy incremental epoch (optionally the per-grant Pallas
+        """The numpy incremental epoch (optionally the per-grant K4
         backend) over a frozen view — the host half of the epoch pipeline.
         Returns ``(grants, seq)``: the applied grants plus the raw (n, j)
         pick sequence (what the epoch cache stores)."""
@@ -1483,6 +1484,7 @@ class OnlineAllocator:
             mode=self.mode, lookahead=False, tie=tie, rng=self.rng,
             bf_metric=self.bf_metric, per_agent_limit=per_agent_limit,
             usage=usage, use_kernel=(kernel == "pergrant"),
+            device=self.device,
         )
         grants: list[Grant] = []
         seq: list[tuple[int, int]] = []

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the masked-argmin kernels (K1, K2).
+"""Plain PyTorch versions of the psdsf_score kernels (K1, K2, K4).
 
 They define the functions the Triton kernels in :mod:`.kernel` compute, tie
 order included, and they are what :mod:`.ops` runs for tensors on the CPU.
@@ -56,3 +56,35 @@ def masked_argmin2d_ref(s, feas, *, bn: int = 128, bj: int = 128):
     bad = val >= BIG
     return (val, torch.where(bad, -1, n).to(torch.int32),
             torch.where(bad, -1, j).to(torch.int32))
+
+
+def psdsf_argmin_ref(x, phi, d, res, *, bn: int = 128, bj: int = 128):
+    """The fused PS-DSF / rPS-DSF pick: x, phi (N,), d (N, R), res (J, R)
+    -> (min_value, n, j) of ``K[n, j] = (x_n / phi_n) * max_r d[n, r] /
+    res[j, r]`` over the pairs with ``d[n] <= res[j]`` in every resource;
+    (BIG, -1, -1) if none.
+
+    The reference kernel's order of operations, in f32: per resource the
+    quotient (BIG where ``res <= 0``, 0 where also ``d == 0``), a running
+    maximum from 0, then ``(x / phi) * dom``.  Infeasible cells are masked
+    by ``where``, never by arithmetic: an exhausted row (``d`` near 3e38)
+    over a small residual gives ``inf`` and ``0 * inf`` gives NaN, and
+    neither may reach the minimum.  The pick is :func:`masked_argmin2d_ref`,
+    so ties resolve in the reference kernel's tile order.  Cells beyond
+    (N, J) take no part (the reference pads them infeasible for every
+    framework with a nonzero demand)."""
+    x, phi, d, res = (t.float() for t in (x, phi, d, res))
+    N, J = d.shape[0], res.shape[0]
+    dom = torch.zeros((N, J), dtype=torch.float32, device=d.device)
+    feas = torch.ones((N, J), dtype=torch.bool, device=d.device)
+    for r in range(d.shape[1]):
+        d_r = d[:, r, None]                               # (N, 1)
+        res_r = res[None, :, r]                           # (1, J)
+        ok = res_r > 0.0
+        frac = torch.where(ok, d_r / torch.where(ok, res_r, 1.0), BIG)
+        frac = torch.where((d_r == 0.0) & ~ok, 0.0, frac)
+        dom = torch.maximum(dom, frac)
+        feas &= d_r <= res_r
+    score = (x / phi)[:, None] * dom
+    return masked_argmin2d_ref(torch.where(feas, score, BIG), feas, bn=bn,
+                               bj=bj)

@@ -117,3 +117,69 @@ def test_epoch_ends_when_row_zero_is_exhausted(dev, crit, pol):
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     assert torch.equal(a_in[6].bool(), b_in[6].bool())      # feas
+
+
+def psdsf_inputs(seed, N, J, R, family):
+    """K4's inputs as f32 numpy arrays: quarter-quantized (exact ties, zero
+    x) or non-dyadic (phi in {1, 2, 3}, residuals in thirds: division
+    rounding), with an exhausted row (d = 3e38: inf and NaN scores) and a
+    blocked column.  Shared with the CPU tests (tests/test_torch_psdsf.py),
+    so it imports no JAX."""
+    rng = np.random.default_rng(seed)
+    if family == "quantized":
+        x = rng.integers(0, 16, N) / 4
+        phi = np.ones(N)
+        d = rng.integers(1, 12, (N, R)) / 4
+        res = rng.integers(0, 24, (J, R)) / 4
+    else:
+        x = rng.uniform(0, 20, N)
+        phi = np.array([1.0, 2.0, 3.0])[np.arange(N) % 3]
+        d = rng.uniform(0.5, 5, (N, R))
+        res = rng.integers(0, 25, (J, R)) / 3
+    d[N // 2] = 3.0e38
+    res[J // 2] = 0.0
+    return [a.astype(np.float32) for a in (x, phi, d, res)]
+
+
+@pytest.mark.parametrize("family", ["quantized", "non-dyadic"])
+@pytest.mark.parametrize("N,J,R", [(512, 4096, 2), (300, 257, 3),
+                                   (128, 128, 8), (1, 1, 1), (130, 129, 2)])
+def test_psdsf_argmin_kernel_equals_plain(dev, N, J, R, family):
+    from repro_torch.kernels.psdsf_score import ops
+
+    args = [torch.as_tensor(a, device=dev)
+            for a in psdsf_inputs(N * J + R, N, J, R, family)]
+    n0 = ops.psdsf_argmin.launches
+    got = ops.psdsf_argmin(*args)
+    want = ops.psdsf_argmin_ref(*args)
+    assert ops.psdsf_argmin.launches == n0 + 1
+    assert ([float(got[0]), int(got[1]), int(got[2])]
+            == [float(want[0]), int(want[1]), int(want[2])])
+    # nothing feasible: every demand above every residual
+    args[2].fill_(100.0)
+    got = ops.psdsf_argmin(*args)
+    assert (int(got[1]), int(got[2])) == (-1, -1)
+    assert float(got[0]) == float(ops.psdsf_argmin_ref(*args)[0])
+
+
+def test_pergrant_allocator_launches_k4(dev):
+    """``use_kernel="pergrant"`` on the card: K4 launches once a grant and
+    once for the pick that ends the epoch, and grants as on the CPU."""
+    from repro_torch.core.online import OnlineAllocator
+    from repro_torch.kernels.psdsf_score import ops
+
+    grants, launches = {}, {}
+    for device in (dev, "cpu"):
+        al = OnlineAllocator(2, criterion="rpsdsf", server_policy="pooled",
+                             seed=0, device=device)
+        for j, cap in enumerate(((4.0, 14.0), (8.0, 8.0), (6.0, 11.0))):
+            al.add_agent(f"a{j}", cap)
+        al.register("f0", demand=(2.0, 2.0), wanted_tasks=4, phi=2.0)
+        al.register("f1", demand=(1.0, 3.5), wanted_tasks=10**6)
+        al.register("f2", demand=(1.0, 1.0), wanted_tasks=10**6, phi=0.5)
+        n0 = ops.psdsf_argmin.launches
+        grants[str(device)] = [(g.fid, g.agent) for g in
+                               al.allocate_batched(use_kernel="pergrant")]
+        launches[str(device)] = ops.psdsf_argmin.launches - n0
+    assert grants[str(dev)] == grants["cpu"] and grants["cpu"]
+    assert launches == {str(dev): len(grants["cpu"]) + 1, "cpu": 0}

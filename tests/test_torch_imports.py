@@ -31,7 +31,9 @@ def _port_modules():
 
 def test_import_loads_neither_jax_nor_reference():
     mods = _port_modules()
-    assert "repro_torch.core.engine_torch" in mods
+    assert {"repro_torch.core.engine_torch", "repro_torch.launch.alloc_serve",
+            "repro_torch.launch.cluster_sim",
+            "repro_torch.cluster.gang"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -49,22 +51,30 @@ def test_import_loads_neither_jax_nor_reference():
     ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_file_imports_jax_or_reference(path):
     with open(path) as f:
-        assert not _IMPORT.findall(f.read())
+        text = f.read()
+    assert not _IMPORT.findall(text)
+    assert "jnp" not in text
 
 
 def test_default_device_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
+    from repro_torch.cluster.gang import GangScheduler
     from repro_torch.core import engine_torch
     from repro_torch.core.online import OnlineAllocator
     from repro_torch.core.simulator import (HETEROGENEOUS_AGENTS, PI, WC,
                                             SimConfig, SparkMesosSim)
+    from repro_torch.launch.alloc_serve import AllocatorService
 
     with pytest.raises(RuntimeError, match="CUDA"):
         OnlineAllocator(2)
     with pytest.raises(RuntimeError, match="CUDA"):
         SparkMesosSim(HETEROGENEOUS_AGENTS, {"Pi": PI, "WordCount": WC},
                       SimConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GangScheduler()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AllocatorService(2, [("a0", (4.0, 4.0))])
     with pytest.raises(RuntimeError, match="CUDA"):
         engine_torch.run_epoch(
             "drf", "pooled", X=np.zeros((1, 1)), D=np.ones((1, 2)),
@@ -73,15 +83,63 @@ def test_default_device_without_cuda_raises():
             true_demands=np.ones((1, 2)))
 
 
-def test_pergrant_backend_names_the_queued_kernel():
+def _pergrant_fill(crit, pol, allowed, monkeypatch):
+    """-> (grants on use_kernel="pergrant", grants on the numpy epoch,
+    calls of K4's plain version, K4 launches) on the CPU."""
     from repro_torch.core.online import OnlineAllocator
+    from repro_torch.kernels.psdsf_score import ops
 
-    al = OnlineAllocator(2, criterion="rpsdsf", server_policy="pooled",
-                         device="cpu")
-    al.add_agent("a0", (4.0, 4.0))
-    al.register("f0", demand=(1.0, 1.0), wanted_tasks=2)
-    with pytest.raises(NotImplementedError, match="psdsf_argmin"):
-        al.allocate_batched(use_kernel="pergrant")
+    calls = []
+    plain = ops.psdsf_argmin_ref
+
+    def spy(*a, **k):
+        calls.append(1)
+        return plain(*a, **k)
+
+    monkeypatch.setattr(ops, "psdsf_argmin_ref", spy)
+    launches = ops.psdsf_argmin.launches
+    out = {}
+    for uk in ("pergrant", False):
+        al = OnlineAllocator(2, criterion=crit, server_policy=pol, seed=0,
+                             device="cpu")
+        for j, cap in enumerate(((4.0, 14.0), (8.0, 8.0), (6.0, 11.0))):
+            al.add_agent(f"a{j}", cap)
+        al.register("f0", demand=(2.0, 2.0), wanted_tasks=4, phi=2.0,
+                    allowed_agents=["a0", "a1"] if not allowed else None)
+        al.register("f1", demand=(1.0, 3.5), wanted_tasks=10**6)
+        out[uk] = [(g.fid, g.agent) for g in al.allocate_batched(
+            use_kernel=uk)]
+    return out["pergrant"], out[False], len(calls), (
+        ops.psdsf_argmin.launches - launches)
+
+
+@pytest.mark.parametrize("crit,pol,allowed", [
+    ("rpsdsf", "pooled", True), ("rpsdsf", "pooled", False),
+    ("rpsdsf", "rrr", True), ("psdsf", "pooled", True),
+    ("drf", "pooled", True)])
+def test_pergrant_backend_engages_k4(crit, pol, allowed, monkeypatch):
+    """``use_kernel="pergrant"`` picks every grant with K4 (on the CPU its
+    plain version, once a grant and once more for the pick that ends the
+    epoch; no launch) where the reference engages its kernel, and runs
+    the numpy epoch everywhere else, as the reference does.  The card's
+    side (the launch counter moves) is in tests/test_torch_cuda.py."""
+    from repro.core.engine import BatchedEpoch as RefEpoch
+    from repro_torch.core.engine import BatchedEpoch
+
+    kw = dict(X=np.zeros((2, 3)), D=np.ones((2, 2)), C=np.full((3, 2), 4.0),
+              FREE=np.full((3, 2), 4.0), phi=np.ones(2),
+              allowed=np.array([[True] * 3, [allowed, True, True]]),
+              wanted=np.full(2, 5.0), true_demands=np.ones((2, 2)),
+              rng=np.random.default_rng(0), use_kernel=True)
+    engaged = RefEpoch(crit, pol, **kw).kernel
+    assert BatchedEpoch(crit, pol, device="cpu", **kw).kernel == engaged
+    assert engaged == (crit == "rpsdsf" and pol == "pooled" and allowed)
+    k4, numpy_grants, calls, launches = _pergrant_fill(crit, pol, allowed,
+                                                       monkeypatch)
+    assert launches == 0 and k4
+    assert calls == (len(k4) + 1 if engaged else 0)
+    if not engaged:
+        assert k4 == numpy_grants
 
 
 def test_unknown_epoch_kernel_refused():
