@@ -40,13 +40,27 @@ first launch).  Phases:
    ``"auto"`` with the cache, and the ``--inject-faults`` chaos serve, which
    must stay available with between 1 and the 6 injected dispatch failures;
 5. gang: ``repro_torch.launch.cluster_sim.run`` and ``run_des`` on the card,
-   equal to the same runs on the CPU.
+   equal to the same runs on the CPU;
+6. models: K5 (flash attention) against its plain version at the
+   qwen2-1.5b prefill shape (4, 12, 2048, 128) x (4, 2, 2048, 128) bf16, in
+   f32, with a window below the key tile, non-causal with T != S and at a
+   ragged S; K6 (WKV6) at the rwkv6-3b prefill shape (4, 2048, 40, 64), at
+   S = 2000 and under strong decay, output and final state; each within the
+   tolerance printed beside it, timed beside its plain version (and K5
+   beside ``scaled_dot_product_attention``, a yardstick only).  Then the
+   model serve path, ``repro_torch.launch.serve.serve`` at full width
+   (batch 4, prompt 2048, 32 tokens, weights from a seeded generator) for
+   qwen2-1.5b (K5 exactly once a layer in the prefill: 28) and rwkv6-3b
+   (K6: 32), against the same serve with the kernel swapped for its plain
+   version, teacher-forced with the first run's tokens: prefill logits,
+   the whole cache and every decode step's logits within a relative L2
+   tolerance; greedy-token agreement is printed, not gated.
 
 Outside the chaos serve the allocator fault counters must be zero.
 Launches are counted per path, from zero just before it to just after it:
 K3 over the allocator's fleet epochs, K1/K2 over the tiles-loop replays,
-K4 over the fleet serve on the per-grant backend; each must have
-launched.  The last lines are the kernels
+K4 over the fleet serve on the per-grant backend, K5 and K6 over the
+prefills of their model serves; each must have launched.  The last lines are the kernels
 JSON, the ``nvidia-smi`` name and power limit, and the device JSON.
 """
 from __future__ import annotations
@@ -406,17 +420,21 @@ def kernels_phase(rng, dev, agents, fws):
 # -- phase 2: the allocator main path ----------------------------------------
 
 LAUNCH_COUNTERS = ("masked_argmin1d", "masked_argmin2d", "persistent_epoch",
-                   "psdsf_argmin")
+                   "psdsf_argmin", "flash_attention", "wkv6")
 
 
 def counters():
     from repro_torch.kernels.epoch_persistent import ops as k3
+    from repro_torch.kernels.flash_attention import ops as k5
     from repro_torch.kernels.psdsf_score import ops as tiles
+    from repro_torch.kernels.rwkv6 import ops as k6
 
     return {"masked_argmin1d": tiles.masked_argmin1d,
             "masked_argmin2d": tiles.masked_argmin2d,
             "persistent_epoch": k3.persistent_epoch,
-            "psdsf_argmin": tiles.psdsf_argmin}
+            "psdsf_argmin": tiles.psdsf_argmin,
+            "flash_attention": k5.flash_attention,
+            "wkv6": k6.wkv6}
 
 
 def reset_counts():
@@ -875,10 +893,385 @@ def gang_phase(dev, seed):
         f"jain-tw {des[dev][2]['jain_tw_mean']:.4f}; card == CPU")
 
 
+# -- phase 6: the model serve path (K5, K6) -----------------------------------
+
+BF16_OPS_PER_S = 989e12         # H100 SXM bf16 dense tensor cores
+QWEN_ATTN = (4, 12, 2, 2048, 2048, 128)     # B, H, K, S, T, D of one prefill
+RWKV_WKV = (4, 2048, 40, 64)                # B, S, H, D of one prefill
+# the kernel and its plain version compute in f32 from the same inputs and
+# differ in the order of their sums; a bf16 output may then round to the
+# neighbouring number (two ulps)
+FLASH_TOL = {"float32": dict(rtol=1e-5, atol=2e-5),
+             "bfloat16": dict(rtol=2 ** -7, atol=1e-5)}
+WKV_TOL = dict(rtol=1e-4, atol=1e-4)
+WKV_TOL_STRONG = dict(rtol=1e-3, atol=2e-3)   # outputs reach ~1e2
+# the full-width serve swapped onto the plain version is gated on its first
+# two layers only: there each cache value may have been rounded to bf16 the
+# other way once (2**-7 relative).  Deeper layers diverge, whatever the
+# kernel: the reference's fan-in rule (the second-to-last dim, so H or K for
+# wq/wk, not E) gives qwen2-1.5b attention scores of about 300 standard
+# deviations, and a one-ulp difference grows ~10x a layer (PERF.md, Findings).
+# The kernel is gated instead at every layer of the serve, on the layer's
+# own inputs (the shadow check).
+SERVE_FIRST_LAYERS_REL_L2 = 2 ** -7
+SERVE_KW = dict(smoke=False, batch=4, prompt_len=2048, gen=32)
+
+
+def _close(got, want, rtol, atol):
+    """-> (within tolerance, max abs error) of two tensors, in f32."""
+    import torch
+
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    return bool(torch.isclose(got, want, rtol=rtol, atol=atol).all()), err
+
+
+def flash_phase(dev):
+    """K5 against its plain version at the qwen2-1.5b prefill shape and on
+    the edge cases; -> the kernels row."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as k5
+
+    g = torch.Generator(dev).manual_seed(5)
+    cases = [
+        ("qwen2-1.5b prefill", QWEN_ATTN, torch.bfloat16, True, 0),
+        ("f32", (2, 12, 2, 512, 512, 128), torch.float32, True, 0),
+        ("window 48 below the 64-key tile, gemma3-style", (2, 8, 4, 1000,
+                                                           1000, 256),
+         torch.bfloat16, True, 48),
+        ("non-causal, T != S", (2, 4, 2, 300, 700, 64), torch.bfloat16,
+         False, 0),
+        ("ragged S", (3, 12, 2, 1999, 1999, 128), torch.bfloat16, True, 0),
+    ]
+    main_err, inputs = None, None
+    for label, (B, H, K, S, T, D), dtype, causal, window in cases:
+        q = torch.randn((B, S, H, D), generator=g, device=dev).to(dtype)
+        k = torch.randn((B, T, K, D), generator=g, device=dev).to(dtype)
+        v = torch.randn((B, T, K, D), generator=g, device=dev).to(dtype)
+        got = k5.flash_attention(q, k, v, causal=causal, window=window)
+        want = k5.flash_attention_ref(q, k, v, causal=causal, window=window)
+        tol = FLASH_TOL[str(dtype).split(".")[1]]
+        ok, err = _close(got, want, **tol)
+        log(f"K5 {label} {(B, H, K, S, T, D)} {dtype}: max abs err {err:.3g} "
+            f"(tolerance rtol {tol['rtol']:.3g} atol {tol['atol']:.3g})")
+        check(ok, f"K5 {label}: kernel differs from its plain version "
+              f"(max abs err {err})")
+        if inputs is None:
+            main_err, inputs = err, (q, k, v)
+        del got, want
+    q, k, v = inputs
+    B, H, K, S, T, D = QWEN_ATTN
+    ms = cuda_ms(lambda: k5.flash_attention(q, k, v, causal=True), 20)
+    plain = cuda_ms(lambda: k5.flash_attention_ref(q, k, v, causal=True), 3)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    try:        # the yardstick only; never on the port's path
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+        how = "enable_gqa"
+    except TypeError:
+        kr, vr = (x.repeat_interleave(H // K, dim=1) for x in (kt, vt))
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kr, vr, is_causal=True), 20)
+        how = "k/v repeated (no enable_gqa in this torch)"
+    nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
+    flops = 2 * B * H * S * T * D           # causal: half of QK^T and PV
+    log(f"K5 flash_attention {QWEN_ATTN} bf16 causal: {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, scaled_dot_product_attention ({how}) {lib:.4f} ms; "
+        f"{flops / ms / 1e9:.1f} TFLOP/s")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, max_abs_err=main_err,
+                bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                             flops / BF16_OPS_PER_S) * 1e3,
+                bound_by=("operations" if flops / BF16_OPS_PER_S >
+                          nbytes / HBM_BYTES_PER_S else "bytes"))
+
+
+def wkv6_phase(dev):
+    """K6 against its plain version (output and final state) at the
+    rwkv6-3b prefill shape, at S = 2000 (a padded tail) and under strong
+    decay; -> the kernels row."""
+    import torch
+
+    from repro_torch.kernels.rwkv6 import ops as k6
+
+    g = torch.Generator(dev).manual_seed(6)
+
+    def inputs(B, S, H, D, strong):
+        r, k, v = (torch.randn((B, S, H, D), generator=g, device=dev) * 0.5
+                   for _ in range(3))
+        z = torch.randn((B, S, H, D), generator=g, device=dev)
+        lw = -torch.exp(z * 2.0 + 2.0 if strong else z * 0.5)
+        return r, k, v, lw, torch.randn((H, D), generator=g, device=dev) * 0.5
+
+    main_err, main_args = None, None
+    for label, shape, strong in (("rwkv6-3b prefill", RWKV_WKV, False),
+                                 ("S = 2000, padded", (4, 2000, 40, 64),
+                                  False),
+                                 ("strong decay", (2, 1024, 40, 64), True)):
+        args = inputs(*shape, strong)
+        y, s = k6.wkv6(*args)
+        yr, sr = k6.wkv6_ref(*args)
+        tol = WKV_TOL_STRONG if strong else WKV_TOL
+        ok_y, err_y = _close(y, yr, **tol)
+        ok_s, err_s = _close(s, sr, **tol)
+        log(f"K6 {label} {shape}: max abs err y {err_y:.3g}, final state "
+            f"{err_s:.3g} (tolerance rtol {tol['rtol']:.3g} atol "
+            f"{tol['atol']:.3g}); finite {bool(torch.isfinite(y).all())}")
+        check(ok_y and ok_s and bool(torch.isfinite(y).all()),
+              f"K6 {label}: kernel differs from its plain version")
+        if main_args is None:
+            main_err, main_args = max(err_y, err_s), args
+    B, S, H, D = RWKV_WKV
+    ms = cuda_ms(lambda: k6.wkv6(*main_args), 10)
+    plain = cuda_ms(lambda: k6.wkv6_ref(*main_args), 3)
+    C, nC = 64, -(-S // 64)
+    nbytes = 5 * B * S * H * D * 4 + H * D * 4 + B * H * D * D * 4
+    # per chunk of a stream: the intra-chunk scores (difference, exp, two
+    # products and a sum per pair and channel), their product with v, and
+    # the two (C, D) x (D, D) products of the state
+    ops = B * H * nC * (4 * (C * (C - 1) // 2) * D + 2 * C * C * D
+                        + 4 * C * D * D)
+    log(f"K6 wkv6 {RWKV_WKV} f32: {ms:.4f} ms, plain {plain:.4f} ms")
+    return dict(ms=ms, plain_ms=plain, library_ms=None, max_abs_err=main_err,
+                bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                             ops / F32_OPS_PER_S) * 1e3,
+                bound_by=("operations" if ops / F32_OPS_PER_S >
+                          nbytes / HBM_BYTES_PER_S else "bytes"))
+
+
+def _rel_l2(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
+    """The full-width serve of ``arch`` (batch 4, prompt 2048, 32 tokens):
+    once on the kernel, counted, recorded, and with every launch shadowed by
+    the plain version on the same inputs (gated at the kernel's tolerance);
+    once with the kernel swapped for its plain version, teacher-forced with
+    the first run's tokens; once more on the kernel, timed.  -> the
+    kernel's launches on the first run.  ``seam`` is the (module, name) of
+    the alias through which the model reaches ``kernel_mod``: the shadow
+    replaces the alias, so the wrapper itself stays in place and counts."""
+    from types import SimpleNamespace
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    kw = dict(SERVE_KW, seed=seed, device=dev)
+    n_layers = get_config(arch, smoke=kw["smoke"]).n_layers
+    prefill, decode = fam_mod.prefill, fam_mod.decode_step
+    kernel, plain = (getattr(kernel_mod, kernel_name),
+                     getattr(kernel_mod, kernel_name + "_ref"))
+    tol = (FLASH_TOL["bfloat16"] if kernel_name == "flash_attention"
+           else WKV_TOL)
+    shadow_errs = []
+
+    def shadowed(*a, **k):
+        out = kernel(*a, **k)
+        want = plain(*a, **k)
+        pairs = (zip(out, want) if isinstance(out, tuple)
+                 else [(out, want)])
+        shadow_errs.append([_close(x, y, **tol) for x, y in pairs])
+        return out
+
+    def recorded(rec, forced=None):
+        def rec_prefill(*a, **k):
+            logits, cache = prefill(*a, **k)
+            rec["prefill"] = logits.float().cpu()
+            rec["cache"] = {n: c.float().cpu() for n, c in cache.items()}
+            return logits, cache
+
+        def rec_decode(model, cfg, cache, tokens, pos, media=None):
+            step = len(rec.setdefault("steps", []))
+            if forced is not None:
+                tokens = torch.as_tensor(forced[:, step:step + 1],
+                                         dtype=torch.int32, device=dev)
+            logits, cache = decode(model, cfg, cache, tokens, pos, media)
+            rec["steps"].append(logits.float().cpu())
+            return logits, cache
+
+        stack = contextlib.ExitStack()
+        stack.enter_context(mock.patch.object(fam_mod, "prefill",
+                                              rec_prefill))
+        stack.enter_context(mock.patch.object(fam_mod, "decode_step",
+                                              rec_decode))
+        return stack
+
+    runs = {}
+    for label in ("kernel", "plain"):
+        rec = {}
+        forced = runs["kernel"][0]["tokens"] if label == "plain" else None
+        reset_counts()
+        with recorded(rec, forced), (
+                mock.patch.object(*seam, SimpleNamespace(
+                    **{kernel_name: shadowed}))
+                if label == "kernel" else
+                mock.patch.object(kernel_mod, kernel_name, plain)):
+            out = serve.serve(arch, **kw)
+        runs[label] = (out, rec, read_counts())
+        torch.cuda.empty_cache()
+    (out, rec, n), (out_p, rec_p, n_p) = runs["kernel"], runs["plain"]
+    launches = out["launches"]
+    check(launches["prefill"][kernel_name] == n_layers
+          and n[kernel_name] == n_layers
+          and not any(v for k, v in n.items() if k != kernel_name)
+          and not any(launches["decode"].values()),
+          f"{arch}: launches {launches} (counters {n}), expected "
+          f"{kernel_name} = {n_layers} in the prefill and none in the decode")
+    check(not any(n_p.values()), f"{arch}: the plain-version serve launched "
+          f"{n_p}")
+    worst = max(err for layer in shadow_errs for _ok, err in layer)
+    log(f"serve {arch} shadow check: {kernel_name} == its plain version on "
+        f"the same inputs at each of {len(shadow_errs)} launches, max abs "
+        f"err {worst:.3g} (tolerance rtol {tol['rtol']:.3g} atol "
+        f"{tol['atol']:.3g})")
+    check(len(shadow_errs) == n_layers and all(
+        ok for layer in shadow_errs for ok, _err in layer),
+        f"{arch}: {kernel_name} differs from its plain version inside the "
+        f"serve: {shadow_errs}")
+    per_layer = {name: [_rel_l2(a, b) for a, b in zip(rec["cache"][name],
+                                                      rec_p["cache"][name])]
+                 for name in rec["cache"]}
+    errs = {"prefill logits": _rel_l2(rec["prefill"], rec_p["prefill"]),
+            "decode logits (worst step)": max(
+                _rel_l2(a, b) for a, b in zip(rec["steps"], rec_p["steps"]))}
+    check(len(rec["steps"]) == len(rec_p["steps"]) == kw["gen"] - 1,
+          f"{arch}: decode steps {len(rec['steps'])}/{len(rec_p['steps'])}")
+    finite = all(bool(torch.isfinite(x).all()) for x in
+                 [rec["prefill"], *rec["steps"], *rec["cache"].values()])
+    log(f"serve {arch} on the kernel vs on its plain version (teacher-"
+        f"forced), relative L2: " + ", ".join(f"{k} {v:.3g}"
+                                              for k, v in errs.items())
+        + "; cache by layer " + "; ".join(
+            f"{name} " + " ".join(f"{v:.1e}" for v in vals)
+            for name, vals in per_layer.items())
+        + f"; greedy tokens agreeing "
+        f"{int((out['tokens'] == out_p['tokens']).sum())}/"
+        f"{out['tokens'].size} (not gated); finite {finite}")
+    first = max(v for vals in per_layer.values() for v in vals[:2])
+    check(finite and first <= SERVE_FIRST_LAYERS_REL_L2,
+          f"{arch}: the caches of the first two layers differ between the "
+          f"serve on {kernel_name} and on its plain version by {first} "
+          f"(tolerance {SERVE_FIRST_LAYERS_REL_L2})")
+    del rec, rec_p, runs
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    timed = serve.serve(arch, **kw)
+    log(f"serve {arch} (timed run): prefill {timed['prefill_s'] * 1e3:.2f} ms "
+        f"for {kw['batch']} x {kw['prompt_len']} tokens, decode "
+        f"{timed['decode_s'] * 1e3:.2f} ms, {timed['tok_per_s']:.2f} "
+        f"tokens/s, parameters {timed['param_bytes'] / 1e9:.3f} GB (f32), "
+        f"max memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; plain-version "
+        f"serve prefill {out_p['prefill_s'] * 1e3:.2f} ms, first kernel "
+        f"serve prefill {out['prefill_s'] * 1e3:.2f} ms")
+    torch.cuda.empty_cache()
+    decode_busy_share(dev, arch, fam_mod)
+    f32_divergence(dev, arch, fam_mod, kernel_mod, kernel_name, seed)
+    return n[kernel_name]
+
+
+def decode_busy_share(dev, arch, fam_mod, steps=16):
+    """The device's busy share of the decode alone: ``steps`` decode steps of
+    the full-width model after a 2048-token prefill (batch 4), under
+    torch.profiler; -> (share, device ms a step) or None, printed."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import init_model
+
+    cfg = get_config(arch)
+    model = init_model(fam_mod, cfg, torch.Generator(dev).manual_seed(0))
+    B, S = SERVE_KW["batch"], SERVE_KW["prompt_len"]
+    prompts = torch.randint(2, cfg.vocab_size, (B, S), device=dev,
+                            generator=torch.Generator(dev).manual_seed(1))
+    with torch.no_grad():
+        logits, cache = fam_mod.prefill(model, cfg, prompts,
+                                        max_seq=S + steps + 1)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        fam_mod.decode_step(model, cfg, cache, tok, S)      # warm
+        wall = {}
+
+        def decode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(steps):
+                fam_mod.decode_step(model, cfg, cache, tok, S + 1 + i)
+            torch.cuda.synchronize()
+            wall["s"] = time.perf_counter() - t0
+
+        times, why = device_times(decode)
+    if times:
+        busy = sum(times.values()) / 1e6
+        why = (f"device busy share {busy / wall['s']:.4f}, "
+               f"{busy / steps * 1e3:.3f} ms of device time in a "
+               f"{wall['s'] / steps * 1e3:.3f} ms step (torch.profiler, "
+               f"{steps} steps)")
+    log(f"serve {arch} decode: {why}")
+    del model, cache
+    torch.cuda.empty_cache()
+
+
+def f32_divergence(dev, arch, fam_mod, kernel_mod, kernel_name, seed):
+    """The serve's prefill again in f32 compute, on the kernel and on its
+    plain version: printed, not gated.  A growth that stays in f32 comes
+    from the model amplifying any difference, not from bf16 rounding."""
+    import dataclasses
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import init_model
+
+    cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+    model = init_model(fam_mod, cfg, torch.Generator(dev).manual_seed(0))
+    B, S = SERVE_KW["batch"], SERVE_KW["prompt_len"]
+    prompts = torch.as_tensor(np.random.default_rng(seed).integers(
+        2, cfg.vocab_size, size=(B, S)), dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        a, ca = fam_mod.prefill(model, cfg, prompts, max_seq=S)
+        with mock.patch.object(kernel_mod, kernel_name,
+                               getattr(kernel_mod, kernel_name + "_ref")):
+            b, cb = fam_mod.prefill(model, cfg, prompts, max_seq=S)
+    name = next(iter(ca))
+    per_layer = [_rel_l2(x, y) for x, y in zip(ca[name], cb[name])]
+    log(f"serve {arch} prefill in f32 compute, on the kernel vs on its plain "
+        f"version (not gated): logits relative L2 {_rel_l2(a, b):.3g}; "
+        f"cache {name} by layer " + " ".join(f"{v:.1e}" for v in per_layer)
+        + f"; max |{name}| in layer 0 {float(ca[name][0].abs().max()):.4g}")
+    del model, ca, cb
+    torch.cuda.empty_cache()
+
+
+def models_phase(dev, seed):
+    """-> (kernels rows, launches) of K5 and K6."""
+    from repro_torch.kernels.flash_attention import ops as k5
+    from repro_torch.kernels.rwkv6 import ops as k6
+    from repro_torch.models import lm, rwkv
+    from repro_torch.nn import layers, ssm
+
+    rows = {"flash_attention": flash_phase(dev), "wkv6": wkv6_phase(dev)}
+    launches = {
+        "flash_attention": serve_model(dev, "qwen2-1.5b", lm, k5,
+                                       "flash_attention", (layers, "_k5"),
+                                       seed),
+        "wkv6": serve_model(dev, "rwkv6-3b", rwkv, k6, "wkv6", (ssm, "_k6"),
+                            seed)}
+    return rows, launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,allocator,des,serve,gang",
-                    help="comma list of kernels, allocator, des, serve, gang")
+    ap.add_argument("--phases",
+                    default="kernels,allocator,des,serve,gang,models",
+                    help="comma list of kernels, allocator, des, serve, gang, "
+                    "models")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -888,21 +1281,32 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch import _build
     from repro_torch.kernels.epoch_persistent import ops as k3
+    from repro_torch.kernels.flash_attention import ops as k5
     from repro_torch.kernels.psdsf_score import kernel as tiles_kernel
+    from repro_torch.kernels.rwkv6 import ops as k6
 
     dev = torch.device("cuda")
     card = nvidia_smi()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    lib = k3.library()          # nvcc; raises on a build error
+    cuda_kernels = (k3, k5, k6)
+    with ThreadPoolExecutor(len(cuda_kernels)) as pool:   # one nvcc each
+        builds = [pool.submit(_build.build, m.SOURCE) for m in cuda_kernels]
+        for b in builds:
+            b.result()          # raises on a build error
+    for m in cuda_kernels:
+        m.library()
     tiles_kernel.compiled()     # imports Triton
-    from repro_torch import _build
-
-    log(f"built {Path(lib._name).name} in {time.perf_counter() - t0:.1f} s; "
-        "ptxas: " + " | ".join(
+    log(f"built {', '.join(m.SOURCE.name for m in cuda_kernels)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for m in cuda_kernels:
+        log(f"ptxas {m.SOURCE.name}: " + " | ".join(
             ln.strip() for ln in
-            _build.library_path(k3.SOURCE).with_suffix(".log")
+            _build.library_path(m.SOURCE).with_suffix(".log")
             .read_text().splitlines() if "registers" in ln or "spill" in ln))
     rng = np.random.default_rng(args.seed)
     agents, fws = fleet()
@@ -927,6 +1331,16 @@ def main(argv=None):
               "psdsf_argmin")
     if "gang" in phases:
         gang_phase(dev, args.seed)
+    if "models" in phases:
+        t0 = time.perf_counter()
+        model_rows, model_launches = models_phase(dev, args.seed)
+        rows.update(model_rows)
+        launches.update(model_launches)
+        log(f"launches (K5 over the qwen2-1.5b serve's prefill, K6 over the "
+            f"rwkv6-3b serve's prefill): {model_launches}; models phase "
+            f"{time.perf_counter() - t0:.1f} s")
+        for name, n in model_launches.items():
+            check(n > 0, f"main path never launched {name}")
     meta = {
         "masked_argmin1d": dict(
             route="triton",
@@ -944,6 +1358,14 @@ def main(argv=None):
             route="triton",
             source="src/repro_torch/kernels/psdsf_score/kernel.py",
             replaces="src/repro/kernels/psdsf_score/kernel.py:168"),
+        "flash_attention": dict(
+            route="cuda",
+            source="src/repro_torch/kernels/flash_attention/csrc/flash.cu",
+            replaces="src/repro/kernels/flash_attention/kernel.py:80"),
+        "wkv6": dict(
+            route="cuda",
+            source="src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
+            replaces="src/repro/kernels/rwkv6/kernel.py:67"),
     }
     if set(rows) == set(launches) == set(meta):
         out = [dict(name=name, **meta[name], launches=launches[name],

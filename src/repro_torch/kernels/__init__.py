@@ -1,12 +1,15 @@
-"""Hand-written Hopper kernels of the allocation epoch.
+"""Hand-written Hopper kernels of the port.
 
 Each kernel package holds the kernel (Triton ``kernel.py`` or CUDA
 ``csrc/*.cu``), its wrapper ``ops.py`` (plain version for CPU tensors,
 kernel launch for CUDA tensors, a launch count) and its plain PyTorch
 version ``ref.py``:
 
-  psdsf_score      — masked argmins of the epoch's selects (K1, K2; Triton)
+  psdsf_score      — masked argmins of the epoch's selects and the fused
+                     per-grant PS-DSF pick (K1, K2, K4; Triton)
   epoch_persistent — the whole epoch segment in one launch (K3; CUDA C++)
+  flash_attention  — the dense LMs' prefill attention (K5; CUDA C++)
+  rwkv6            — RWKV6's chunked WKV recurrence (K6; CUDA C++)
 """
 
 

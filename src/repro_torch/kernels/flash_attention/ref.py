@@ -1,0 +1,45 @@
+"""Plain PyTorch version of the flash attention kernel (K5).
+
+The closed form of ``repro.kernels.flash_attention.ref.attention_ref``, in
+the model layout: f32 scores scaled by ``1/sqrt(D)``, the positional causal
+and window mask (``q_pos - k_pos < window``) with ``NEG_INF``, a softmax in
+f32, a row with no valid key giving 0, and the output in q's type.  Query
+head h reads kv head ``h // (H // K)`` through a reshape, never a repeat.
+f32 products run in full f32 (PyTorch's default: no TF32).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def attention_mask(S: int, T: int, causal: bool, window: int, device):
+    """(S, T) bool: key t is visible to query s (positions are indices)."""
+    qpos = torch.arange(S, device=device)[:, None]
+    kpos = torch.arange(T, device=device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= (qpos - kpos) < window
+    return mask
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+    """q: (B,S,H,D); k/v: (B,T,K,D) with H % K == 0 -> (B,S,H,D)."""
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    if H % K:
+        raise ValueError(f"flash_attention: H={H} is not a multiple of K={K}")
+    G = H // K
+    qf = q.float().reshape(B, S, K, G, D)
+    s = torch.einsum("bskgd,btkd->bkgst", qf, k.float()) / math.sqrt(D)
+    mask = attention_mask(S, T, causal, window, q.device)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
+    out = torch.where(mask.any(dim=-1)[:, None, None, None], out, 0.0)
+    return out.reshape(B, S, H, D).to(q.dtype)

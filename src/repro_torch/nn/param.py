@@ -1,0 +1,150 @@
+"""Parameter templates: shapes + logical axes, materialised on demand.
+
+Every layer declares a *template*: a nested dict whose leaves are
+:class:`ParamSpec` (shape, logical axis names, initializer), as in the
+reference.  Here a template is
+
+  * materialised into tensors (:func:`init_params`), a nested dict of the
+    reference's layout, stacked layers included;
+  * built into a module tree (:class:`Params`), whose leaves are the
+    parameters and whose nodes answer ``params["name"]`` like the
+    reference's dicts, so the layer functions read the same.
+
+The logical axes are kept for the day the port shards; nothing reads them
+yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple
+    axes: tuple                     # logical axis name (or None) per dim
+    init: str = "normal"            # normal | zeros | ones | embed
+    scale: Optional[float] = None   # override fan-in scaling
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.shape))
+
+
+def spec(shape, axes, init="normal", scale=None) -> ParamSpec:
+    return ParamSpec(tuple(int(s) for s in shape), tuple(axes), init, scale)
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def tree_map_specs(fn: Callable[[ParamSpec], Any], template):
+    if is_spec(template):
+        return fn(template)
+    return {k: tree_map_specs(fn, v) for k, v in template.items()}
+
+
+def stack_template(template, n: int, axis_name: str = "layers"):
+    """Prefix every param with a stacking dim (the reference's scan-over-
+    layers storage; :class:`Params` splits it into per-layer modules)."""
+    return tree_map_specs(
+        lambda p: ParamSpec((n, *p.shape), (axis_name, *p.axes), p.init, p.scale),
+        template,
+    )
+
+
+def _leaves(template):
+    if is_spec(template):
+        return [template]
+    return [p for v in template.values() for p in _leaves(v)]
+
+
+def count_params(template) -> int:
+    return sum(p.size for p in _leaves(template))
+
+
+def _init_one(p: ParamSpec, gen: torch.Generator, dtype):
+    dev = gen.device
+    if p.init == "zeros":
+        return torch.zeros(p.shape, dtype=dtype, device=dev)
+    if p.init == "ones":
+        return torch.ones(p.shape, dtype=dtype, device=dev)
+    if p.init in ("embed", "normal"):
+        if p.init == "embed":
+            s = p.scale if p.scale is not None else 1.0
+        else:
+            # fan-in-scaled normal; fan-in approximated by the second-to-last
+            # dim (the reference's rule)
+            fan_in = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
+            s = p.scale if p.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+        x = torch.randn(p.shape, generator=gen, dtype=torch.float32, device=dev)
+        return (x.mul_(s)).to(dtype)
+    raise ValueError(f"unknown init {p.init!r}")
+
+
+def init_params(template, generator: torch.Generator, dtype=torch.float32):
+    """Materialise a template into tensors on ``generator``'s device, leaf by
+    leaf in the template's order, with the reference's rules (fan-in normal,
+    zeros, ones, embed).  ``jax.random``'s stream cannot be reproduced, so
+    the values differ from the reference's for the same seed; to compare the
+    two packages, carry the reference's arrays across with
+    :func:`repro_torch.models.common.load_reference_params`."""
+    return tree_map_specs(lambda p: _init_one(p, generator, dtype), template)
+
+
+class Params(nn.Module):
+    """A template (without the stacking dim) as a module tree.
+
+    ``params["wq"]`` returns the parameter, ``params["attn"]`` the sub-tree,
+    ``"wg" in params`` tests for a leaf, as the reference's dicts do.
+    :meth:`cast` returns a leaf in the compute type, made once and kept: the
+    reference casts the f32 weights at every use, which gives the same bits
+    every time.  Parameters hold no gradient (the port serves; it does not
+    train yet)."""
+
+    def __init__(self, template, dtype=torch.float32, device=None):
+        super().__init__()
+        self._names = []
+        self._casts = {}
+        for name, sub in template.items():
+            self._names.append(name)
+            if is_spec(sub):
+                self.register_parameter(name, nn.Parameter(
+                    torch.empty(sub.shape, dtype=dtype, device=device),
+                    requires_grad=False))
+            else:
+                self.add_module(name, Params(sub, dtype, device))
+
+    def __getitem__(self, name):
+        return getattr(self, name)
+
+    def __contains__(self, name):
+        return name in self._names
+
+    def keys(self):
+        return list(self._names)
+
+    def cast(self, name, dtype):
+        t = getattr(self, name)
+        if t.dtype == dtype:
+            return t
+        key = (name, dtype)
+        if key not in self._casts:
+            self._casts[key] = t.detach().to(dtype)
+        return self._casts[key]
+
+    def drop_casts(self):
+        """Forget the cast copies (after the parameters were overwritten)."""
+        for m in self.modules():
+            if isinstance(m, Params):
+                m._casts.clear()

@@ -183,3 +183,125 @@ def test_pergrant_allocator_launches_k4(dev):
         launches[str(device)] = ops.psdsf_argmin.launches - n0
     assert grants[str(dev)] == grants["cpu"] and grants["cpu"]
     assert launches == {str(dev): len(grants["cpu"]) + 1, "cpu": 0}
+
+
+# -- K5 flash attention and K6 WKV6 --------------------------------------------
+
+# the kernel and its plain version compute in f32 from the same inputs and
+# differ in the order of their sums; a bf16 or f16 output may then round to
+# the neighbouring number (two ulps: rtol 2**-7, 2**-10)
+FLASH_TOL = {torch.float32: dict(rtol=1e-5, atol=2e-5),
+             torch.bfloat16: dict(rtol=2 ** -7, atol=1e-5),
+             torch.float16: dict(rtol=2 ** -10, atol=1e-5)}
+
+
+@pytest.mark.parametrize("B,H,K,S,T,D,causal,window", [
+    (1, 12, 2, 256, 256, 128, True, 0),    # qwen2-1.5b heads
+    (2, 4, 2, 200, 200, 16, True, 5),      # window below the tile, ragged
+    (2, 6, 3, 96, 96, 32, True, 17),
+    (1, 2, 1, 70, 130, 64, False, 0),      # non-causal, T != S
+    (1, 2, 1, 48, 16, 16, False, 4),       # rows with no valid key
+    (1, 4, 2, 129, 129, 256, True, 0),     # gemma3 head dim
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_attention_kernel_equals_plain(dev, B, H, K, S, T, D, causal,
+                                             window, dtype):
+    from repro_torch.kernels.flash_attention import ops
+
+    g = torch.Generator(dev).manual_seed(S * T + D)
+    q = torch.randn((B, S, H, D), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, T, K, D), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, T, K, D), generator=g, device=dev).to(dtype)
+    n0 = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == n0 + 1
+    want = ops.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+def test_flash_attention_kernel_reads_strides(dev):
+    """q/k/v as views of a fused projection (non-contiguous heads)."""
+    from repro_torch.kernels.flash_attention import ops
+
+    g = torch.Generator(dev).manual_seed(3)
+    qkv = torch.randn((2, 100, 8 + 2 + 2, 64), generator=g, device=dev)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    got = ops.flash_attention(q, k, v, causal=True, window=0)
+    want = ops.flash_attention_ref(q, k, v, causal=True, window=0)
+    torch.testing.assert_close(got, want, **FLASH_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("B,S,H,D,chunk,strong", [
+    (2, 128, 3, 16, 32, False), (1, 70, 2, 64, 64, False),
+    (1, 2000, 4, 64, 64, False), (1, 160, 2, 8, 32, True),
+    (2, 64, 40, 64, 64, True)])
+def test_wkv6_kernel_equals_plain(dev, B, S, H, D, chunk, strong):
+    from repro_torch.kernels.rwkv6 import ops
+
+    g = torch.Generator(dev).manual_seed(S + H)
+    r, k, v = (torch.randn((B, S, H, D), generator=g, device=dev) * 0.5
+               for _ in range(3))
+    z = torch.randn((B, S, H, D), generator=g, device=dev)
+    lw = -torch.exp(z * 2.0 + 2.0 if strong else z * 0.5)
+    u = torch.randn((H, D), generator=g, device=dev) * 0.5
+    s0 = torch.randn((B, H, D, D), generator=g, device=dev)
+    tol = dict(rtol=1e-3, atol=2e-3) if strong else dict(rtol=0, atol=1e-4)
+    for state0 in (None, s0):
+        n0 = ops.wkv6.launches
+        y, s = ops.wkv6(r, k, v, lw, u, chunk=chunk, state0=state0)
+        torch.cuda.synchronize()
+        assert ops.wkv6.launches == n0 + 1
+        yr, sr = ops.wkv6_ref(r, k, v, lw, u, chunk=chunk, state0=state0)
+        assert torch.isfinite(y).all() and torch.isfinite(s).all()
+        torch.testing.assert_close(y, yr, **tol)
+        torch.testing.assert_close(s, sr, **tol)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_1_5b", "gemma3_12b", "rwkv6_3b"])
+def test_model_on_card_equals_cpu(dev, arch):
+    """The same weights on the card (K5/K6) and on the CPU (their plain
+    versions), f32 compute: prefill logits and cache, then decode steps."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import launch_counts
+    from repro_torch.models.common import get_family, load_reference_params
+    from repro_torch.nn.param import init_params
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              compute_dtype="float32")
+    fam = get_family(cfg)
+    tree = init_params(fam.template(cfg), torch.Generator().manual_seed(0))
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40)), dtype=torch.int32)
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        model = load_reference_params(fam.build(cfg, device=device), tree)
+        t = toks.to(device)
+        n0 = launch_counts()
+        logits, cache = fam.prefill(model, cfg, t[:, :32], max_seq=40)
+        n1 = launch_counts()
+        steps = [logits]
+        for i in range(32, 36):
+            lg, cache = fam.decode_step(model, cfg, cache, t[:, i:i + 1], i)
+            steps.append(lg)
+        out[device.type] = ([x.float().cpu() for x in steps],
+                            {k: c.float().cpu() for k, c in cache.items()},
+                            {k: n1[k] - n0[k] for k in n0})
+    kernel = "wkv6" if cfg.family == "ssm" else "flash_attention"
+    assert out["cuda"][2][kernel] == cfg.n_layers
+    assert out["cpu"][2] == {"flash_attention": 0, "wkv6": 0}
+    for a, b in zip(out["cuda"][0], out["cpu"][0]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    for name in out["cpu"][1]:
+        # the K/V cache is bf16: an f32 difference in an earlier layer may
+        # round a value to the neighbouring bf16 number (rtol), and a value
+        # near zero carries that earlier difference, up to about 1e-3 at
+        # these magnitudes (atol)
+        tol = (dict(rtol=2 ** -7, atol=1e-3) if name in ("k", "v")
+               else dict(rtol=1e-4, atol=1e-4))
+        torch.testing.assert_close(out["cuda"][1][name], out["cpu"][1][name],
+                                   **tol)

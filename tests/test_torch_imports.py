@@ -33,7 +33,16 @@ def test_import_loads_neither_jax_nor_reference():
     mods = _port_modules()
     assert {"repro_torch.core.engine_torch", "repro_torch.launch.alloc_serve",
             "repro_torch.launch.cluster_sim",
-            "repro_torch.cluster.gang"} <= set(mods)
+            "repro_torch.cluster.gang", "repro_torch.launch.serve",
+            "repro_torch.models.common", "repro_torch.models.lm",
+            "repro_torch.models.rwkv", "repro_torch.nn.config",
+            "repro_torch.nn.param", "repro_torch.nn.layers",
+            "repro_torch.nn.ssm", "repro_torch.configs",
+            "repro_torch.configs.qwen2_1_5b", "repro_torch.configs.rwkv6_3b",
+            "repro_torch.kernels.flash_attention.ops",
+            "repro_torch.kernels.flash_attention.ref",
+            "repro_torch.kernels.rwkv6.ops",
+            "repro_torch.kernels.rwkv6.ref"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -166,3 +175,78 @@ def test_copied_module_differs_only_in_imports(name):
     with open(os.path.join(PKG, "core", f"{name}.py")) as f:
         port = f.read()
     assert port.replace("repro_torch.", "repro.") == ref
+
+
+CONFIG_FILES = ("__init__", "shapes", "gemma3_12b", "qwen3_8b",
+                "mistral_nemo_12b", "qwen2_1_5b", "whisper_large_v3",
+                "rwkv6_3b", "llama32_vision_90b", "deepseek_v2_236b",
+                "granite_moe_3b", "hymba_1_5b")
+
+
+@pytest.mark.parametrize("name", CONFIG_FILES)
+def test_copied_config_differs_only_in_imports(name):
+    """The architecture configs are copies of the reference's."""
+    with open(os.path.join(ROOT, "src", "repro", "configs",
+                           f"{name}.py")) as f:
+        ref = f.read()
+    with open(os.path.join(PKG, "configs", f"{name}.py")) as f:
+        port = f.read()
+    assert port.replace("repro_torch.", "repro.") == ref
+
+
+def test_serve_default_device_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from repro_torch.launch import serve
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.serve("qwen2-1.5b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "rwkv6-3b"])
+
+
+def _variant(arch, **kw):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch, smoke=True), **kw)
+
+
+@pytest.mark.parametrize("make,what", [
+    (lambda: "deepseek-v2-236b", "MoE|'moe'"),
+    (lambda: "granite-moe-3b-a800m", "MoE|'moe'"),
+    (lambda: "hymba-1.5b", "'hybrid'"),
+    (lambda: "whisper-large-v3", "'encdec'"),
+    (lambda: "llama-3.2-vision-90b", "'vlm'"),
+    (lambda: _variant("qwen2_1_5b", n_experts=4, experts_per_token=2),
+     "MoE"),
+    (lambda: _variant("qwen2_1_5b", use_mla=True), "MLA"),
+], ids=["deepseek", "granite", "hymba", "whisper", "llama-vision",
+        "dense+moe", "dense+mla"])
+def test_unported_families_raise(make, what):
+    """Families and layers not ported yet raise NotImplementedError naming
+    ROADMAP.md, from the registry and from ``serve``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.common import get_family
+
+    cfg = make()
+    if isinstance(cfg, str):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            serve.serve(cfg, device="cpu")
+        cfg = get_config(cfg, smoke=True)
+    with pytest.raises(NotImplementedError, match=what):
+        get_family(cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_family(cfg)
+
+
+def test_ported_families_resolve():
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm, rwkv
+    from repro_torch.models.common import get_family
+
+    for arch in ("qwen2-1.5b", "qwen3-8b", "gemma3-12b", "mistral-nemo-12b"):
+        assert get_family(get_config(arch)) is lm
+    assert get_family(get_config("rwkv6-3b")) is rwkv
