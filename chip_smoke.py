@@ -7,7 +7,9 @@ Run from the root of a checkout; it needs one CUDA card and builds every
 kernel from the sources in the checkout (nvcc into ``build/``, Triton at
 first launch).  Phases:
 
-0. header: the card's name and power limit, then the kernel builds;
+0. header: the card's name and power limit, then the kernel builds (one
+   nvcc per CUDA source, in parallel) and each kernel's registers and
+   spills from ptxas;
 1. kernels: each kernel against its plain PyTorch version on the card at
    the fleet shapes, exact equality required (K1 at (512,) and (4096,),
    K2 at (512, 4096), random quantized scores with about half masked plus
@@ -43,14 +45,20 @@ first launch).  Phases:
    equal to the same runs on the CPU;
 6. models: K5 (flash attention) against its plain version at the
    qwen2-1.5b prefill shape (4, 12, 2048, 128) x (4, 2, 2048, 128) bf16, in
-   f32, with a window below the key tile, non-causal with T != S and at a
-   ragged S; K6 (WKV6) at the rwkv6-3b prefill shape (4, 2048, 40, 64), at
-   S = 2000 and under strong decay, output and final state; each within the
-   tolerance printed beside it, timed beside its plain version (and K5
-   beside ``scaled_dot_product_attention``, a yardstick only).  Then the
+   f32, with a window below the key tile, non-causal with T != S, at a
+   ragged S, in f16 and with rows that see no key, each on the kernel the
+   wrapper's rule picks (``flash_tc.cu``, the tensor cores, for bf16 / f16
+   at D >= 64; ``flash.cu``, the CUDA cores, for f32) and within that
+   kernel's stated tolerance; the tensor-core kernel timed beside the
+   CUDA-core one at the same shape, the plain version and
+   ``scaled_dot_product_attention`` (a yardstick only).  K6 (WKV6) at the
+   rwkv6-3b prefill shape (4, 2048, 40, 64), at S = 2000 and under strong
+   decay, output and final state, within the tolerance printed beside it,
+   timed beside its plain version.  Then the
    model serve path, ``repro_torch.launch.serve.serve`` at full width
    (batch 4, prompt 2048, 32 tokens, weights from a seeded generator) for
-   qwen2-1.5b (K5 exactly once a layer in the prefill: 28) and rwkv6-3b
+   qwen2-1.5b (K5 exactly once a layer in the prefill, all on the
+   tensor-core kernel: 28) and rwkv6-3b
    (K6: 32), against the same serve with the kernel swapped for its plain
    version, teacher-forced with the first run's tokens: prefill logits,
    the whole cache and every decode step's logits within a relative L2
@@ -68,6 +76,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -103,6 +112,32 @@ def nvidia_smi():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(text):
+    """-> one line per kernel of an ``nvcc -Xptxas -v`` log: its template
+    arguments, registers, spill stores and loads, and any ptxas warning."""
+    def short(mangled):
+        args = re.search(r"I(\w+?)Li(\d+)E", mangled)
+        return (f"{args.group(1).lstrip('0123456789')}, D={args.group(2)}"
+                if args else mangled[-40:])
+
+    out, name, spills = [], None, "spills not reported"
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name, spills = short(m.group(1)), "spills not reported"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            spills = f"spills {m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, {spills}")
+            name = None
+        if "warning" in ln or "C75" in ln:
+            out.append(re.sub(r"'(\S+)'", lambda w: short(w.group(1)),
+                              ln.split(":", 1)[-1].strip()))
+    return out
 
 
 # -- the fleet configuration -------------------------------------------------
@@ -440,6 +475,8 @@ def counters():
 def reset_counts():
     for fn in counters().values():
         fn.launches = 0
+        for name in getattr(fn, "variant_launches", ()):
+            fn.variant_launches[name] = 0
 
 
 def read_counts():
@@ -898,11 +935,10 @@ def gang_phase(dev, seed):
 BF16_OPS_PER_S = 989e12         # H100 SXM bf16 dense tensor cores
 QWEN_ATTN = (4, 12, 2, 2048, 2048, 128)     # B, H, K, S, T, D of one prefill
 RWKV_WKV = (4, 2048, 40, 64)                # B, S, H, D of one prefill
-# the kernel and its plain version compute in f32 from the same inputs and
-# differ in the order of their sums; a bf16 output may then round to the
-# neighbouring number (two ulps)
-FLASH_TOL = {"float32": dict(rtol=1e-5, atol=2e-5),
-             "bfloat16": dict(rtol=2 ** -7, atol=1e-5)}
+# K5's tolerances are stated once, by variant, in
+# repro_torch.kernels.flash_attention.ops.tolerance: f32 rtol 1e-5, atol 2e-5;
+# the tensor-core kernel bf16 rtol 2**-7, atol 2**-8 max|v| (f16 2**-10,
+# 2**-11 max|v|), the bound of rounding P before the PV product
 WKV_TOL = dict(rtol=1e-4, atol=1e-4)
 WKV_TOL_STRONG = dict(rtol=1e-3, atol=2e-3)   # outputs reach ~1e2
 # the full-width serve swapped onto the plain version is gated on its first
@@ -928,7 +964,8 @@ def _close(got, want, rtol, atol):
 
 def flash_phase(dev):
     """K5 against its plain version at the qwen2-1.5b prefill shape and on
-    the edge cases; -> the kernels row."""
+    the edge cases, each on the kernel the wrapper's rule picks and within
+    that kernel's tolerance; then the timing block.  -> the kernels row."""
     import torch
     import torch.nn.functional as F
 
@@ -938,32 +975,45 @@ def flash_phase(dev):
     cases = [
         ("qwen2-1.5b prefill", QWEN_ATTN, torch.bfloat16, True, 0),
         ("f32", (2, 12, 2, 512, 512, 128), torch.float32, True, 0),
-        ("window 48 below the 64-key tile, gemma3-style", (2, 8, 4, 1000,
-                                                           1000, 256),
+        ("window 48 below the key tile, gemma3-style", (2, 8, 4, 1000,
+                                                         1000, 256),
          torch.bfloat16, True, 48),
         ("non-causal, T != S", (2, 4, 2, 300, 700, 64), torch.bfloat16,
          False, 0),
         ("ragged S", (3, 12, 2, 1999, 1999, 128), torch.bfloat16, True, 0),
+        ("f16", (2, 12, 2, 1024, 1024, 128), torch.float16, True, 0),
+        ("rows 19-47 with no valid key", (1, 2, 1, 48, 16, 64),
+         torch.bfloat16, False, 4),
     ]
     main_err, inputs = None, None
     for label, (B, H, K, S, T, D), dtype, causal, window in cases:
         q = torch.randn((B, S, H, D), generator=g, device=dev).to(dtype)
         k = torch.randn((B, T, K, D), generator=g, device=dev).to(dtype)
         v = torch.randn((B, T, K, D), generator=g, device=dev).to(dtype)
+        variant = k5.variant(dtype, D)
+        n0 = k5.flash_attention.variant_launches[variant]
         got = k5.flash_attention(q, k, v, causal=causal, window=window)
         want = k5.flash_attention_ref(q, k, v, causal=causal, window=window)
-        tol = FLASH_TOL[str(dtype).split(".")[1]]
+        tol = k5.tolerance(variant, dtype, v)
         ok, err = _close(got, want, **tol)
-        log(f"K5 {label} {(B, H, K, S, T, D)} {dtype}: max abs err {err:.3g} "
-            f"(tolerance rtol {tol['rtol']:.3g} atol {tol['atol']:.3g})")
+        log(f"K5 {label} {(B, H, K, S, T, D)} {dtype} on {variant}: max abs "
+            f"err {err:.3g} (tolerance rtol {tol['rtol']:.3g} atol "
+            f"{tol['atol']:.3g})")
+        check(k5.flash_attention.variant_launches[variant] == n0 + 1,
+              f"K5 {label}: {variant} did not launch")
         check(ok, f"K5 {label}: kernel differs from its plain version "
               f"(max abs err {err})")
+        if label.startswith("rows"):
+            check(bool((got[:, 19:] == 0).all()), "K5: a row with no valid "
+                  "key is not 0")
         if inputs is None:
             main_err, inputs = err, (q, k, v)
         del got, want
     q, k, v = inputs
     B, H, K, S, T, D = QWEN_ATTN
+    variant = k5.variant(q.dtype, D)
     ms = cuda_ms(lambda: k5.flash_attention(q, k, v, causal=True), 20)
+    simt = cuda_ms(lambda: k5.launch("flash", q, k, v, causal=True), 5)
     plain = cuda_ms(lambda: k5.flash_attention_ref(q, k, v, causal=True), 3)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     try:        # the yardstick only; never on the port's path
@@ -977,14 +1027,29 @@ def flash_phase(dev):
         how = "k/v repeated (no enable_gqa in this torch)"
     nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
     flops = 2 * B * H * S * T * D           # causal: half of QK^T and PV
-    log(f"K5 flash_attention {QWEN_ATTN} bf16 causal: {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, scaled_dot_product_attention ({how}) {lib:.4f} ms; "
-        f"{flops / ms / 1e9:.1f} TFLOP/s")
-    return dict(ms=ms, plain_ms=plain, library_ms=lib, max_abs_err=main_err,
-                bound_ms=max(nbytes / HBM_BYTES_PER_S,
-                             flops / BF16_OPS_PER_S) * 1e3,
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S) * 1e3
+    # head dim 256 (gemma3-12b's heads), where the kernel compiles its
+    # warpgroups' turns out
+    B2, H2, K2, S2, D2 = 4, 16, 8, 2048, 256
+    q2 = torch.randn((B2, S2, H2, D2), generator=g, device=dev).to(q.dtype)
+    k2, v2 = (torch.randn((B2, S2, K2, D2), generator=g, device=dev)
+              .to(q.dtype) for _ in range(2))
+    ms256 = cuda_ms(lambda: k5.flash_attention(q2, k2, v2, causal=True), 20)
+    log(f"K5 flash_attention {(B2, H2, K2, S2, S2, D2)} bf16 causal: "
+        f"{k5.variant(q2.dtype, D2)} {ms256:.4f} ms "
+        f"({2 * B2 * H2 * S2 * S2 * D2 / ms256 / 1e9:.1f} TFLOP/s)")
+    del q2, k2, v2
+    log(f"K5 flash_attention {QWEN_ATTN} bf16 causal: {variant} {ms:.4f} ms "
+        f"({flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.1%} of the bound "
+        f"{bound:.4f} ms); the CUDA-core kernel flash {simt:.4f} ms "
+        f"({flops / simt / 1e9:.1f} TFLOP/s); plain {plain:.4f} ms; "
+        f"scaled_dot_product_attention ({how}) {lib:.4f} ms "
+        f"({flops / lib / 1e9:.1f} TFLOP/s)")
+    return dict(variant=variant, ms=ms, plain_ms=plain, library_ms=lib,
+                max_abs_err=main_err, bound_ms=bound,
                 bound_by=("operations" if flops / BF16_OPS_PER_S >
-                          nbytes / HBM_BYTES_PER_S else "bytes"))
+                          nbytes / HBM_BYTES_PER_S else "bytes"),
+                cuda_core_ms=simt)
 
 
 def wkv6_phase(dev):
@@ -1067,16 +1132,22 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
     prefill, decode = fam_mod.prefill, fam_mod.decode_step
     kernel, plain = (getattr(kernel_mod, kernel_name),
                      getattr(kernel_mod, kernel_name + "_ref"))
-    tol = (FLASH_TOL["bfloat16"] if kernel_name == "flash_attention"
-           else WKV_TOL)
-    shadow_errs = []
+    shadow_errs, tols = [], []
+
+    def tolerance(*a):
+        if kernel_name != "flash_attention":
+            return WKV_TOL
+        q, v = a[0], a[2]
+        return kernel_mod.tolerance(kernel_mod.variant(q.dtype, q.shape[-1]),
+                                    q.dtype, v)
 
     def shadowed(*a, **k):
         out = kernel(*a, **k)
         want = plain(*a, **k)
         pairs = (zip(out, want) if isinstance(out, tuple)
                  else [(out, want)])
-        shadow_errs.append([_close(x, y, **tol) for x, y in pairs])
+        tols.append(tolerance(*a))
+        shadow_errs.append([_close(x, y, **tols[-1]) for x, y in pairs])
         return out
 
     def recorded(rec, forced=None):
@@ -1114,9 +1185,18 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
                 mock.patch.object(kernel_mod, kernel_name, plain)):
             out = serve.serve(arch, **kw)
         runs[label] = (out, rec, read_counts())
+        if label == "kernel":
+            n_variant = dict(getattr(getattr(kernel_mod, kernel_name),
+                                     "variant_launches", {}))
         torch.cuda.empty_cache()
     (out, rec, n), (out_p, rec_p, n_p) = runs["kernel"], runs["plain"]
     launches = out["launches"]
+    if kernel_name == "flash_attention":
+        check(n_variant == {"flash_tc": n_layers, "flash": 0},
+              f"{arch}: K5 launches by variant {n_variant}, expected the "
+              f"tensor-core kernel once a layer ({n_layers})")
+        log(f"serve {arch}: K5 launches by variant in the prefill "
+            f"{n_variant}")
     check(launches["prefill"][kernel_name] == n_layers
           and n[kernel_name] == n_layers
           and not any(v for k, v in n.items() if k != kernel_name)
@@ -1128,8 +1208,9 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
     worst = max(err for layer in shadow_errs for _ok, err in layer)
     log(f"serve {arch} shadow check: {kernel_name} == its plain version on "
         f"the same inputs at each of {len(shadow_errs)} launches, max abs "
-        f"err {worst:.3g} (tolerance rtol {tol['rtol']:.3g} atol "
-        f"{tol['atol']:.3g})")
+        f"err {worst:.3g} (tolerance rtol {tols[0]['rtol']:.3g}, atol "
+        f"{min(t['atol'] for t in tols):.3g}-"
+        f"{max(t['atol'] for t in tols):.3g})")
     check(len(shadow_errs) == n_layers and all(
         ok for layer in shadow_errs for ok, _err in layer),
         f"{arch}: {kernel_name} differs from its plain version inside the "
@@ -1171,15 +1252,16 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
         f"serve prefill {out_p['prefill_s'] * 1e3:.2f} ms, first kernel "
         f"serve prefill {out['prefill_s'] * 1e3:.2f} ms")
     torch.cuda.empty_cache()
-    decode_busy_share(dev, arch, fam_mod)
+    busy_shares(dev, arch, fam_mod,
+                "flash_tc" if kernel_name == "flash_attention" else "wkv6")
     f32_divergence(dev, arch, fam_mod, kernel_mod, kernel_name, seed)
     return n[kernel_name]
 
 
-def decode_busy_share(dev, arch, fam_mod, steps=16):
-    """The device's busy share of the decode alone: ``steps`` decode steps of
-    the full-width model after a 2048-token prefill (batch 4), under
-    torch.profiler; -> (share, device ms a step) or None, printed."""
+def busy_shares(dev, arch, fam_mod, kernel_key, steps=16):
+    """The device's busy share of one prefill (batch 4, prompt 2048) and of
+    ``steps`` decode steps after it, each under torch.profiler, with the
+    device time of the kernels whose names hold ``kernel_key``; printed."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1190,29 +1272,49 @@ def decode_busy_share(dev, arch, fam_mod, steps=16):
     B, S = SERVE_KW["batch"], SERVE_KW["prompt_len"]
     prompts = torch.randint(2, cfg.vocab_size, (B, S), device=dev,
                             generator=torch.Generator(dev).manual_seed(1))
-    with torch.no_grad():
-        logits, cache = fam_mod.prefill(model, cfg, prompts,
-                                        max_seq=S + steps + 1)
-        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-        fam_mod.decode_step(model, cfg, cache, tok, S)      # warm
-        wall = {}
+    wall, out = {}, {}
 
-        def decode():
+    def timed(key, fn):
+        def run():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall[key] = time.perf_counter() - t0
+        return run
+
+    def prefill():
+        out["prefill"] = fam_mod.prefill(model, cfg, prompts,
+                                         max_seq=S + steps + 1)
+
+    with torch.no_grad():
+        prefill()                                           # warm
+        del out["prefill"]
+        torch.cuda.empty_cache()
+        times_p, why_p = device_times(timed("prefill", prefill))
+        logits, cache = out.pop("prefill")
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        fam_mod.decode_step(model, cfg, cache, tok, S)      # warm
+
+        def decode():
             for i in range(steps):
                 fam_mod.decode_step(model, cfg, cache, tok, S + 1 + i)
-            torch.cuda.synchronize()
-            wall["s"] = time.perf_counter() - t0
 
-        times, why = device_times(decode)
-    if times:
-        busy = sum(times.values()) / 1e6
-        why = (f"device busy share {busy / wall['s']:.4f}, "
-               f"{busy / steps * 1e3:.3f} ms of device time in a "
-               f"{wall['s'] / steps * 1e3:.3f} ms step (torch.profiler, "
-               f"{steps} steps)")
-    log(f"serve {arch} decode: {why}")
+        times_d, why_d = device_times(timed("decode", decode))
+    if times_p:
+        busy = sum(times_p.values()) / 1e6
+        kern = sum(v for k, v in times_p.items() if kernel_key in k) / 1e6
+        why_p = (f"device busy share {busy / wall['prefill']:.4f}, "
+                 f"{busy * 1e3:.3f} ms of device time in a "
+                 f"{wall['prefill'] * 1e3:.3f} ms prefill, of which "
+                 f"{kernel_key} {kern * 1e3:.3f} ms ({kern / busy:.1%})")
+    if times_d:
+        busy = sum(times_d.values()) / 1e6
+        why_d = (f"device busy share {busy / wall['decode']:.4f}, "
+                 f"{busy / steps * 1e3:.3f} ms of device time in a "
+                 f"{wall['decode'] / steps * 1e3:.3f} ms step")
+    log(f"serve {arch} prefill: {why_p}; decode: {why_d} (torch.profiler, "
+        f"{steps} steps)")
     del model, cache
     torch.cuda.empty_cache()
 
@@ -1293,21 +1395,21 @@ def main(argv=None):
     card = nvidia_smi()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    cuda_kernels = (k3, k5, k6)
-    with ThreadPoolExecutor(len(cuda_kernels)) as pool:   # one nvcc each
-        builds = [pool.submit(_build.build, m.SOURCE) for m in cuda_kernels]
+    sources = [k3.SOURCE, *k5.SOURCES.values(), k6.SOURCE]
+    with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc each
+        builds = [pool.submit(_build.build, src) for src in sources]
         for b in builds:
             b.result()          # raises on a build error
-    for m in cuda_kernels:
-        m.library()
+    k3.library()
+    for name in k5.SOURCES:
+        k5.library(name)
+    k6.library()
     tiles_kernel.compiled()     # imports Triton
-    log(f"built {', '.join(m.SOURCE.name for m in cuda_kernels)} in "
+    log(f"built {', '.join(src.name for src in sources)} in "
         f"{time.perf_counter() - t0:.1f} s")
-    for m in cuda_kernels:
-        log(f"ptxas {m.SOURCE.name}: " + " | ".join(
-            ln.strip() for ln in
-            _build.library_path(m.SOURCE).with_suffix(".log")
-            .read_text().splitlines() if "registers" in ln or "spill" in ln))
+    for src in sources:
+        log(f"ptxas {src.name}: " + "; ".join(ptxas_summary(
+            _build.library_path(src).with_suffix(".log").read_text())))
     rng = np.random.default_rng(args.seed)
     agents, fws = fleet()
     rows = {}
@@ -1360,7 +1462,7 @@ def main(argv=None):
             replaces="src/repro/kernels/psdsf_score/kernel.py:168"),
         "flash_attention": dict(
             route="cuda",
-            source="src/repro_torch/kernels/flash_attention/csrc/flash.cu",
+            source="src/repro_torch/kernels/flash_attention/csrc/flash_tc.cu",
             replaces="src/repro/kernels/flash_attention/kernel.py:80"),
         "wkv6": dict(
             route="cuda",

@@ -1,10 +1,24 @@
-"""Wrapper of the flash attention kernel (K5).
+"""Wrapper of the flash attention kernels (K5).
 
-For tensors on the CPU :func:`flash_attention` runs the kernel's plain
-version (:mod:`.ref`); for CUDA tensors it launches ``csrc/flash.cu`` (built
-by nvcc on first use, see :mod:`repro_torch._build`) on PyTorch's current
-stream, or raises :class:`~repro_torch.kernels.KernelError`.
-``flash_attention.launches`` counts kernel launches.
+For tensors on the CPU :func:`flash_attention` runs the kernels' plain
+version (:mod:`.ref`); for CUDA tensors it launches one of two CUDA
+sources (built by nvcc on first use, see :mod:`repro_torch._build`) on
+PyTorch's current stream, or raises :class:`~repro_torch.kernels.KernelError`.
+Which one is a rule on the type and the head dim alone (:func:`variant`):
+
+- ``"flash_tc"`` (``csrc/flash_tc.cu``, wgmma on the tensor cores, tiles
+  fed by TMA): bf16 and f16 with D in (64, 128, 256), the head dims of
+  qwen2, qwen3, mistral-nemo and gemma3.  TMA reads q, k and v in place,
+  so their base addresses and strides must be multiples of 16 bytes
+  (:func:`tma_misalignment`); a call that breaks this raises.
+- ``"flash"`` (``csrc/flash.cu``, f32 FMAs on the CUDA cores): f32 at any
+  supported D (no TF32 enters), and bf16 / f16 at D in (16, 32).
+
+No call gives way from one kernel to the other, or to the plain version.
+``flash_attention.launches`` counts every launch, and
+``flash_attention.variant_launches`` counts them by variant.
+:func:`tolerance` states how far each variant may lie from the plain
+version.
 """
 from __future__ import annotations
 
@@ -18,36 +32,96 @@ from repro_torch import _build
 from repro_torch.kernels import KernelError
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = {"flash_tc": CSRC / "flash_tc.cu", "flash": CSRC / "flash.cu"}
+ENTRY = {"flash_tc": "flash_tc", "flash": "flash_attention"}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (16, 32, 64, 128, 256)
+TC_DTYPES = (torch.bfloat16, torch.float16)
+TC_HEAD_DIMS = (64, 128, 256)
 
-_LIB = None
+#: unit roundoff of the type P is rounded to before the tensor cores' PV
+UNIT_ROUNDOFF = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
 
 
-def library() -> ctypes.CDLL:
-    """The built kernel library (nvcc runs on the first call)."""
-    global _LIB
-    if _LIB is None:
-        lib = _build.load(SOURCE)
+def variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a CUDA call of this type and head dim launches."""
+    if dtype in TC_DTYPES and head_dim in TC_HEAD_DIMS:
+        return "flash_tc"
+    return "flash"
+
+
+def tolerance(variant_name: str, dtype: torch.dtype, v) -> dict:
+    """``rtol``/``atol`` within which the kernel ``variant_name`` equals the
+    plain version on the same inputs (v is the call's value tensor).
+
+    Both compute the scores and the softmax in f32 and differ in the order
+    of their sums; a bf16 or f16 output may then round to the neighbouring
+    number on either side (two output roundings: rtol 2**-7 for bf16,
+    2**-10 for f16; f32: rtol 1e-5, atol 2e-5).  ``flash_tc`` also rounds
+    P to the input type before the PV product, as every tensor-core flash
+    kernel does: with u the type's unit roundoff (2**-8 bf16, 2**-11 f16)
+    each weight moves by at most u * p, so the output moves by at most
+    ``u * sum_t(p_t |v_t|) / l <= u * max|v|``.  That bound is its atol,
+    taken from this call's v."""
+    if dtype == torch.float32:
+        return dict(rtol=1e-5, atol=2e-5)
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -10
+    if variant_name == "flash_tc":
+        return dict(rtol=rtol, atol=UNIT_ROUNDOFF[dtype]
+                    * float(v.detach().abs().max()))
+    return dict(rtol=rtol, atol=1e-5)
+
+
+def tma_misalignment(t: torch.Tensor) -> str | None:
+    """Why TMA cannot read the (B, rows, heads, D) tensor ``t`` in place
+    (its base address or a stride not a multiple of 16 bytes), or None."""
+    es = t.element_size()
+    if t.data_ptr() % 16:
+        return f"base address {t.data_ptr():#x} is not 16-byte aligned"
+    bad = [i for i in range(3) if (t.stride(i) * es) % 16]
+    if bad:
+        return (f"strides {tuple(t.stride())} (elements of {es} bytes): "
+                f"dims {bad} are not multiples of 16 bytes")
+    return None
+
+
+def library(variant_name: str = "flash_tc") -> ctypes.CDLL:
+    """The built library of one kernel (nvcc runs on the first call)."""
+    lib = _LIBS.get(variant_name)
+    if lib is None:
+        lib = _build.load(SOURCES[variant_name])
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.flash_attention_launch.argtypes = (
-            [ptr] * 4 + [i32] * 7 + [i64] * 9 + [i32, i32, ctypes.c_float,
-                                                 ptr])
-        lib.flash_attention_launch.restype = i32
-        lib.flash_attention_error.argtypes = [i32]
-        lib.flash_attention_error.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+        launch = getattr(lib, ENTRY[variant_name] + "_launch")
+        launch.argtypes = ([ptr] * 4 + [i32] * 7 + [i64] * 9
+                           + [i32, i32, ctypes.c_float, ptr])
+        launch.restype = i32
+        error = getattr(lib, ENTRY[variant_name] + "_error")
+        error.argtypes = [i32]
+        error.restype = ctypes.c_char_p
+        _LIBS[variant_name] = lib
+    return lib
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q: (B,S,H,D); k/v: (B,T,K,D) with H % K == 0 -> (B,S,H,D) in q's
     type.  Positions are the indices: key t is visible to query s when
     ``t <= s`` (if causal) and ``s - t < window`` (if window > 0).  Any S
-    and T; on CUDA, D in (16, 32, 64, 128, 256) and f32, bf16 or f16."""
+    and T; on CUDA, D in (16, 32, 64, 128, 256) and f32, bf16 or f16, on
+    the kernel that :func:`variant` names."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
+    return launch(variant(q.dtype, q.shape[-1]), q, k, v, causal=causal,
+                  window=window)
+
+
+def launch(variant_name: str, q, k, v, *, causal: bool = True,
+           window: int = 0):
+    """Launch the kernel ``variant_name`` on CUDA tensors (the entry
+    :func:`flash_attention` takes; called directly only to time the
+    CUDA-core kernel where the rule picks the other)."""
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise KernelError(f"flash_attention: q, k, v must share one CUDA "
@@ -69,22 +143,37 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
                           f"D in {HEAD_DIMS}, B*H <= 65535)")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise KernelError("flash_attention: the head dim must be contiguous")
+    if variant_name == "flash_tc":
+        if q.dtype not in TC_DTYPES or D not in TC_HEAD_DIMS:
+            raise KernelError(f"flash_attention: flash_tc takes bf16 or f16 "
+                              f"at D in {TC_HEAD_DIMS} (got {q.dtype}, D={D})")
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            why = tma_misalignment(t)
+            if why:
+                raise KernelError(f"flash_attention: TMA cannot read {name}: "
+                                  f"{why}")
+        scale = math.log2(math.e) / math.sqrt(D)
+    else:
+        scale = 1.0 / math.sqrt(D)
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
-    lib = library()
+    lib = library(variant_name)
+    entry = ENTRY[variant_name]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.flash_attention_launch(
+        rc = getattr(lib, entry + "_launch")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             DTYPES[q.dtype], B, H, K, S, T, D,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
-            int(bool(causal)), int(window), 1.0 / math.sqrt(D), stream)
+            int(bool(causal)), int(window), scale, stream)
     if rc != 0:
-        raise KernelError("flash_attention launch failed: "
-                          + lib.flash_attention_error(rc).decode())
+        raise KernelError(f"flash_attention ({variant_name}) launch failed: "
+                          + getattr(lib, entry + "_error")(rc).decode())
     flash_attention.launches += 1
+    flash_attention.variant_launches[variant_name] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.variant_launches = dict.fromkeys(SOURCES, 0)

@@ -187,14 +187,7 @@ def test_pergrant_allocator_launches_k4(dev):
 
 # -- K5 flash attention and K6 WKV6 --------------------------------------------
 
-# the kernel and its plain version compute in f32 from the same inputs and
-# differ in the order of their sums; a bf16 or f16 output may then round to
-# the neighbouring number (two ulps: rtol 2**-7, 2**-10)
-FLASH_TOL = {torch.float32: dict(rtol=1e-5, atol=2e-5),
-             torch.bfloat16: dict(rtol=2 ** -7, atol=1e-5),
-             torch.float16: dict(rtol=2 ** -10, atol=1e-5)}
-
-
+# tolerances by kernel variant: repro_torch.kernels.flash_attention.ops.tolerance
 @pytest.mark.parametrize("B,H,K,S,T,D,causal,window", [
     (1, 12, 2, 256, 256, 128, True, 0),    # qwen2-1.5b heads
     (2, 4, 2, 200, 200, 16, True, 5),      # window below the tile, ragged
@@ -213,13 +206,17 @@ def test_flash_attention_kernel_equals_plain(dev, B, H, K, S, T, D, causal,
     q = torch.randn((B, S, H, D), generator=g, device=dev).to(dtype)
     k = torch.randn((B, T, K, D), generator=g, device=dev).to(dtype)
     v = torch.randn((B, T, K, D), generator=g, device=dev).to(dtype)
+    variant = ("flash_tc" if dtype != torch.float32 and D >= 64 else "flash")
     n0 = ops.flash_attention.launches
+    by0 = ops.flash_attention.variant_launches[variant]
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert ops.flash_attention.launches == n0 + 1
+    assert ops.flash_attention.variant_launches[variant] == by0 + 1
     want = ops.flash_attention_ref(q, k, v, causal=causal, window=window)
     assert got.dtype == dtype and got.shape == want.shape
-    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+    torch.testing.assert_close(got.float(), want.float(),
+                               **ops.tolerance(variant, dtype, v))
 
 
 def test_flash_attention_kernel_reads_strides(dev):
@@ -231,7 +228,48 @@ def test_flash_attention_kernel_reads_strides(dev):
     q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
     got = ops.flash_attention(q, k, v, causal=True, window=0)
     want = ops.flash_attention_ref(q, k, v, causal=True, window=0)
-    torch.testing.assert_close(got, want, **FLASH_TOL[torch.float32])
+    torch.testing.assert_close(got, want,
+                               **ops.tolerance("flash", torch.float32, v))
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_tc_reads_a_fused_projection(dev, D):
+    """bf16 q/k/v as views of a fused projection: strides and base
+    addresses multiples of 16 bytes, read in place by TMA."""
+    from repro_torch.kernels.flash_attention import ops
+
+    g = torch.Generator(dev).manual_seed(D)
+    qkv = torch.randn((2, 300, 12 + 2 + 2, D), generator=g,
+                      device=dev).to(torch.bfloat16)
+    q, k, v = qkv[:, :, :12], qkv[:, :, 12:14], qkv[:, :, 14:]
+    assert not q.is_contiguous()
+    by0 = ops.flash_attention.variant_launches["flash_tc"]
+    got = ops.flash_attention(q, k, v, causal=True, window=0)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.variant_launches["flash_tc"] == by0 + 1
+    want = ops.flash_attention_ref(q, k, v, causal=True, window=0)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **ops.tolerance("flash_tc", torch.bfloat16, v))
+
+
+@pytest.mark.parametrize("case", ["row stride", "base address"])
+def test_flash_tc_refuses_what_tma_cannot_read(dev, case):
+    """A bf16 call on the tensor-core kernel whose strides or base address
+    are not multiples of 16 bytes raises; nothing launches."""
+    from repro_torch.kernels import KernelError
+    from repro_torch.kernels.flash_attention import ops
+
+    if case == "row stride":        # heads of 68 elements: 136 bytes
+        q = torch.zeros((1, 64, 4, 68), device=dev,
+                        dtype=torch.bfloat16)[..., :64]
+    else:                           # one element past a 16-byte boundary
+        q = torch.zeros(64 * 4 * 64 + 1, device=dev,
+                        dtype=torch.bfloat16)[1:].view(1, 64, 4, 64)
+    k = torch.zeros((1, 64, 2, 64), device=dev, dtype=torch.bfloat16)
+    n0 = ops.flash_attention.launches
+    with pytest.raises(KernelError, match="TMA"):
+        ops.flash_attention(q, k, k, causal=True)
+    assert ops.flash_attention.launches == n0
 
 
 @pytest.mark.parametrize("B,S,H,D,chunk,strong", [
