@@ -11,9 +11,13 @@ first launch).  Phases:
    nvcc per CUDA source, in parallel) and each kernel's registers and
    spills from ptxas;
 1. kernels: each kernel against its plain PyTorch version on the card at
-   the fleet shapes, exact equality required (K1 at (512,) and (4096,),
-   K2 at (512, 4096), random quantized scores with about half masked plus
-   an all-masked case; K3 whole epochs for 4 criteria x {pooled, rrr}; K4
+   the fleet shapes, exact equality required (K1 at (512,), (4096,) and
+   (7,), K2 at (3, 2), (130, 129), (9, 300), (512, 4096) and (4096, 4096),
+   every edge case of ``ref.argmin_cases``: quantized ties, -0.0 against
+   +0.0, feasible cells at BIG, inf, all masked; with and without ``out``,
+   on contiguous inputs and on views; then K1's and K2's time a call with
+   and without ``out``, host enqueue, device time, the launch floor and
+   two PyTorch yardsticks; K3 whole epochs for 4 criteria x {pooled, rrr}; K4
    at (512, 4096, 2), (300, 257, 3), (128, 128, 8) and (1, 1, 1) on
    quarter-quantized and on non-dyadic inputs, with an exhausted row, a
    blocked column and an all-infeasible case); times of kernel, plain
@@ -119,8 +123,14 @@ def ptxas_summary(text):
     arguments, registers, spill stores and loads, and any ptxas warning."""
     def short(mangled):
         args = re.search(r"I(\w+?)Li(\d+)E", mangled)
-        return (f"{args.group(1).lstrip('0123456789')}, D={args.group(2)}"
-                if args else mangled[-40:])
+        if args:
+            return f"{args.group(1).lstrip('0123456789')}, D={args.group(2)}"
+        for name in ("argmin2d_kernel", "argmin1d_kernel", "noop_kernel"):
+            if name in mangled:
+                path = {"ILb1E": "<vec>", "ILb0E": "<scalar>"}
+                return name + next((v for k, v in path.items()
+                                    if k in mangled), "")
+        return mangled[-40:]
 
     out, name, spills = [], None, "spills not reported"
     for ln in text.splitlines():
@@ -326,60 +336,155 @@ def psdsf_phase(rng, dev):
                           nbytes / HBM_BYTES_PER_S else "bytes"))
 
 
+ARGMIN_SHAPES_1D = ((FLEET_N,), (FLEET_J,), (7,))
+ARGMIN_SHAPES_2D = ((3, 2), (130, 129), (9, 300), (FLEET_N, FLEET_J),
+                    (4096, 4096))
+
+
+def argmin_sweep(rng, dev):
+    """K1 and K2 against their plain versions on every edge case of their
+    contract (``ref.argmin_cases``): exact value (sign of zero included)
+    and index, with and without ``out``, on contiguous inputs and on views
+    (strided columns for K1; for K2 a base and row stride off the 16-byte
+    grid, the kernel's scalar path).  -> the number of cases."""
+    import torch
+
+    from repro_torch.kernels.psdsf_score import ops as tiles
+    from repro_torch.kernels.psdsf_score.ref import argmin_cases
+
+    def same(got, want, what):
+        a = [float(got[0])] + [int(x) for x in got[1:]]
+        b = [float(want[0])] + [int(x) for x in want[1:]]
+        check(a == b and np.signbit(a[0]) == np.signbit(b[0]),
+              f"{what}: {a} != {b}")
+
+    n = 0
+    for ndim, shapes in ((1, ARGMIN_SHAPES_1D), (2, ARGMIN_SHAPES_2D)):
+        fn = tiles.masked_argmin1d if ndim == 1 else tiles.masked_argmin2d
+        plain = (tiles.masked_argmin1d_ref if ndim == 1
+                 else tiles.masked_argmin2d_ref)
+        out = tiles.ArgminOut(dev, ndim)
+        for shape in shapes:
+            for label, s, m in argmin_cases(rng, shape):
+                s = torch.as_tensor(s, device=dev)
+                m = torch.as_tensor(m, device=dev)
+                want = plain(s, m)
+                wide = (shape[0], 3) if ndim == 1 else (shape[0],
+                                                        shape[1] + 1)
+                sv = torch.zeros(wide, device=dev)
+                mv = torch.zeros(wide, dtype=torch.uint8, device=dev)
+                if ndim == 1:
+                    sv[:, 1], mv[:, 1] = s, m
+                    view = (sv[:, 1], mv[:, 1])
+                else:
+                    sv[:, 1:], mv[:, 1:] = s, m
+                    view = (sv[:, 1:], mv[:, 1:])
+                for args, how in (((s, m), "contiguous"), (view, "view")):
+                    what = f"K{ndim} at {shape} {label}, {how}"
+                    same(fn(*args), want, what)
+                    same(fn(*args, out=out), want, what + ", out")
+                    n += 1
+    return n
+
+
+def argmin_phase(rng, dev):
+    """K1 and K2: the edge-case sweep, then times at the main path's shapes
+    -> the kernels rows.  Per call: CUDA-event means of back-to-back calls
+    with ``out`` (what the tiles loop makes) and without; the host's
+    enqueue time (``perf_counter`` over 1,000 calls, no sync); the device
+    time a launch (torch.profiler); the plain version; two yardsticks,
+    ``torch.min(masked, dim=0)`` on a premasked copy and ``torch.where`` +
+    ``torch.min``, the whole function; and the launch floor, an empty
+    kernel launched through the same ctypes interface."""
+    import torch
+
+    from repro_torch.kernels.psdsf_score import ops as tiles
+
+    t0 = time.perf_counter()
+    n = argmin_sweep(rng, dev)
+    log(f"K1/K2 edge-case sweep: {n} cases x (with, without out) equal to "
+        f"the plain versions ({time.perf_counter() - t0:.1f} s)")
+
+    def enqueue_us(fn, calls=1000):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    def device_us(fn, calls=50, tries=3):
+        def run():
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+
+        for _ in range(tries):  # a profile may come back empty now and then
+            times, why = device_times(run)
+            if times is not None:
+                break
+        else:
+            return None, f"{why}, {tries} tries"
+        ours = {}
+        for k, v in times.items():
+            if "argmin" in k:
+                name = re.search(r"argmin\w*", k).group(0)
+                ours[name] = ours.get(name, 0.0) + v / calls
+        return sum(ours.values()), ", ".join(
+            f"{k} {v:.2f} us" for k, v in ours.items())
+
+    index = torch.cuda.current_device()
+    floor_ms = cuda_ms(lambda: tiles.noop_launch(index), 1000)
+    floor_us = enqueue_us(lambda: tiles.noop_launch(index))
+    log(f"launch floor (empty kernel through the argmin.cu interface): "
+        f"{floor_ms:.4f} ms a call, host enqueue {floor_us:.2f} us")
+    rows = {}
+    for name, shape in (("masked_argmin1d", (FLEET_N,)),
+                        ("masked_argmin1d", (FLEET_J,)),
+                        ("masked_argmin2d", (FLEET_N, FLEET_J))):
+        fn = getattr(tiles, name)
+        plain_fn = getattr(tiles, name + "_ref")
+        s = torch.as_tensor(np.round(rng.standard_normal(shape) * 4) / 4,
+                            dtype=torch.float32, device=dev)
+        ok = torch.as_tensor(rng.random(shape) < 0.5, device=dev)
+        out = tiles.ArgminOut(dev, len(shape))
+        masked = torch.where(ok, s, tiles.BIG).reshape(-1)
+        reps = 1000
+        with_out = cuda_ms(lambda: fn(s, ok, out=out), reps)
+        fresh = cuda_ms(lambda: fn(s, ok), reps)
+        host_out = enqueue_us(lambda: fn(s, ok, out=out))
+        host_fresh = enqueue_us(lambda: fn(s, ok))
+        dev_us, dev_why = device_us(lambda: fn(s, ok, out=out))
+        plain = cuda_ms(lambda: plain_fn(s, ok), 50)
+        lib = cuda_ms(lambda: torch.min(masked, dim=0), reps)
+        lib_where = cuda_ms(lambda: torch.min(
+            torch.where(ok, s, tiles.BIG).reshape(-1), dim=0), reps)
+        nbytes = s.numel() * 5 + 4 * (1 + len(shape))
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"{'K1' if len(shape) == 1 else 'K2'} {name} {shape}: "
+            f"{with_out:.4f} ms a call with out, {fresh:.4f} ms without; "
+            f"host enqueue {host_out:.2f} / {host_fresh:.2f} us; device "
+            + (f"{dev_us:.2f} us a launch ({dev_why})" if dev_us else
+               f"not measured ({dev_why})")
+            + f"; plain {plain:.4f} ms; torch.min {lib:.4f} ms, torch.where"
+            f" + torch.min {lib_where:.4f} ms; launch floor "
+            f"{floor_ms:.4f} ms; bound {bound:.3g} ms (bytes)")
+        if shape != (FLEET_J,):
+            rows[name] = dict(ms=with_out, plain_ms=plain, library_ms=lib,
+                              max_abs_err=0.0, bound_ms=bound,
+                              bound_by="bytes")
+    return rows
+
+
 def kernels_phase(rng, dev, agents, fws):
     import torch
 
     from repro_torch.core import engine_torch
     from repro_torch.kernels.epoch_persistent import ops as k3
     from repro_torch.kernels.epoch_persistent.ref import persistent_epoch_ref
-    from repro_torch.kernels.psdsf_score import ops as tiles
 
-    rows = {}
-
-    def scores(shape):
-        # quarter-quantized scores: plenty of exact ties, across tiles too
-        return torch.as_tensor(
-            np.round(rng.standard_normal(shape) * 4) / 4, dtype=torch.float32,
-            device=dev)
-
-    # K1 / K2: exact (val, index) equality, random and all-masked inputs
-    for L in (FLEET_N, FLEET_J):
-        s = scores(L)
-        ok = torch.as_tensor(rng.random(L) < 0.5, device=dev)
-        for okv in (ok, torch.zeros_like(ok)):
-            got = tiles.masked_argmin1d(s, okv)
-            want = tiles.masked_argmin1d_ref(s, okv)
-            check(int(got[1]) == int(want[1]) and float(got[0]) ==
-                  float(want[0]), f"K1 at ({L},): {got} != {want}")
-        masked = torch.where(ok, s, tiles.BIG)
-        ms = cuda_ms(lambda: tiles.masked_argmin1d(s, ok), 200)
-        plain = cuda_ms(lambda: tiles.masked_argmin1d_ref(s, ok), 200)
-        lib = cuda_ms(lambda: torch.min(masked, dim=0), 200)
-        log(f"K1 masked_argmin1d ({L},): {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"torch.min {lib:.4f} ms")
-        if L == FLEET_N:
-            rows["masked_argmin1d"] = dict(
-                ms=ms, plain_ms=plain, library_ms=lib, max_abs_err=0.0,
-                bound_ms=(L * 5 + 8) / HBM_BYTES_PER_S * 1e3,
-                bound_by="bytes")
-    s = scores((FLEET_N, FLEET_J))
-    feas = torch.as_tensor(rng.random((FLEET_N, FLEET_J)) < 0.5, device=dev)
-    for fv in (feas, torch.zeros_like(feas)):
-        got = tiles.masked_argmin2d(s, fv)
-        want = tiles.masked_argmin2d_ref(s, fv)
-        check([float(got[0]), int(got[1]), int(got[2])] ==
-              [float(want[0]), int(want[1]), int(want[2])],
-              f"K2 at {tuple(s.shape)}: {got} != {want}")
-    masked = torch.where(feas, s, tiles.BIG).reshape(-1)
-    ms = cuda_ms(lambda: tiles.masked_argmin2d(s, feas), 100)
-    plain = cuda_ms(lambda: tiles.masked_argmin2d_ref(s, feas), 20)
-    lib = cuda_ms(lambda: torch.min(masked, dim=0), 100)
-    log(f"K2 masked_argmin2d {tuple(s.shape)}: {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, torch.min {lib:.4f} ms")
-    rows["masked_argmin2d"] = dict(
-        ms=ms, plain_ms=plain, library_ms=lib, max_abs_err=0.0,
-        bound_ms=(s.numel() * 5 + 12) / HBM_BYTES_PER_S * 1e3,
-        bound_by="bytes")
+    rows = argmin_phase(rng, dev)
 
     # K3: whole fleet epochs, every returned and in-place array equal
     arr = fleet_arrays(agents, fws)
@@ -508,10 +613,10 @@ def plain_selects():
     from repro_torch.core import engine_torch
     from repro_torch.kernels.psdsf_score import ops as tiles
 
-    def argmin1d(vec, ok):
+    def argmin1d(vec, ok, out):
         return tiles.masked_argmin1d_ref(vec, ok)[1]
 
-    def argmin2d(mat, ok):
+    def argmin2d(mat, ok, out):
         _, n, j = tiles.masked_argmin2d_ref(mat, ok)
         return n, j
 
@@ -1389,22 +1494,24 @@ def main(argv=None):
     from repro_torch.kernels.epoch_persistent import ops as k3
     from repro_torch.kernels.flash_attention import ops as k5
     from repro_torch.kernels.psdsf_score import kernel as tiles_kernel
+    from repro_torch.kernels.psdsf_score import ops as tiles
     from repro_torch.kernels.rwkv6 import ops as k6
 
     dev = torch.device("cuda")
     card = nvidia_smi()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    sources = [k3.SOURCE, *k5.SOURCES.values(), k6.SOURCE]
+    sources = [tiles.SOURCE, k3.SOURCE, *k5.SOURCES.values(), k6.SOURCE]
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc each
         builds = [pool.submit(_build.build, src) for src in sources]
         for b in builds:
             b.result()          # raises on a build error
+    tiles.library()
     k3.library()
     for name in k5.SOURCES:
         k5.library(name)
     k6.library()
-    tiles_kernel.compiled()     # imports Triton
+    tiles_kernel.compiled()     # imports Triton (K4)
     log(f"built {', '.join(src.name for src in sources)} in "
         f"{time.perf_counter() - t0:.1f} s")
     for src in sources:
@@ -1445,12 +1552,12 @@ def main(argv=None):
             check(n > 0, f"main path never launched {name}")
     meta = {
         "masked_argmin1d": dict(
-            route="triton",
-            source="src/repro_torch/kernels/psdsf_score/kernel.py",
+            route="cuda",
+            source="src/repro_torch/kernels/psdsf_score/csrc/argmin.cu",
             replaces="src/repro/kernels/psdsf_score/kernel.py:90"),
         "masked_argmin2d": dict(
-            route="triton",
-            source="src/repro_torch/kernels/psdsf_score/kernel.py",
+            route="cuda",
+            source="src/repro_torch/kernels/psdsf_score/csrc/argmin.cu",
             replaces="src/repro/kernels/psdsf_score/kernel.py:136"),
         "persistent_epoch": dict(
             route="cuda",

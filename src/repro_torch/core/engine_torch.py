@@ -10,10 +10,11 @@ runs the loop:
   * ``"persistent"`` (default) — the whole epoch segment is ONE launch of
     the persistent CUDA kernel (:mod:`repro_torch.kernels.epoch_persistent`);
     on the CPU its plain version runs, which is the plain loop below;
-  * ``"tiles"`` — the plain loop with its selects on the Triton masked
-    argmins (:mod:`repro_torch.kernels.psdsf_score`); on the CPU their
-    plain versions.  Exact ties across 128-wide tiles resolve in tile order
-    (the reference's ``use_pallas=True`` caveat);
+  * ``"tiles"`` — the plain loop with its selects on the masked argmins
+    K1/K2 (:mod:`repro_torch.kernels.psdsf_score`, one CUDA launch each,
+    into output scratch made once per segment); on the CPU their plain
+    versions.  Exact ties across 128-wide tiles resolve in tile order (the
+    reference's ``use_pallas=True`` caveat);
   * ``None`` — the plain loop of tensor operations, the counterpart of the
     reference's default loop of array operations.
 
@@ -138,12 +139,12 @@ def _flat_tie_low(mat, mask):
     return flat // mat.shape[1], flat % mat.shape[1]
 
 
-def _tiles_1d(vec, ok):
-    return _tiles.masked_argmin1d(vec, ok)[1]
+def _tiles_1d(vec, ok, out):
+    return _tiles.masked_argmin1d(vec, ok, out=out)[1]
 
 
-def _tiles_2d(mat, ok):
-    _, n, j = _tiles.masked_argmin2d(mat, ok)
+def _tiles_2d(mat, ok, out):
+    _, n, j = _tiles.masked_argmin2d(mat, ok, out=out)
     return n, j
 
 
@@ -320,7 +321,14 @@ def epoch_loop(X, D, TD, C, FREE, phi, wanted, allowed, perms, used,
             argmin1d=lambda v, ok: _argmin_tie_low_sharded(v, ok, shards),
             argmin2d=lambda m, ok: _argmin2d_tie_low_sharded(m, ok, shards))
     if kernel == "tiles":
-        return run_loop(*args, **kw, argmin1d=_tiles_1d, argmin2d=_tiles_2d)
+        # one output holder per select for the whole segment: each grant
+        # consumes (n, j) on the same stream before the next select
+        # overwrites them
+        out1 = _tiles.ArgminOut(X.device, 1)
+        out2 = _tiles.ArgminOut(X.device, 2)
+        return run_loop(*args, **kw,
+                        argmin1d=lambda v, ok: _tiles_1d(v, ok, out1),
+                        argmin2d=lambda m, ok: _tiles_2d(m, ok, out2))
     return run_loop(*args, **kw)
 
 

@@ -5,8 +5,8 @@ Each kernel package holds the kernel (Triton ``kernel.py`` or CUDA
 kernel launch for CUDA tensors, a launch count) and its plain PyTorch
 version ``ref.py``:
 
-  psdsf_score      — masked argmins of the epoch's selects and the fused
-                     per-grant PS-DSF pick (K1, K2, K4; Triton)
+  psdsf_score      — masked argmins of the epoch's selects (K1, K2; CUDA
+                     C++) and the fused per-grant PS-DSF pick (K4; Triton)
   epoch_persistent — the whole epoch segment in one launch (K3; CUDA C++)
   flash_attention  — the dense LMs' prefill attention (K5; CUDA C++)
   rwkv6            — RWKV6's chunked WKV recurrence (K6; CUDA C++)

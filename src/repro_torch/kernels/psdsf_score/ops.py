@@ -1,25 +1,38 @@
 """Wrappers of the psdsf_score kernels (K1, K2, K4).
 
 For tensors on the CPU each wrapper runs the kernel's plain version
-(:mod:`.ref`); for CUDA tensors it launches the Triton kernel
-(:mod:`.kernel`) or raises :class:`~repro_torch.kernels.KernelError`.
-Each wrapper counts its own launches in its ``launches`` attribute
-(compare runs of the plain versions do not count).
+(:mod:`.ref`); for CUDA tensors it launches the kernel or raises
+:class:`~repro_torch.kernels.KernelError`.  Each wrapper counts its own
+launches in its ``launches`` attribute (compare runs of the plain versions
+do not count).
 
   * :func:`masked_argmin1d` — masked argmin over a score vector (an RRR
-    server visit, or DRF/TSF scores against row feasibility);
+    server visit, or DRF/TSF scores against row feasibility); one launch of
+    ``csrc/argmin.cu``;
   * :func:`masked_argmin2d` — masked argmin over a maintained (N, J) score
-    matrix (pooled selection in the incremental device epoch);
+    matrix (pooled selection in the incremental device epoch); one launch of
+    ``csrc/argmin.cu``;
   * :func:`psdsf_argmin` — fused PS-DSF / rPS-DSF score, feasibility and
     argmin from raw (x, phi, d, res), the per-grant ``BatchedEpoch``
-    backend.
+    backend; two Triton launches (:mod:`.kernel`).
 
 Results stay on the device as 0-d tensors, so a select costs no host sync.
+K1 and K2 write into an :class:`ArgminOut` the caller keeps (``out=``): a
+call with it allocates nothing, makes no tensor and can be captured in a
+CUDA graph.  The holder also carries K2's 16-byte workspace, which every
+launch leaves ready for the next.  Without ``out`` each call makes a fresh
+holder (a convenience for one-off calls and tests; the tiles loop passes
+one).
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+from pathlib import Path
+
 import torch
 
+from repro_torch import _build
 from repro_torch.kernels import KernelError
 from repro_torch.kernels.psdsf_score import kernel
 from repro_torch.kernels.psdsf_score.ref import (  # noqa: F401 (re-exported)
@@ -31,66 +44,192 @@ from repro_torch.kernels.psdsf_score.ref import (  # noqa: F401 (re-exported)
     psdsf_argmin_ref,
 )
 
+SOURCE = Path(__file__).resolve().parent / "csrc" / "argmin.cu"
+_F32 = torch.float32
+_MASKS = (torch.bool, torch.uint8)
 
-def _check(name, s, mask, ndim):
-    if s.device.type != "cuda" or mask.device != s.device:
-        raise KernelError(f"{name}: scores and mask must share one CUDA "
-                         f"device (got {s.device}, {mask.device})")
-    if s.dtype != torch.float32 or s.dim() != ndim or mask.shape != s.shape:
-        raise KernelError(f"{name}: needs f32 scores of rank {ndim} and a "
-                         f"mask of the same shape (got {s.dtype} "
-                         f"{tuple(s.shape)}, {tuple(mask.shape)})")
-    if mask.dtype not in (torch.bool, torch.uint8):
-        raise KernelError(f"{name}: the mask must be bool or uint8, got "
-                         f"{mask.dtype}")
-    return mask.view(torch.uint8)
+_LIB = None
 
 
-def masked_argmin1d(s, ok):
+def library() -> ctypes.CDLL:
+    """The built K1/K2 library (nvcc runs on the first call)."""
+    global _LIB
+    if _LIB is None:
+        lib = _build.load(SOURCE)
+        i32 = ctypes.c_int
+        for fn in (lib.argmin2d_launch, lib.argmin1d_launch):
+            fn.argtypes = [ctypes.c_void_p]     # an ArgminOut's word array
+            fn.restype = i32
+        lib.argmin_noop_launch.argtypes = [i32, ctypes.c_void_p]
+        lib.argmin_noop_launch.restype = i32
+        lib.argmin_error.argtypes = [i32]
+        lib.argmin_error.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+class ArgminOut:
+    """Outputs of one select, made once and handed to every call as
+    ``out=``: ``views``, the 0-d tensors a call returns ((val, i) for K1,
+    (val, n, j) for K2; f32 and int32); for K2 the ``workspace`` its blocks
+    meet in (an int64 slot, all ones, then the ticket word, 0; every launch
+    leaves it so); and the array of 64-bit words in which a CUDA call passes
+    its arguments (``Argmin1dArgs`` / ``Argmin2dArgs`` of
+    ``csrc/argmin.cu``).  A call overwrites the views; a caller that keeps a
+    result past the next call on the same holder copies it (``ns[count] =
+    n`` does).  Calls on one holder must not overlap (on two streams, or a
+    graph replay beside a direct call): they share outputs and workspace.
+    Calls on different holders never share anything."""
+
+    __slots__ = ("views", "workspace", "device_index", "_ptrs", "_args",
+                 "_addr")
+
+    def __init__(self, device, ndim: int):
+        if ndim not in (1, 2):
+            raise ValueError(f"ArgminOut: ndim must be 1 or 2, got {ndim}")
+        device = torch.device(device)
+        self.views = (torch.empty((), dtype=_F32, device=device),) + tuple(
+            torch.empty((), dtype=torch.int32, device=device)
+            for _ in range(ndim))
+        # [-1, 0]: the slot all ones, the ticket (and its pad word) zero
+        self.workspace = (torch.arange(-1, 1, dtype=torch.int64,
+                                       device=device) if ndim == 2 else None)
+        self.device_index = self.views[0].get_device()
+        self._ptrs = tuple(v.data_ptr() for v in self.views) + (
+            () if ndim == 1 else (self.workspace.data_ptr(),))
+        self._args = (ctypes.c_longlong * (10 if ndim == 1 else 16))()
+        self._addr = ctypes.addressof(self._args)
+
+    def write(self, result):
+        """Copy a plain version's result into the holder -> its views."""
+        for view, r in zip(self.views, result):
+            view.copy_(r)
+        return self.views
+
+
+@functools.lru_cache(maxsize=64)
+def _blocks2d(N: int, J: int, bn: int, bj: int):
+    """-> K2's tile words (log2 bn, log2 bj, tj, pad): the reference's tile
+    (:func:`.ref._block`), the tiles a row of tiles, and whether the tiles
+    overhang (N, J).  Raises where the padded cell count overflows the
+    kernel's 31-bit cell key."""
+    bn, bj = _block(N, bn), _block(J, bj)
+    if bn & (bn - 1) or bj & (bj - 1):
+        raise KernelError(f"masked_argmin2d: tiles must be powers of two "
+                          f"(got {bn} x {bj})")
+    tn, tj = -(-N // bn), -(-J // bj)
+    cells = tn * bn * tj * bj
+    if cells >= kernel.IBIG:
+        raise KernelError(f"masked_argmin2d: {N} x {J} padded to {cells} "
+                          "cells overflows the int32 cell key")
+    return (bn.bit_length() - 1, bj.bit_length() - 1, tj,
+            int(tn * bn != N or tj * bj != J))
+
+
+@functools.lru_cache(maxsize=64)
+def _pad1d(n: int) -> int:
+    """-> K1's ``pad``: whether the reference pads n to whole tiles.
+    Raises where n overflows the kernel's 31-bit index."""
+    if n >= kernel.IBIG:
+        raise KernelError(f"masked_argmin1d: {n} entries overflow the int32 "
+                          "index")
+    return int(n % _block(n, 128) != 0)
+
+
+def _refuse(name, s, mask, ndim):
+    if mask.get_device() != s.get_device():
+        return KernelError(f"{name}: scores and mask must share one CUDA "
+                           f"device (got {s.device}, {mask.device})")
+    return KernelError(f"{name}: needs f32 scores of rank {ndim} and a bool "
+                       f"or uint8 mask of the same shape (got {s.dtype} "
+                       f"{tuple(s.shape)}, {mask.dtype} "
+                       f"{tuple(mask.shape)})")
+
+
+def _out(name, out, s, ndim):
+    if out is None:
+        return ArgminOut(s.device, ndim)
+    if len(out.views) != ndim + 1 or out.device_index != s.get_device():
+        raise KernelError(f"{name}: out must be an ArgminOut(device, {ndim}) "
+                          f"on {s.device}")
+    return out
+
+
+def _plain(name, fn, s, *args, out, ndim, **kw):
+    if s.device.type != "cpu":
+        raise KernelError(f"{name}: unsupported device {s.device}")
+    r = fn(s, *args, **kw)
+    return r if out is None else _out(name, out, s, ndim).write(r)
+
+
+def masked_argmin1d(s, ok, *, out: ArgminOut | None = None):
     """Masked argmin over a score vector.  s (N,), ok (N,) -> (val, i) as
-    0-d tensors; i == -1 when no entry has ok True.  Any stride."""
-    if s.device.type == "cpu":
-        return masked_argmin1d_ref(s, ok)
-    ok = _check("masked_argmin1d", s, ok, 1)
-    val = torch.empty(1, dtype=torch.float32, device=s.device)
-    idx = torch.empty(1, dtype=torch.int32, device=s.device)
-    try:
-        k1 = kernel.compiled()[0]
-        k1[(1,)](s, ok, val, idx, s.shape[0], s.stride(0), ok.stride(0),
-                 BLOCK=1024, BIG=BIG, IBIG=kernel.IBIG, num_warps=4)
-    except Exception as exc:    # Triton build or launch
-        raise KernelError(f"masked_argmin1d: {exc!r}") from exc
+    0-d tensors (``out.views`` when ``out`` is given); i == -1 when no entry
+    has ok True.  Any stride."""
+    if not s.is_cuda:
+        return _plain("masked_argmin1d", masked_argmin1d_ref, s, ok, out=out,
+                      ndim=1)
+    index = s.get_device()
+    if (ok.get_device() != index or s.dtype != _F32 or s.dim() != 1
+            or ok.shape != s.shape or ok.dtype not in _MASKS):
+        raise _refuse("masked_argmin1d", s, ok, 1)
+    out = _out("masked_argmin1d", out, s, 1)
+    lib = _LIB or library()
+    n = s.shape[0]
+    # the private call: torch.cuda.current_stream() builds a Stream object,
+    # microseconds of host time on a call paced by the host
+    out._args[:] = (s.data_ptr(), ok.data_ptr(), *out._ptrs,
+                    torch._C._cuda_getCurrentRawStream(index), n,
+                    s.stride(0), ok.stride(0), _pad1d(n), index)
+    rc = lib.argmin1d_launch(out._addr)
+    if rc:
+        raise KernelError("masked_argmin1d launch failed: "
+                          + lib.argmin_error(rc).decode())
     masked_argmin1d.launches += 1
-    return val[0], idx[0]
+    return out.views
 
 
-def masked_argmin2d(s, feas, *, bn: int = 128, bj: int = 128):
+def masked_argmin2d(s, feas, *, bn: int = 128, bj: int = 128,
+                    out: ArgminOut | None = None):
     """Masked argmin over a score matrix.  s (N, J), feas (N, J) ->
-    (val, n, j) as 0-d tensors; n == j == -1 when no pair is feasible.
-    Exact ties resolve in (bn, bj) tile order (see :mod:`.ref`)."""
-    if s.device.type == "cpu":
-        return masked_argmin2d_ref(s, feas, bn=bn, bj=bj)
-    feas = _check("masked_argmin2d", s, feas, 2)
-    if s.stride(1) != 1 or feas.stride(1) != 1:
+    (val, n, j) as 0-d tensors (``out.views`` when ``out`` is given);
+    n == j == -1 when no pair is feasible.  Exact ties resolve in (bn, bj)
+    tile order (see :mod:`.ref`).  On CUDA, rows must be contiguous."""
+    if not s.is_cuda:
+        return _plain("masked_argmin2d", masked_argmin2d_ref, s, feas,
+                      out=out, ndim=2, bn=bn, bj=bj)
+    index = s.get_device()
+    if (feas.get_device() != index or s.dtype != _F32 or s.dim() != 2
+            or feas.shape != s.shape or feas.dtype not in _MASKS):
+        raise _refuse("masked_argmin2d", s, feas, 2)
+    ss, s1 = s.stride()
+    fs, f1 = feas.stride()
+    if s1 != 1 or f1 != 1:
         raise KernelError("masked_argmin2d: rows must be contiguous")
     N, J = s.shape
-    bn, bj = _block(N, bn), _block(J, bj)
-    tn, tj = -(-N // bn), -(-J // bj)
-    pmin = torch.empty(tn * tj, dtype=torch.float32, device=s.device)
-    parg = torch.empty(tn * tj, dtype=torch.int32, device=s.device)
-    val = torch.empty(1, dtype=torch.float32, device=s.device)
-    nj = torch.empty(2, dtype=torch.int32, device=s.device)
-    try:
-        _, k_tiles, k_reduce, _ = kernel.compiled()
-        k_tiles[(tn, tj)](s, feas, pmin, parg, N, J, s.stride(0),
-                          feas.stride(0), BN=bn, BJ=bj, BIG=BIG,
-                          IBIG=kernel.IBIG, num_warps=8)
-        k_reduce[(1,)](pmin, parg, val, nj, tn * tj, J, BLOCK=1024, BIG=BIG,
-                       IBIG=kernel.IBIG, num_warps=4)
-    except Exception as exc:    # Triton build or launch
-        raise KernelError(f"masked_argmin2d: {exc!r}") from exc
+    geometry = _blocks2d(N, J, bn, bj)
+    out = _out("masked_argmin2d", out, s, 2)
+    lib = _LIB or library()
+    out._args[:] = (s.data_ptr(), feas.data_ptr(), *out._ptrs,
+                    torch._C._cuda_getCurrentRawStream(index), N, J, ss, fs,
+                    *geometry, index)
+    rc = lib.argmin2d_launch(out._addr)
+    if rc:
+        raise KernelError("masked_argmin2d launch failed: "
+                          + lib.argmin_error(rc).decode())
     masked_argmin2d.launches += 1
-    return val[0], nj[0], nj[1]
+    return out.views
+
+
+def noop_launch(index: int) -> None:
+    """Launch an empty kernel on device ``index``'s current stream through
+    the same library (the launch floor; timing only, not counted)."""
+    lib = _LIB or library()
+    rc = lib.argmin_noop_launch(index,
+                                torch._C._cuda_getCurrentRawStream(index))
+    if rc:
+        raise KernelError("argmin noop launch failed: "
+                          + lib.argmin_error(rc).decode())
 
 
 def psdsf_argmin(x, phi, d, res, *, bn: int = 128, bj: int = 128):
@@ -129,7 +268,7 @@ def psdsf_argmin(x, phi, d, res, *, bn: int = 128, bj: int = 128):
     val = torch.empty(1, dtype=torch.float32, device=dev)
     nj = torch.empty(2, dtype=torch.int32, device=dev)
     try:
-        _, _, k_reduce, k_score = kernel.compiled()
+        k_reduce, k_score = kernel.compiled()
         k_score[(tn, tj)](x, phi, d, res, pmin, parg, N, J, d.stride(0),
                           res.stride(0), R=R, BN=bn, BJ=bj, BIG=BIG,
                           IBIG=kernel.IBIG, num_warps=8)

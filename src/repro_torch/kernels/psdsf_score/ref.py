@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the psdsf_score kernels (K1, K2, K4).
 
-They define the functions the Triton kernels in :mod:`.kernel` compute, tie
-order included, and they are what :mod:`.ops` runs for tensors on the CPU.
+They define the functions the kernels compute (K1 and K2 in
+``csrc/argmin.cu``, K4 in :mod:`.kernel`), tie order included, and they are
+what :mod:`.ops` runs for tensors on the CPU.
 ``masked_argmin2d_ref`` keeps the tile order of the TPU kernel it replaces
 (``repro/kernels/psdsf_score/kernel.py::masked_argmin2d_tiles``): the first
 minimum inside each (bn, bj) tile in row-major order, then the first tile in
@@ -28,10 +29,15 @@ def _block(n: int, b: int) -> int:
 def masked_argmin1d_ref(s, ok):
     """-> (min_value, i) over ok entries, first index on ties; (BIG, -1)
     if none.  Tiles of a vector come in index order, so the tile rule of
-    the TPU kernel is the plain first minimum."""
+    the TPU kernel is the plain first minimum.  Where the TPU kernel pads
+    the vector to whole tiles, the padding reads as BIG, so a minimum above
+    BIG (every ok entry inf) comes back as BIG."""
     masked = torch.where(ok.bool(), s.float(), BIG)
     i = torch.argmin(masked)
     val = masked[i]
+    N = s.shape[0]
+    if N % _block(N, 128):
+        val = torch.clamp(val, max=BIG)
     return val, torch.where(val >= BIG, -1, i).to(torch.int32)
 
 
@@ -88,3 +94,134 @@ def psdsf_argmin_ref(x, phi, d, res, *, bn: int = 128, bj: int = 128):
     score = (x / phi)[:, None] * dom
     return masked_argmin2d_ref(torch.where(feas, score, BIG), feas, bn=bn,
                                bj=bj)
+
+
+# -- an emulation of csrc/argmin.cu's reduction ------------------------------
+
+def ordered_bits(v):
+    """f32 tensor -> int64 tensor of ``ordered_bits(v + 0.0f)`` as the
+    kernel forms it, less 2^31: a key whose order is the order of the
+    values, -0.0 and +0.0 equal.  Shifted by 2^31 so that packing it with a
+    cell key into a signed int64 keeps the order."""
+    u = (v.float() + 0.0).view(torch.int32).long() & 0xFFFFFFFF
+    o = torch.where(u >= 0x80000000, ~u & 0xFFFFFFFF, u | 0x80000000)
+    return o - 0x80000000
+
+
+def _from_ordered(o: int) -> float:
+    o += 0x80000000
+    bits = o & 0x7FFFFFFF if o & 0x80000000 else ~o & 0xFFFFFFFF
+    return torch.tensor([bits], dtype=torch.int64).to(torch.int32).view(
+        torch.float32).item()
+
+
+def _packed_min(s, ok, keys, parts):
+    """The kernel's packed minimum: the masked value (BIG where ok is False
+    or s is NaN) and the key packed as ``ordered_bits << 32 | key``; the
+    minimum within each part (``parts``: a block number per cell), then
+    over the parts' minima.  -> (value, key) of the winner."""
+    s, ok = s.reshape(-1).float(), ok.reshape(-1).bool()
+    masked = torch.where(ok & ~torch.isnan(s), s, BIG)
+    packed = (ordered_bits(masked) << 32) | keys.reshape(-1)
+    parts = torch.as_tensor(parts).reshape(-1).long()
+    partial = torch.full((int(parts.max()) + 1,),
+                         torch.iinfo(torch.int64).max).scatter_reduce_(
+        0, parts, packed, "amin")
+    w = int(partial.min())
+    return _from_ordered(w >> 32), w & 0xFFFFFFFF
+
+
+def tile_keys(N: int, J: int, bn: int, bj: int):
+    """(N, J) int64: each cell's place in the reference's tile order,
+    ``((n // bn) * tj + j // bj) * bn * bj + (n % bn) * bj + j % bj``."""
+    tj = -(-J // bj)
+    n = torch.arange(N)[:, None]
+    j = torch.arange(J)[None, :]
+    return ((n // bn) * tj + j // bj) * (bn * bj) + (n % bn) * bj + j % bj
+
+
+def kernel_parts2d(N: int, J: int, grid: int, threads: int = 256,
+                   vec: bool = True):
+    """(N, J) block numbers of K2's split of the cells: W-cell chunks (W = 4
+    on the vector path, 1 on the scalar one) of the flattened (N, J / W)
+    grid, chunk c read by thread c % (grid * threads)."""
+    chunk = torch.arange(N * J).reshape(N, J) // (4 if vec else 1)
+    return (chunk % (grid * threads)) // threads
+
+
+def _decoded(v, big, padded):
+    if padded:
+        v = min(v, big)
+    return torch.tensor(v, dtype=torch.float32)
+
+
+def masked_argmin2d_emulated(s, feas, parts, *, bn: int = 128,
+                             bj: int = 128):
+    """K2 as ``csrc/argmin.cu`` computes it, in plain PyTorch: the packed
+    (value, tile key) minimum over ``parts`` (an (N, J) block number per
+    cell), decoded.  The value is the source element at the winner, or the
+    minimum itself, clamped to BIG where the shape is padded, when nothing
+    is feasible.  Equals :func:`masked_argmin2d_ref` for every partition
+    (NaN scores aside)."""
+    N, J = s.shape
+    bn, bj = _block(N, bn), _block(J, bj)
+    v, key = _packed_min(s, feas, tile_keys(N, J, bn, bj), parts)
+    big = torch.tensor(BIG).item()
+    if v < big:
+        tj = -(-J // bj)
+        t, cell = key // (bn * bj), key % (bn * bj)
+        n, j = (t // tj) * bn + cell // bj, (t % tj) * bj + cell % bj
+        i32 = torch.int32
+        return (s[n, j].float(), torch.tensor(n, dtype=i32),
+                torch.tensor(j, dtype=i32))
+    none = torch.tensor(-1, dtype=torch.int32)
+    return _decoded(v, big, N % bn or J % bj), none, none.clone()
+
+
+def masked_argmin1d_emulated(s, ok, parts):
+    """K1 as ``csrc/argmin.cu`` computes it: the packed (value, index)
+    minimum over ``parts`` (a block or thread number per entry), decoded as
+    :func:`masked_argmin2d_emulated` decodes."""
+    N = s.shape[0]
+    v, i = _packed_min(s, ok, torch.arange(N), parts)
+    big = torch.tensor(BIG).item()
+    if v < big:
+        return s[i].float(), torch.tensor(i, dtype=torch.int32)
+    return _decoded(v, big, N % _block(N, 128)), torch.tensor(
+        -1, dtype=torch.int32)
+
+
+def argmin_cases(rng, shape):
+    """-> [(label, scores, mask)] as numpy f32 / bool arrays of ``shape``:
+    the inputs K1's and K2's contract names.  Quarter-quantized scores
+    (exact ties everywhere, across tiles too), about half masked; an exact
+    tie planted at the first and the last cell; -0.0 against +0.0 as the
+    minimum; a feasible cell at exactly BIG, alone among masked cells and
+    everywhere; inf scores, beside finite ones and everywhere; and
+    everything masked."""
+    import numpy as np
+
+    big = np.float32(BIG)
+    size = int(np.prod(shape))
+    s = (np.round(rng.standard_normal(shape) * 4) / 4).astype(np.float32)
+    ok = rng.random(shape) < 0.5
+    ends = s.copy().reshape(-1)
+    ends[0] = ends[-1] = ends.min() - 1.0
+    zeros = (np.abs(s) + 1.0).reshape(-1)
+    zeros[rng.random(size) < 0.3] = -0.0
+    zeros[rng.random(size) < 0.3] = 0.0
+    one = np.zeros(size, bool)
+    one[rng.integers(size)] = True
+    inf = s.copy().reshape(-1)
+    inf[rng.random(size) < 0.3] = np.inf
+    every = np.ones(shape, bool)
+    return [
+        ("quantized", s, ok),
+        ("tie at the first and last cell", ends.reshape(shape), every),
+        ("-0.0 against +0.0", zeros.reshape(shape), ok),
+        ("feasible at BIG", np.full(shape, big), one.reshape(shape)),
+        ("all feasible at BIG", np.full(shape, big), every),
+        ("inf beside finite", inf.reshape(shape), ok),
+        ("all inf", np.full(shape, np.inf, np.float32), every),
+        ("all masked", s, np.zeros(shape, bool)),
+    ]

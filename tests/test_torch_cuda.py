@@ -23,36 +23,210 @@ def _scores(rng, shape, dev):
                            dtype=torch.float32, device=dev)
 
 
-@pytest.mark.parametrize("N", [1, 7, 128, 300, 4096])
+def _exact(got, want):
+    a = [float(got[0])] + [int(x) for x in got[1:]]
+    b = [float(want[0])] + [int(x) for x in want[1:]]
+    assert a == b, (a, b)
+    assert np.signbit(a[0]) == np.signbit(b[0]), (a, b)
+
+
+def _cases(rng, shape, dev):
+    from repro_torch.kernels.psdsf_score import ref
+
+    return [(label, torch.as_tensor(s, device=dev),
+             torch.as_tensor(m, device=dev))
+            for label, s, m in ref.argmin_cases(rng, shape)]
+
+
+@pytest.mark.parametrize("N", [1, 7, 128, 300, 512, 4096])
 def test_masked_argmin1d_kernel_equals_plain(dev, N):
+    """Every edge case of the contract, with and without ``out``, on a
+    contiguous vector and on strided columns (as the RRR visit passes
+    them), with a bool and a uint8 mask."""
     from repro_torch.kernels.psdsf_score import ops
 
     rng = np.random.default_rng(N)
-    s = _scores(rng, N, dev)
-    for ok in (torch.as_tensor(rng.random(N) < 0.5, device=dev),
-               torch.zeros(N, dtype=torch.bool, device=dev)):
-        got, want = ops.masked_argmin1d(s, ok), ops.masked_argmin1d_ref(s, ok)
-        assert [float(got[0]), int(got[1])] == [float(want[0]), int(want[1])]
-    # a strided column, as the RRR visit passes it
-    m = _scores(rng, (N, 3), dev)
-    f = torch.as_tensor(rng.random((N, 3)) < 0.5, device=dev)
-    got = ops.masked_argmin1d(m[:, 1], f[:, 1])
-    want = ops.masked_argmin1d_ref(m[:, 1], f[:, 1])
-    assert [float(got[0]), int(got[1])] == [float(want[0]), int(want[1])]
+    out = ops.ArgminOut(dev, 1)
+    for label, s, ok in _cases(rng, N, dev):
+        want = ops.masked_argmin1d_ref(s, ok)
+        m = torch.zeros((N, 3), device=dev)
+        f = torch.zeros((N, 3), dtype=torch.uint8, device=dev)
+        m[:, 1], f[:, 1] = s, ok
+        for args in ((s, ok), (m[:, 1], f[:, 1])):
+            _exact(ops.masked_argmin1d(*args), want)
+            got = ops.masked_argmin1d(*args, out=out)
+            assert got is out.views
+            _exact(got, want)
 
 
-@pytest.mark.parametrize("N,J", [(3, 2), (130, 129), (9, 300), (512, 4096)])
+@pytest.mark.parametrize("N,J", [(3, 2), (130, 129), (9, 300), (512, 4096),
+                                 (4096, 4096)])
 def test_masked_argmin2d_kernel_equals_plain(dev, N, J):
+    """Every edge case of the contract, with and without ``out``; on rows
+    the kernel reads four cells at a time, and on a view whose base and
+    row stride are not 16-byte multiples (the kernel's scalar path).  At
+    (4096, 4096) there are more reference tiles than blocks."""
     from repro_torch.kernels.psdsf_score import ops
 
     rng = np.random.default_rng(N * J)
+    out = ops.ArgminOut(dev, 2)
+    for label, s, feas in _cases(rng, (N, J), dev):
+        want = ops.masked_argmin2d_ref(s, feas)
+        m = torch.zeros((N, J + 1), device=dev)
+        f = torch.zeros((N, J + 1), dtype=torch.uint8, device=dev)
+        m[:, 1:], f[:, 1:] = s, feas
+        for args in ((s, feas), (m[:, 1:], f[:, 1:])):
+            _exact(ops.masked_argmin2d(*args), want)
+            got = ops.masked_argmin2d(*args, out=out)
+            assert got is out.views
+            _exact(got, want)
+
+
+def test_argmin_kernels_back_to_back(dev):
+    """1,000 calls of each kernel on the same ``out``, inputs changing
+    between calls, no sync in between: a new strict minimum planted at a
+    new cell every call (the earlier ones stay, so only the newest wins),
+    and every fifth call with nothing feasible.  K2's workspace must come
+    back reset from every launch, or the next call goes wrong.  A call
+    with ``out`` allocates nothing."""
+    from repro_torch.kernels.psdsf_score import ops
+
+    N, J, calls = 512, 4096, 1000
+    rng = np.random.default_rng(0)
     s = _scores(rng, (N, J), dev)
-    for feas in (torch.as_tensor(rng.random((N, J)) < 0.5, device=dev),
-                 torch.zeros((N, J), dtype=torch.bool, device=dev)):
-        got, want = ops.masked_argmin2d(s, feas), ops.masked_argmin2d_ref(
-            s, feas)
-        assert ([float(got[0]), int(got[1]), int(got[2])]
-                == [float(want[0]), int(want[1]), int(want[2])])
+    vec = _scores(rng, J, dev)
+    feas = torch.ones((N, J), dtype=torch.bool, device=dev)
+    none = torch.zeros_like(feas)
+    cells = rng.choice(N * J, calls, replace=False)
+    entries = rng.choice(J, calls, replace=False)
+    got2 = torch.empty((calls, 3), device=dev)
+    got1 = torch.empty((calls, 2), device=dev)
+    out1, out2 = ops.ArgminOut(dev, 1), ops.ArgminOut(dev, 2)
+    row = feas[0]
+    ops.masked_argmin1d(vec, row, out=out1)
+    ops.masked_argmin2d(s, feas, out=out2)
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    for _ in range(100):
+        ops.masked_argmin1d(vec, row, out=out1)
+        ops.masked_argmin2d(s, feas, out=out2)
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == allocs
+    for k in range(calls):
+        n, j = divmod(int(cells[k]), J)
+        s[n, j] = -100.0 - k
+        vec[int(entries[k])] = -100.0 - k
+        f = none if k % 5 == 4 else feas
+        v, a, b = ops.masked_argmin2d(s, f, out=out2)
+        got2[k, 0], got2[k, 1], got2[k, 2] = v, a, b
+        v, a = ops.masked_argmin1d(vec, f[0], out=out1)
+        got1[k, 0], got1[k, 1] = v, a
+    torch.cuda.synchronize()
+    big = float(torch.tensor(ops.BIG))
+    for k in range(calls):
+        n, j = divmod(int(cells[k]), J)
+        if k % 5 == 4:
+            want2, want1 = [big, -1, -1], [big, -1]
+        else:
+            want2, want1 = [-100.0 - k, n, j], [-100.0 - k, int(entries[k])]
+        assert got2[k].tolist() == want2, k
+        assert got1[k].tolist() == want1, k
+
+
+def test_argmin2d_on_two_streams(dev):
+    """Two streams each run K2 back to back on their own inputs and
+    ``out``; each holder carries its own workspace, so they never mix."""
+    from repro_torch.kernels.psdsf_score import ops
+
+    rng = np.random.default_rng(1)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    inputs = [[(_scores(rng, (512, 4096), dev),
+                torch.as_tensor(rng.random((512, 4096)) < 0.5, device=dev))
+               for _ in range(4)] for _ in streams]
+    outs = [ops.ArgminOut(dev, 2) for _ in streams]
+    res = [torch.empty((40, 3), device=dev) for _ in streams]
+    torch.cuda.synchronize()
+    for k in range(40):
+        for st, ins, out, r in zip(streams, inputs, outs, res):
+            with torch.cuda.stream(st):
+                v, n, j = ops.masked_argmin2d(*ins[k % 4], out=out)
+                r[k, 0], r[k, 1], r[k, 2] = v, n, j
+    torch.cuda.synchronize()
+    for ins, r in zip(inputs, res):
+        for k in range(40):
+            want = ops.masked_argmin2d_ref(*ins[k % 4])
+            assert r[k].tolist() == [float(want[0]), int(want[1]),
+                                     int(want[2])]
+
+
+def test_argmin2d_in_a_cuda_graph(dev):
+    """One K2 call with ``out`` captured in a CUDA graph with no call
+    before it (it allocates nothing and never syncs the host, or the
+    capture fails) and replayed on three new inputs copied into its
+    buffers."""
+    from repro_torch.kernels.psdsf_score import ops
+
+    rng = np.random.default_rng(2)
+    s_buf = torch.zeros((512, 4096), device=dev)
+    f_buf = torch.zeros((512, 4096), dtype=torch.bool, device=dev)
+    out = ops.ArgminOut(dev, 2)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = ops.masked_argmin2d.launches
+    with torch.cuda.graph(graph, stream=stream):
+        ops.masked_argmin2d(s_buf, f_buf, out=out)
+    assert ops.masked_argmin2d.launches == before + 1
+    for k in range(3):
+        s = _scores(rng, (512, 4096), dev)
+        f = torch.as_tensor(rng.random((512, 4096)) < 0.5, device=dev)
+        s_buf.copy_(s)
+        f_buf.copy_(f)
+        graph.replay()
+        torch.cuda.synchronize()
+        _exact(out.views, ops.masked_argmin2d_ref(s, f))
+
+
+def test_argmin2d_graph_replay_beside_direct_calls(dev):
+    """A graph captured on one stream and replayed on another, while
+    direct K2 calls with their own holder run on the capture stream with
+    no sync between them: the two share no workspace, so each gets its
+    own inputs' minimum."""
+    from repro_torch.kernels.psdsf_score import ops
+
+    rng = np.random.default_rng(3)
+    N, J, rounds = 512, 4096, 20
+    s_buf = torch.zeros((N, J), device=dev)
+    f_buf = torch.ones((N, J), dtype=torch.bool, device=dev)
+    g_out, d_out = ops.ArgminOut(dev, 2), ops.ArgminOut(dev, 2)
+    capture, replay = torch.cuda.Stream(), torch.cuda.Stream()
+    capture.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=capture):
+        ops.masked_argmin2d(s_buf, f_buf, out=g_out)
+    inputs = [(_scores(rng, (N, J), dev),
+               torch.as_tensor(rng.random((N, J)) < 0.5, device=dev))
+              for _ in range(2 * rounds)]
+    g_res = torch.empty((rounds, 3), device=dev)
+    d_res = torch.empty((rounds, 3), device=dev)
+    torch.cuda.synchronize()
+    for k in range(rounds):
+        with torch.cuda.stream(replay):
+            s_buf.copy_(inputs[2 * k][0])
+            f_buf.copy_(inputs[2 * k][1])
+            graph.replay()
+            v, n, j = g_out.views
+            g_res[k, 0], g_res[k, 1], g_res[k, 2] = v, n, j
+        with torch.cuda.stream(capture):
+            v, n, j = ops.masked_argmin2d(*inputs[2 * k + 1], out=d_out)
+            d_res[k, 0], d_res[k, 1], d_res[k, 2] = v, n, j
+    torch.cuda.synchronize()
+    for k in range(rounds):
+        for res, (s, f) in ((g_res, inputs[2 * k]),
+                            (d_res, inputs[2 * k + 1])):
+            want = ops.masked_argmin2d_ref(s, f)
+            assert res[k].tolist() == [float(want[0]), int(want[1]),
+                                       int(want[2])], k
 
 
 @pytest.mark.parametrize("crit", ["drf", "tsf", "psdsf", "rpsdsf"])
