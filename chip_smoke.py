@@ -14,10 +14,15 @@ first launch).  Phases:
    the fleet shapes, exact equality required (K1 at (512,), (4096,) and
    (7,), K2 at (3, 2), (130, 129), (9, 300), (512, 4096) and (4096, 4096),
    every edge case of ``ref.argmin_cases``: quantized ties, -0.0 against
-   +0.0, feasible cells at BIG, inf, all masked; with and without ``out``,
+   +0.0, feasible cells at BIG, inf, all masked, NaN (the first feasible
+   NaN wins); with and without ``out``,
    on contiguous inputs and on views; then K1's and K2's time a call with
    and without ``out``, host enqueue, device time, the launch floor and
-   two PyTorch yardsticks; K3 whole epochs for 4 criteria x {pooled, rrr}; K4
+   two PyTorch yardsticks; K3 whole epochs for 4 criteria x {pooled, rrr}
+   (pooled PS-DSF / rPS-DSF on a grid of more than one block, the others on
+   one), each timed a launch and a grant, the grid path's time split by
+   phase (its profile), and the barrier floor (the grid path's barriers
+   alone, ``ops.barrier_floor``); K4
    at (512, 4096, 2), (300, 257, 3), (128, 128, 8) and (1, 1, 1) on
    quarter-quantized and on non-dyadic inputs, with an exhausted row, a
    blocked column and an all-infeasible case); times of kernel, plain
@@ -31,8 +36,11 @@ first launch).  Phases:
    versions.  Persistent must equal the plain loop and the tiles loop its
    plain-select run, grant for grant; tiles against the plain loop may
    differ only on a tie (exact across 128-wide tiles, or within the f32
-   tie tolerance), as the reference's tile kernels do.  On the paper's
-   6-agent cluster the fused path must equal the numpy epoch;
+   tie tolerance), as the reference's tile kernels do.  The first fleet
+   epoch's begin+commit is printed for all eight pairs (limit 0.5 s), split
+   into begin, the wait for K3 and its readback, and the apply, with the
+   time the garbage collector took inside it.  On
+   the paper's 6-agent cluster the fused path must equal the numpy epoch;
 3. des: ``SparkMesosSim`` at the fleet size with async fused epochs, run
    until every job has finished, and a small simulation that must equal
    the same simulation on the CPU;
@@ -79,6 +87,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import re
 import subprocess
@@ -210,6 +219,27 @@ def check_faults(al, where):
 
 
 # -- timing ------------------------------------------------------------------
+
+@contextlib.contextmanager
+def gc_clock():
+    """-> a dict that receives, when the block ends, the wall ms spent in
+    Python's garbage collector inside it and its full collections."""
+    out = {"ms": 0.0, "full": 0}
+    start = []
+
+    def hook(phase, info):
+        if phase == "start":
+            start.append(time.perf_counter())
+        elif start:
+            out["ms"] += (time.perf_counter() - start.pop()) * 1e3
+            out["full"] += info["generation"] == 2
+
+    gc.callbacks.append(hook)
+    try:
+        yield out
+    finally:
+        gc.callbacks.remove(hook)
+
 
 def cuda_ms(fn, reps, warmup=2):
     """Mean device time of fn() over reps runs (CUDA events)."""
@@ -352,11 +382,12 @@ def argmin_sweep(rng, dev):
     from repro_torch.kernels.psdsf_score import ops as tiles
     from repro_torch.kernels.psdsf_score.ref import argmin_cases
 
-    def same(got, want, what):
+    def same(got, want, what):     # a NaN value equals a NaN
         a = [float(got[0])] + [int(x) for x in got[1:]]
         b = [float(want[0])] + [int(x) for x in want[1:]]
-        check(a == b and np.signbit(a[0]) == np.signbit(b[0]),
-              f"{what}: {a} != {b}")
+        nans = np.isnan(a[0]) and np.isnan(b[0])
+        check(a[1:] == b[1:] and (a[0] == b[0] or nans) and
+              np.signbit(a[0]) == np.signbit(b[0]), f"{what}: {a} != {b}")
 
     n = 0
     for ndim, shapes in ((1, ARGMIN_SHAPES_1D), (2, ARGMIN_SHAPES_2D)):
@@ -534,12 +565,19 @@ def kernels_phase(rng, dev, agents, fws):
                 if x.is_floating_point():
                     err = max(err, float((x - y).abs().max()))
             count = int(a[2])
-            reps = 3 if (crit, pol) == ("rpsdsf", "pooled") else 1
-            ms = cuda_ms(lambda: k3.persistent_epoch(*fresh(), **kw), reps,
+            grid = k3.persistent_epoch.grid
+            check(grid > 1 if (pol == "pooled" and crit in ("psdsf",
+                                                            "rpsdsf"))
+                  else grid == 1, f"K3 {crit}/{pol}: grid {grid}")
+            inputs = [fresh() for _ in range(5)]   # made outside the timing
+            ms = cuda_ms(lambda: k3.persistent_epoch(*inputs.pop(), **kw), 5,
                          warmup=0)
             log(f"K3 persistent_epoch {crit}/{pol}: {count} grants, "
-                f"{ms:.2f} ms ({ms / max(count, 1) * 1e3:.1f} us/grant; "
-                f"first launch {t_kernel:.2f} ms), plain {t_plain:.1f} ms")
+                f"{ms:.2f} ms an epoch ({ms / max(count, 1) * 1e3:.2f} us a "
+                f"grant; first launch {t_kernel:.2f} ms), grid {grid}, "
+                f"plain {t_plain:.1f} ms")
+            if grid > 1:
+                k3_phases(k3, fresh(), kw, count)
             if (crit, pol) == ("rpsdsf", "pooled"):
                 state_bytes = sum(x.numel() * x.element_size()
                                   for x in state[:8])
@@ -553,8 +591,43 @@ def kernels_phase(rng, dev, agents, fws):
                     ms=ms, plain_ms=t_plain, library_ms=None,
                     max_abs_err=err, bound_ms=bound_ms,
                     bound_by=("operations" if ops / F32_OPS_PER_S >
-                              nbytes / HBM_BYTES_PER_S else "bytes"))
+                              nbytes / HBM_BYTES_PER_S else "bytes"),
+                    grid=grid)
+                steps = count
+    # the barrier floor: the grid path's grid.sync() a grant, alone, on
+    # K3's own grid
+    grid = rows["persistent_epoch"]["grid"]
+    R = arr["D"].shape[1]
+    check(grid == k3.grid_size(dev, R), f"K3 grid {grid} is not "
+          f"grid_size {k3.grid_size(dev, R)}")
+    floor = cuda_ms(lambda: k3.barrier_floor(steps, dev, R), 5)
+    rows["persistent_epoch"]["barrier_floor_ms"] = floor
+    log(f"K3 barrier floor: {steps} grid.sync() on {grid} blocks of K3's "
+        f"size, {floor:.3f} ms ({floor / steps * 1e3:.3f} us a barrier)")
     return rows
+
+
+def k3_phases(k3, state, kw, count):
+    """Where a grant's time goes on K3's grid path: one more launch with
+    the per-phase profile (the profiled build: SM clocks of thread 0 in
+    block 0, which grants, and block 1, which keeps a slice), in us a
+    grant at the clock rate the profiled loop ran at (its cycles over the
+    launch's CUDA-event time)."""
+    import torch
+
+    prof = torch.zeros(k3.PROFILE_WORDS, dtype=torch.int64,
+                       device=state[0].device)
+    ms = cuda_ms(lambda: k3.persistent_epoch(*state, **kw, profile=prof), 1,
+                 warmup=0)
+    p = prof.tolist()
+    hz = max(p[4], p[9]) / (ms * 1e-3)
+    names = ("phase 1", "barrier", "pick")
+    log(f"  K3 phases (us a grant; profiled launch {ms:.2f} ms, "
+        f"{hz / 1e9:.3f} GHz): " + "; ".join(
+            f"block {b} ({'grant' if b == 0 else 'slice'}): " + ", ".join(
+                f"{name} {p[5 * b + q] / count / hz * 1e6:.2f}"
+                for q, name in enumerate(names)) for b in (0, 1))
+        + f"; near-tie rounds {p[3]}")
 
 
 # -- phase 2: the allocator main path ----------------------------------------
@@ -680,7 +753,10 @@ def allocator_phase(dev, agents, fws, seed, epochs=3):
     from repro_torch.core.online import OnlineAllocator
     from repro_torch.core.simulator import HETEROGENEOUS_AGENTS, PI, WC
 
+    from repro_torch.kernels.epoch_persistent import ops as k3
+
     launches = dict.fromkeys(LAUNCH_COUNTERS[:3], 0)
+    first = {}
     for crit in CRITERIA:
         for pol in POLICIES:
             # the default path: the allocator's fused epochs on K3
@@ -689,18 +765,32 @@ def allocator_phase(dev, agents, fws, seed, epochs=3):
             reset_counts()
             for _ in range(epochs):
                 torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                ep = al.begin_epoch(per_agent_limit=1, use_kernel="fused")
-                check(ep.handle is not None,
-                      f"{crit}/{pol}: epoch did not dispatch")
-                grants = al.commit_epoch(ep)
-                torch.cuda.synchronize()
-                ms.setdefault("persistent", []).append(
-                    (time.perf_counter() - t0) * 1e3)
+                with gc_clock() as in_gc:
+                    t0 = time.perf_counter()
+                    ep = al.begin_epoch(per_agent_limit=1,
+                                        use_kernel="fused")
+                    t_begin = time.perf_counter()
+                    check(ep.handle is not None,
+                          f"{crit}/{pol}: epoch did not dispatch")
+                    ep.handle.result()    # K3 and the readback (idempotent)
+                    t_wait = time.perf_counter()
+                    grants = al.commit_epoch(ep)
+                    torch.cuda.synchronize()
+                    t_end = time.perf_counter()
+                ms.setdefault("persistent", []).append((t_end - t0) * 1e3)
+                ms.setdefault("split", []).append(
+                    ((t_begin - t0) * 1e3, (t_wait - t_begin) * 1e3,
+                     (t_end - t_wait) * 1e3, in_gc["ms"], in_gc["full"]))
                 eps.append(ep)
                 for g in grants[::3]:      # later epochs start non-empty
                     al.release_executor(g.fid, g.agent)
             n = read_counts()
+            first[f"{crit}/{pol}"] = (ms["persistent"][0],
+                                      *ms.pop("split")[0])
+            wide = pol == "pooled" and crit in ("psdsf", "rpsdsf")
+            check(k3.persistent_epoch.grid > 1 if wide else
+                  k3.persistent_epoch.grid == 1,
+                  f"{crit}/{pol}: K3 grid {k3.persistent_epoch.grid}")
             check_faults(al, f"allocator {crit}/{pol}")
             check(n["persistent_epoch"] >= epochs and
                   n["masked_argmin1d"] == n["masked_argmin2d"] == 0,
@@ -767,6 +857,13 @@ def allocator_phase(dev, agents, fws, seed, epochs=3):
             check(small["fused"] == small[False] and small[False],
                   f"{crit}/{pol}: fused epoch on the card differs from the "
                   "numpy epoch on the paper's cluster")
+    log("first fleet epoch, begin+commit on K3 (limit 500 ms; in brackets: "
+        "begin, the host prep and the launch; the wait for K3 and the "
+        "readback; the f64 re-validation and apply; of all that, the time "
+        "in Python's garbage collector, and its full collections): "
+        + ", ".join(f"{k} {v:.1f} [{b:.1f}, {w:.1f}, {a:.1f}; gc {g:.1f} "
+                    f"ms, {f} full] ms" for k, (v, b, w, a, g, f)
+                    in first.items()))
     return launches
 
 

@@ -26,8 +26,9 @@
 // winner (its own sign of zero), or, where nothing is feasible, the minimum
 // value itself (BIG, or inf where every cell is a feasible inf), clamped to
 // BIG where the reference pads the shape with masked cells.  A NaN at a
-// feasible cell is outside the contract (the reference would return it);
-// here it counts as masked, so it is never picked.
+// feasible cell packs below every value (ordered bits 0), as jnp.argmin and
+// torch.argmin order a NaN first: the first feasible NaN in tile order wins,
+// and the value written out is that NaN.
 //
 // K2, one launch: a fixed grid of about two blocks a SM streams the rows
 // with 16-byte loads (float4 scores, uchar4 mask, four of each in flight a
@@ -91,9 +92,14 @@ __device__ __forceinline__ float from_ordered(unsigned o) {
 
 __device__ __forceinline__ unsigned long long pack(float v, bool ok,
                                                    unsigned key) {
-  const float m = (ok && v == v) ? v : kBig;  // masked, and NaN, read as BIG
-  return (static_cast<unsigned long long>(ordered_bits(m)) << 32) | key;
+  const unsigned o = !ok     ? ordered_bits(kBig)
+                     : v == v ? ordered_bits(v)
+                              : 0u;  // a feasible NaN: first
+  return (static_cast<unsigned long long>(o) << 32) | key;
 }
+
+// A feasible cell won: its value is below BIG, or a NaN (packed first).
+__device__ __forceinline__ bool feasible_win(float v) { return !(v >= kBig); }
 
 __device__ __forceinline__ unsigned long long umin(unsigned long long a,
                                                    unsigned long long b) {
@@ -189,7 +195,7 @@ argmin2d_kernel(Geom g, int pad, float* __restrict__ out_val,
   const unsigned long long w = atomicExch(&ws->slot, kNone);
   ws->ticket = 0;
   const float v = from_ordered(static_cast<unsigned>(w >> 32));
-  if (v < kBig) {  // a feasible cell won
+  if (feasible_win(v)) {
     const unsigned key = static_cast<unsigned>(w);
     const int cell_bits = g.lbn + g.lbj;
     const unsigned t = key >> cell_bits, cell = key & ((1u << cell_bits) - 1);
@@ -219,7 +225,7 @@ argmin1d_kernel(const float* __restrict__ s, const uint8_t* __restrict__ ok,
   best = block_min<kThreads1d>(best);
   if (threadIdx.x != 0) return;
   const float v = from_ordered(static_cast<unsigned>(best >> 32));
-  if (v < kBig) {
+  if (feasible_win(v)) {
     const int i = static_cast<int>(static_cast<unsigned>(best));
     *out_val = s[i * ss];
     *out_idx = i;

@@ -116,13 +116,16 @@ def _from_ordered(o: int) -> float:
 
 
 def _packed_min(s, ok, keys, parts):
-    """The kernel's packed minimum: the masked value (BIG where ok is False
-    or s is NaN) and the key packed as ``ordered_bits << 32 | key``; the
-    minimum within each part (``parts``: a block number per cell), then
-    over the parts' minima.  -> (value, key) of the winner."""
+    """The kernel's packed minimum: the masked value (BIG where ok is False)
+    and the key packed as ``ordered_bits << 32 | key``, a feasible NaN
+    packing below every value (ordered bits 0), as ``torch.argmin`` orders
+    a NaN first; the minimum within each part (``parts``: a block number
+    per cell), then over the parts' minima.  -> (value, key) of the winner,
+    the value NaN where a feasible NaN won."""
     s, ok = s.reshape(-1).float(), ok.reshape(-1).bool()
-    masked = torch.where(ok & ~torch.isnan(s), s, BIG)
-    packed = (ordered_bits(masked) << 32) | keys.reshape(-1)
+    masked = torch.where(ok, s, BIG)
+    o = torch.where(ok & torch.isnan(s), -0x80000000, ordered_bits(masked))
+    packed = (o << 32) | keys.reshape(-1)
     parts = torch.as_tensor(parts).reshape(-1).long()
     partial = torch.full((int(parts.max()) + 1,),
                          torch.iinfo(torch.int64).max).scatter_reduce_(
@@ -149,6 +152,11 @@ def kernel_parts2d(N: int, J: int, grid: int, threads: int = 256,
     return (chunk % (grid * threads)) // threads
 
 
+def _feasible_win(v: float, big: float) -> bool:
+    """A feasible cell won: its value is below BIG, or a NaN."""
+    return not v >= big
+
+
 def _decoded(v, big, padded):
     if padded:
         v = min(v, big)
@@ -161,13 +169,13 @@ def masked_argmin2d_emulated(s, feas, parts, *, bn: int = 128,
     (value, tile key) minimum over ``parts`` (an (N, J) block number per
     cell), decoded.  The value is the source element at the winner, or the
     minimum itself, clamped to BIG where the shape is padded, when nothing
-    is feasible.  Equals :func:`masked_argmin2d_ref` for every partition
-    (NaN scores aside)."""
+    is feasible.  Equals :func:`masked_argmin2d_ref` for every partition,
+    a feasible NaN included (the first in tile order wins)."""
     N, J = s.shape
     bn, bj = _block(N, bn), _block(J, bj)
     v, key = _packed_min(s, feas, tile_keys(N, J, bn, bj), parts)
     big = torch.tensor(BIG).item()
-    if v < big:
+    if _feasible_win(v, big):
         tj = -(-J // bj)
         t, cell = key // (bn * bj), key % (bn * bj)
         n, j = (t // tj) * bn + cell // bj, (t % tj) * bj + cell % bj
@@ -185,7 +193,7 @@ def masked_argmin1d_emulated(s, ok, parts):
     N = s.shape[0]
     v, i = _packed_min(s, ok, torch.arange(N), parts)
     big = torch.tensor(BIG).item()
-    if v < big:
+    if _feasible_win(v, big):
         return s[i].float(), torch.tensor(i, dtype=torch.int32)
     return _decoded(v, big, N % _block(N, 128)), torch.tensor(
         -1, dtype=torch.int32)
@@ -197,8 +205,10 @@ def argmin_cases(rng, shape):
     (exact ties everywhere, across tiles too), about half masked; an exact
     tie planted at the first and the last cell; -0.0 against +0.0 as the
     minimum; a feasible cell at exactly BIG, alone among masked cells and
-    everywhere; inf scores, beside finite ones and everywhere; and
-    everything masked."""
+    everywhere; inf scores, beside finite ones and everywhere; everything
+    masked; and NaN scores (the first feasible NaN wins, as
+    ``torch.argmin`` has it): beside finite ones, only where masked, and
+    everywhere."""
     import numpy as np
 
     big = np.float32(BIG)
@@ -215,6 +225,9 @@ def argmin_cases(rng, shape):
     inf = s.copy().reshape(-1)
     inf[rng.random(size) < 0.3] = np.inf
     every = np.ones(shape, bool)
+    nan = s.copy().reshape(-1)
+    nan[rng.random(size) < 0.2] = np.nan
+    masked_nan = np.where(ok, s, np.float32(np.nan))
     return [
         ("quantized", s, ok),
         ("tie at the first and last cell", ends.reshape(shape), every),
@@ -224,4 +237,7 @@ def argmin_cases(rng, shape):
         ("inf beside finite", inf.reshape(shape), ok),
         ("all inf", np.full(shape, np.inf, np.float32), every),
         ("all masked", s, np.zeros(shape, bool)),
+        ("NaN beside finite", nan.reshape(shape), ok),
+        ("NaN only where masked", masked_nan, ok),
+        ("all NaN", np.full(shape, np.nan, np.float32), every),
     ]

@@ -21,11 +21,14 @@ N_CASES = len(ref.argmin_cases(np.random.default_rng(0), (2, 2)))
 
 
 def _exact(got, want):
+    """Equal indices and values, the sign of zero included; a NaN value
+    equals a NaN."""
     a = [np.float32(float(x)) if k == 0 else int(x)
          for k, x in enumerate(got)]
     b = [np.float32(float(x)) if k == 0 else int(x)
          for k, x in enumerate(want)]
-    assert a == b, (a, b)
+    assert a[1:] == b[1:], (a, b)
+    assert a[0] == b[0] or (np.isnan(a[0]) and np.isnan(b[0])), (a, b)
     assert np.signbit(a[0]) == np.signbit(b[0]), (a, b)
 
 
@@ -112,20 +115,33 @@ def test_ordered_bits_order_the_values():
         assert ref._from_ordered(k) == (0.0 if x == 0 else float(x))
 
 
-def test_nan_is_never_picked():
-    """A NaN at a feasible cell is outside the contract; the kernel reads
-    it as masked, so the emulation never picks it."""
-    s = np.array([[np.nan, 2.0], [np.nan, np.nan]], np.float32)
-    feas = np.array([[True, True], [True, False]])
+def test_first_feasible_nan_is_picked():
+    """A feasible NaN orders below every value, as ``torch.argmin`` and
+    ``jnp.argmin`` have it: the first feasible NaN in tile order wins over
+    a strictly lower finite score, in every split of the cells, as in the
+    plain versions and the Pallas kernels.  (0, 200) comes first in (n, j)
+    order, but (1, 3) first in tile order; the NaN at (0, 0) is masked."""
+    s = np.ones((2, 256), np.float32)
+    s[0, 200] = s[1, 3] = s[0, 0] = np.nan
+    s[1, 5] = -5.0
+    feas = np.ones((2, 256), bool)
+    feas[0, 0] = False
     S, F = torch.as_tensor(s), torch.as_tensor(feas)
-    parts = torch.zeros((2, 2), dtype=torch.long)
-    _exact(ref.masked_argmin2d_emulated(S, F, parts),
-           (torch.tensor(2.0), torch.tensor(0), torch.tensor(1)))
-    F[0, 1] = False
-    _v, n, j = ref.masked_argmin2d_emulated(S, F, parts)
-    assert (int(n), int(j)) == (-1, -1)
-    _v, i = ref.masked_argmin1d_emulated(S[:, 0], F[:, 0], torch.zeros(2))
-    assert int(i) == -1
+    want = ref.masked_argmin2d_ref(S, F)
+    assert np.isnan(float(want[0]))
+    assert (int(want[1]), int(want[2])) == (1, 3)
+    _exact(_pallas(pallas_2d, s, feas), want)
+    _exact(ops.masked_argmin2d(S, F), want)
+    for p in _parts2d(np.random.default_rng(0), 2, 256).values():
+        _exact(ref.masked_argmin2d_emulated(S, F, p), want)
+    v = np.array([1.0, np.nan, -3.0, np.nan, np.nan], np.float32)
+    ok = np.array([True, False, True, True, True])
+    V, OK = torch.as_tensor(v), torch.as_tensor(ok)
+    want = ref.masked_argmin1d_ref(V, OK)
+    assert int(want[1]) == 3
+    _exact(_pallas(pallas_1d, v, ok), want)
+    for p in (torch.zeros(5), torch.arange(5), torch.tensor([1, 0, 1, 1, 0])):
+        _exact(ref.masked_argmin1d_emulated(V, OK, p), want)
 
 
 @pytest.mark.parametrize("ndim", [1, 2])

@@ -24,9 +24,12 @@ def _scores(rng, shape, dev):
 
 
 def _exact(got, want):
+    """Equal indices and values, the sign of zero included; a NaN value
+    equals a NaN."""
     a = [float(got[0])] + [int(x) for x in got[1:]]
     b = [float(want[0])] + [int(x) for x in want[1:]]
-    assert a == b, (a, b)
+    assert a[1:] == b[1:], (a, b)
+    assert a[0] == b[0] or (np.isnan(a[0]) and np.isnan(b[0])), (a, b)
     assert np.signbit(a[0]) == np.signbit(b[0]), (a, b)
 
 
@@ -255,10 +258,10 @@ def test_kernels_grant_like_the_plain_loop(dev, crit, pol):
 @pytest.mark.parametrize("pol", ["pooled", "rrr"])
 def test_epoch_ends_when_row_zero_is_exhausted(dev, crit, pol):
     """Only framework 0 wants executors, so the grant that reaches its
-    wanted count clears the last feasible row and ends the epoch.  Row 0
-    lies in the first chunk the kernel's liveness check reads: the kernel
-    must see it cleared, stop after exactly that grant, and leave the same
-    state as its plain version."""
+    wanted count clears the last feasible row and ends the epoch: the
+    kernel's kept feasibility count must reach zero with that clear, stop
+    after exactly that grant, and leave the same state as its plain
+    version."""
     from repro_torch.kernels.epoch_persistent import ops as k3
 
     N, J, want = 8, 4096, 5
@@ -291,6 +294,132 @@ def test_epoch_ends_when_row_zero_is_exhausted(dev, crit, pol):
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     assert torch.equal(a_in[6].bool(), b_in[6].bool())      # feas
+
+
+
+def _k3_state(dev, crit, pol, N, J, R, seed, pad_n=0, pad_j=0, limit=2):
+    """K3's arguments on ``dev``: quarter-quantized demands against
+    integer capacities, the last ``pad_n`` frameworks and ``pad_j``
+    servers padded as the engine pads them."""
+    rng = np.random.default_rng(seed)
+    D = rng.integers(1, 9, (N, R)) / 4
+    C = rng.integers(2, 9, (J, R)).astype(np.float64)
+    wanted = rng.integers(1, 7, N).astype(np.float64)
+    allowed = rng.random((N, J)) > 0.25
+    D[N - pad_n:] = wanted[N - pad_n:] = allowed[N - pad_n:] = 0
+    C[J - pad_j:] = allowed[:, J - pad_j:] = 0
+    perms = np.tile(np.arange(J), (16 if pol == "rrr" else 1, 1))
+    if pol == "rrr":
+        for row in perms:
+            row[:J - pad_j] = rng.permutation(J - pad_j)
+    g = lambda a, **k: torch.as_tensor(a, device=dev, **k)  # noqa: E731
+    return et.epoch_state(
+        g(np.zeros((N, J))), g(D), g(D), g(C), g(C.copy()),
+        g(np.array([0.5, 1.0, 2.0])[np.arange(N) % 3]), g(wanted),
+        g(allowed, dtype=torch.bool), g(perms, dtype=torch.int32),
+        torch.zeros(J, dtype=torch.int32, device=dev), 0, 0, J - pad_j,
+        limit, 1e-9, kind=crit, lookahead=False, use_limit=bool(limit))
+
+
+@pytest.mark.parametrize("crit", ["drf", "tsf", "psdsf", "rpsdsf"])
+@pytest.mark.parametrize("pol", ["pooled", "rrr"])
+@pytest.mark.parametrize("N,J,R,pad_n,pad_j,max_steps", [
+    (16, 32, 2, 0, 0, 4096),      # 32 groups: most blocks own nothing
+    (64, 256, 4, 13, 56, 4096),   # padded
+    (13, 36, 2, 0, 0, 4096),      # 117 groups, fewer than the slices
+    (512, 4096, 2, 0, 0, 4096),   # the fleet's shape: the last slice short
+    (1024, 8192, 2, 0, 0, 48)])   # slices too large for shared memory
+def test_persistent_epoch_kernel_equals_plain(dev, crit, pol, N, J, R, pad_n,
+                                             pad_j, max_steps):
+    """K3 against its plain version: every returned and in-place array.
+    Pooled PS-DSF / rPS-DSF runs on every co-resident block, the other
+    pairs on one; at (1024, 8192) a slice no longer fits the shared-memory
+    cache and is streamed from L2 at every pick."""
+    from repro_torch.kernels.epoch_persistent import ops as k3
+
+    state = _k3_state(dev, crit, pol, N, J, R, N + J, pad_n, pad_j)
+    kw = dict(kind=crit, policy=pol, lookahead=False, use_limit=True,
+              max_steps=max_steps)
+    fresh = lambda: tuple(a.clone() if torch.is_tensor(a) else a  # noqa
+                          for a in state)
+    a_in, b_in = fresh(), fresh()
+    a = k3.persistent_epoch(*a_in, **kw)
+    b = k3.persistent_epoch_ref(*b_in, **kw)
+    torch.cuda.synchronize()
+    wide = pol == "pooled" and crit in ("psdsf", "rpsdsf")
+    assert k3.persistent_epoch.grid == (k3.grid_size(dev, R) if wide else 1)
+    assert not wide or k3.persistent_epoch.grid > 1
+    assert 0 < int(b[2]) <= max_steps
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    for i in (3, 4, 5):                                      # cap, dom, s
+        assert torch.equal(a_in[i], b_in[i])
+    assert torch.equal(a_in[6].bool(), b_in[6].bool())      # feas
+
+
+@pytest.mark.parametrize("crit", ["psdsf", "rpsdsf"])
+def test_persistent_epoch_near_tied_slices(dev, crit):
+    """Scores planted so that the first pick has two near-tied parts: the
+    slice of cells 200-203 has its least score (cell 202) within the
+    tolerance of the global least (0.5, cell 300, another slice), but its
+    first cell within ITS tolerance (cell 200) is not.  The kernel takes
+    its near-tie round (counted in the profile) and still picks as its
+    plain version does.  (N, J) = (16, 32) has 128 groups of four cells,
+    so every slice of a grid of 66 blocks or more holds at most 2 groups.)"""
+    from repro_torch.kernels.epoch_persistent import ops as k3
+
+    N, J = 16, 32
+    assert k3.grid_size(dev, 2) >= 66
+    state = list(_k3_state(dev, crit, "pooled", N, J, 2, 7))
+    state[6] = torch.ones((N, J), dtype=torch.bool, device=dev)   # feas
+    half = np.float32(0.5)
+    s = state[5] + 10.0
+    s.view(-1)[300] = float(half)
+    s.view(-1)[202] = float(np.nextafter(half, 1) * np.float32(1 + 7e-7))
+    s.view(-1)[200] = float(half * np.float32(1 + 1.5e-6))
+    state[5] = s
+    kw = dict(kind=crit, policy="pooled", lookahead=False, use_limit=False,
+              max_steps=64)
+    fresh = lambda: tuple(a.clone() if torch.is_tensor(a) else a  # noqa
+                          for a in state)
+    a_in, b_in = fresh(), fresh()
+    prof = torch.zeros(k3.PROFILE_WORDS, dtype=torch.int64, device=dev)
+    a = k3.persistent_epoch(*a_in, **kw, profile=prof)
+    b = k3.persistent_epoch_ref(*b_in, **kw)
+    assert int(prof[3]) >= 1                             # near-tie rounds
+    assert int(b[2]) > 1
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert torch.equal(a_in[5], b_in[5])
+
+
+@pytest.mark.parametrize("crit", ["drf", "tsf", "psdsf", "rpsdsf"])
+@pytest.mark.parametrize("pol", ["pooled", "rrr"])
+def test_chained_epoch_on_the_kernel_equals_plain(dev, crit, pol):
+    """An epoch of more grants than ``max_steps_cap`` runs as chained K3
+    launches, each counting its masks anew from the state the last one
+    left: the grants equal the plain loop's on the card and on the CPU."""
+    from repro_torch.kernels.epoch_persistent import ops as k3
+
+    rng = np.random.default_rng(11)
+    N, J = 40, 96
+    D = rng.integers(1, 9, (N, 2)) / 4
+    C = rng.integers(4, 13, (J, 2)).astype(np.float64)
+    kw = dict(X=np.zeros((N, J)), D=D, C=C, FREE=C.copy(),
+              phi=np.array([0.5, 1.0, 2.0])[np.arange(N) % 3],
+              allowed=rng.random((N, J)) > 0.2,
+              wanted=rng.integers(2, 9, N).astype(np.float64),
+              true_demands=D, per_agent_limit=3, max_steps_cap=16)
+    n0 = k3.persistent_epoch.launches
+    got = et.run_epoch(crit, pol, rng=np.random.default_rng(1),
+                       kernel="persistent", device=dev, **kw)
+    launches = k3.persistent_epoch.launches - n0
+    plain = et.run_epoch(crit, pol, rng=np.random.default_rng(1),
+                         kernel=None, device=dev, **kw)
+    cpu = et.run_epoch(crit, pol, rng=np.random.default_rng(1),
+                       device="cpu", **kw)
+    assert len(cpu) > 2 * 16 and launches >= 3
+    assert got == plain == cpu
 
 
 def psdsf_inputs(seed, N, J, R, family):
