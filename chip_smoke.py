@@ -4,8 +4,7 @@
     python3 chip_smoke.py [--phases kernels,allocator,...] [--seed 0]
 
 Run from the root of a checkout; it needs one CUDA card and builds every
-kernel from the sources in the checkout (nvcc into ``build/``, Triton at
-first launch).  Phases:
+kernel from the sources in the checkout (nvcc into ``build/``).  Phases:
 
 0. header: the card's name and power limit, then the kernel builds (one
    nvcc per CUDA source, in parallel) and each kernel's registers and
@@ -25,8 +24,11 @@ first launch).  Phases:
    alone, ``ops.barrier_floor``); K4
    at (512, 4096, 2), (300, 257, 3), (128, 128, 8) and (1, 1, 1) on
    quarter-quantized and on non-dyadic inputs, with an exhausted row, a
-   blocked column and an all-infeasible case); times of kernel, plain
-   version and the PyTorch yardstick call;
+   blocked column and an all-infeasible case, with and without ``out``,
+   then a run of picks on one ``PickOut`` whose mirror updates ride only in
+   its pending words; K4's time a call with and without ``out``, a pick's
+   round trip (launch and ``PickOut.result``), host enqueue, device time
+   and the launch floor, and its plain version;
 2. allocator: the main path, ``OnlineAllocator(device="cuda")`` with
    ``begin_epoch(use_kernel="fused")``/``commit_epoch``, 3 epochs per
    criterion x policy at the fleet size (512 frameworks x 4096 agents), on
@@ -102,6 +104,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 FLEET_N, FLEET_J = 512, 4096
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
+SFU_PER_S = 16 * 132 * 1.98e9   # H100 SXM exponentials: 16 a clock a SM
 CRITERIA = ("drf", "tsf", "psdsf", "rpsdsf")
 POLICIES = ("pooled", "rrr")
 
@@ -258,10 +261,11 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def device_times(fn):
+def device_times(fn, counts=None):
     """Run fn() under torch.profiler (CUDA activity) -> ({kernel name:
     device us}, None), or (None, reason) when the profiler does not start
-    or records no device time here.  fn runs either way."""
+    or records no device time here.  fn runs either way.  ``counts``, a
+    dict, receives each kernel's number of recorded launches."""
     from torch.profiler import ProfilerActivity, profile
 
     try:        # a measurement, not a check: a profiler fault is reported
@@ -276,14 +280,63 @@ def device_times(fn):
             prof.stop()
     if prof is None:
         return None, why
-    times = {e.key: e.self_device_time_total for e in prof.key_averages()
-             if getattr(e, "self_device_time_total", 0) > 0}
+    events = [e for e in prof.key_averages()
+              if getattr(e, "self_device_time_total", 0) > 0]
+    times = {e.key: e.self_device_time_total for e in events}
+    if counts is not None:
+        counts.update((e.key, e.count) for e in events)
     if not times:
         return None, "the profiler recorded no device time"
     return times, None
 
 
-K4_KERNELS = ("_psdsf_score_tiles_body", "_argmin_partials_body")
+K4_KERNELS = ("psdsf_pick_kernel",)
+
+
+def enqueue_us(fn, calls=1000):
+    """Host time a call of fn(), no sync (``perf_counter`` over calls)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def device_us(fn, pattern, calls=50, tries=3):
+    """Device time a launch of each kernel whose name matches the regex
+    ``pattern``, over ``calls`` calls of fn() (torch.profiler; each kernel's
+    time over its recorded launches, since a long profile may not keep
+    every one) -> (the sum over those kernels in us, "name us, ...") or
+    (None, why)."""
+    import torch
+
+    def run():
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+
+    for _ in range(tries):      # a profile may come back empty now and then
+        counts = {}
+        times, why = device_times(run, counts)
+        if times is not None:
+            break
+    else:
+        return None, f"{why}, {tries} tries"
+    ours, launches = {}, {}
+    for k, v in times.items():
+        m = re.search(pattern, k)
+        if m:
+            ours[m.group(0)] = ours.get(m.group(0), 0.0) + v
+            launches[m.group(0)] = launches.get(m.group(0), 0) + counts[k]
+    ours = {k: v / launches[k] for k, v in ours.items()}
+    if not ours:
+        return None, f"no kernel named {pattern} in the profile"
+    return sum(ours.values()), ", ".join(
+        f"{k} {v:.2f} us x {launches[k]}" for k, v in ours.items())
 
 
 # -- phase 1: kernels against their plain versions ---------------------------
@@ -317,48 +370,92 @@ def psdsf_inputs(rng, N, J, R, family, dev):
 
 def psdsf_phase(rng, dev):
     """K4 against its plain version: exact (val, n, j) at every shape and
-    input family, and on an all-infeasible case; -> the kernels row."""
+    input family and on an all-infeasible case, with and without ``out``;
+    then 64 picks on one ``PickOut`` whose mirror updates ride only in its
+    pending words, against the plain version on eagerly updated inputs.
+    Then times at the fleet shape: a call with and without ``out``
+    (CUDA events over back-to-back calls), a pick's round trip (launch and
+    ``result``, the host's clock), the host's enqueue, the device time
+    (torch.profiler), the launch floor and the plain version.  -> the
+    kernels row."""
     import torch
 
     from repro_torch.kernels.psdsf_score import ops as k4
+    from repro_torch.kernels.psdsf_score import ref as k4_ref
+
+    def triple(r):
+        return [float(r[0]), int(r[1]), int(r[2])]
 
     for N, J, R in PSDSF_SHAPES:
+        out = k4.PickOut(dev, R)
         for family in ("quantized", "non-dyadic"):
             args = psdsf_inputs(rng, N, J, R, family, dev)
             cases = [("", args)]
             cases.append((" all-infeasible", args[:2] + [args[2] + 100.0,
                                                          args[3]]))
             for label, a in cases:
-                got = k4.psdsf_argmin(*a)
-                want = k4.psdsf_argmin_ref(*a)
-                got = [float(got[0]), int(got[1]), int(got[2])]
-                want = [float(want[0]), int(want[1]), int(want[2])]
-                check(got == want, f"K4 at ({N}, {J}, {R}) {family}{label}: "
-                      f"{got} != {want}")
+                want = triple(k4.psdsf_argmin_ref(*a))
+                for how, got in (("", k4.psdsf_argmin(*a)),
+                                 (" with out", k4.psdsf_argmin(*a, out=out))):
+                    got = triple(got)
+                    check(got == want, f"K4 at ({N}, {J}, {R}) {family}"
+                          f"{label}{how}: {got} != {want}")
+                check(list(out.result()) == want[1:],
+                      f"K4 at ({N}, {J}, {R}): pinned pair {out.result()} "
+                      f"!= {want[1:]}")
                 check(label == "" or got[1] == -1,
                       f"K4 at ({N}, {J}, {R}): all-infeasible found {got}")
     N, J, R = PSDSF_SHAPES[0]
+    lazy = psdsf_inputs(rng, N, J, R, "non-dyadic", dev)
+    lazy[3] += 4.0
+    eager = [a.clone() for a in lazy]
+    out = k4.PickOut(dev, R)
+    tot = np.zeros(N)
+    for step in range(64):
+        k4.psdsf_argmin(*lazy, out=out)
+        n, j = out.result()
+        want = triple(k4.psdsf_argmin_ref(*eager))
+        check([float(out.views[0]), n, j] == want
+              and all(torch.equal(a, b) for a, b in zip(lazy, eager)),
+              f"K4 pick {step} with a pending update: {(n, j)} != {want} "
+              "or the mirrors differ")
+        if n < 0:
+            break
+        tot[n] += 1
+        row = (eager[3][j] - eager[2][n]).double().cpu().numpy() / 3.0
+        upd = (n, 1.0, j, row, bool(tot[n] >= 3))
+        k4_ref.apply_update(eager[0], eager[2], eager[3], upd)
+        out.defer(*upd)
     args = psdsf_inputs(rng, N, J, R, "non-dyadic", dev)
-    ms = cuda_ms(lambda: k4.psdsf_argmin(*args), 200)
+    out = k4.PickOut(dev, R)
+    ms = cuda_ms(lambda: k4.psdsf_argmin(*args, out=out), 1000)
+    fresh = cuda_ms(lambda: k4.psdsf_argmin(*args), 200)
+    host = enqueue_us(lambda: k4.psdsf_argmin(*args, out=out))
+
+    def pick():
+        k4.psdsf_argmin(*args, out=out)
+        out.result()
+
+    pick_us = enqueue_us(pick)
+    dev_us, dev_why = device_us(lambda: k4.psdsf_argmin(*args, out=out),
+                                r"psdsf_pick\w*")
+    index = torch.cuda.current_device()
+    floor_ms = cuda_ms(lambda: k4.noop_launch(index), 1000)
     plain = cuda_ms(lambda: k4.psdsf_argmin_ref(*args), 50)
-
-    def launches_50():
-        for _ in range(50):
-            k4.psdsf_argmin(*args)
-        torch.cuda.synchronize()
-
-    times, why = device_times(launches_50)
-    log("K4 device time a launch (torch.profiler, 50 launches): " + (
-        why or ", ".join(f"{k} {v / 50:.2f} us" for k, v in times.items()
-                         if k in K4_KERNELS)))
     # each input read once, (val, n, j) written once; per cell 5 operations
     # a resource (quotient, two selects, max, feasibility compare) and 3 more
     # (product, mask, min)
     nbytes = sum(a.numel() * a.element_size() for a in args) + 12
     ops = N * J * (5 * R + 3)
-    log(f"K4 psdsf_argmin ({N}, {J}, {R}): {ms:.4f} ms, plain {plain:.4f} ms; "
-        f"equal to the plain version on {len(PSDSF_SHAPES)} shapes x 2 "
-        "families + all-infeasible")
+    log(f"K4 psdsf_argmin ({N}, {J}, {R}): {ms:.4f} ms a call with out, "
+        f"{fresh:.4f} ms without; a pick (launch + result) {pick_us:.2f} us; "
+        f"host enqueue {host:.2f} us; device "
+        + (f"{dev_us:.2f} us a launch ({dev_why})" if dev_us else
+           f"not measured ({dev_why})")
+        + f"; launch floor {floor_ms:.4f} ms; plain {plain:.4f} ms; equal "
+        f"to the plain version on {len(PSDSF_SHAPES)} shapes x 2 families + "
+        f"all-infeasible, with and without out, and over {step + 1} picks "
+        "with pending updates")
     return dict(ms=ms, plain_ms=plain, library_ms=None, max_abs_err=0.0,
                 bound_ms=max(nbytes / HBM_BYTES_PER_S,
                              ops / F32_OPS_PER_S) * 1e3,
@@ -436,35 +533,6 @@ def argmin_phase(rng, dev):
     log(f"K1/K2 edge-case sweep: {n} cases x (with, without out) equal to "
         f"the plain versions ({time.perf_counter() - t0:.1f} s)")
 
-    def enqueue_us(fn, calls=1000):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        us = (time.perf_counter() - t0) / calls * 1e6
-        torch.cuda.synchronize()
-        return us
-
-    def device_us(fn, calls=50, tries=3):
-        def run():
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-
-        for _ in range(tries):  # a profile may come back empty now and then
-            times, why = device_times(run)
-            if times is not None:
-                break
-        else:
-            return None, f"{why}, {tries} tries"
-        ours = {}
-        for k, v in times.items():
-            if "argmin" in k:
-                name = re.search(r"argmin\w*", k).group(0)
-                ours[name] = ours.get(name, 0.0) + v / calls
-        return sum(ours.values()), ", ".join(
-            f"{k} {v:.2f} us" for k, v in ours.items())
-
     index = torch.cuda.current_device()
     floor_ms = cuda_ms(lambda: tiles.noop_launch(index), 1000)
     floor_us = enqueue_us(lambda: tiles.noop_launch(index))
@@ -486,7 +554,8 @@ def argmin_phase(rng, dev):
         fresh = cuda_ms(lambda: fn(s, ok), reps)
         host_out = enqueue_us(lambda: fn(s, ok, out=out))
         host_fresh = enqueue_us(lambda: fn(s, ok))
-        dev_us, dev_why = device_us(lambda: fn(s, ok, out=out))
+        dev_us, dev_why = device_us(lambda: fn(s, ok, out=out),
+                                    r"argmin\w*")
         plain = cuda_ms(lambda: plain_fn(s, ok), 50)
         lib = cuda_ms(lambda: torch.min(masked, dim=0), reps)
         lib_where = cuda_ms(lambda: torch.min(
@@ -1005,7 +1074,8 @@ def pergrant_split(dev, fleet):
 
     # the engine reaches K4 through its module alias _kops; the wrapper
     # itself stays in place, so its launch count keeps counting
-    backend = SimpleNamespace(psdsf_argmin=timed(launch, "launch"))
+    backend = SimpleNamespace(psdsf_argmin=timed(launch, "launch"),
+                              PickOut=k4.PickOut)
     n0 = launch.launches
     run = {}
 
@@ -1030,7 +1100,8 @@ def pergrant_split(dev, fleet):
         rest_us=us(epoch_s - host["select"] - host["apply"]),
         epoch_us=us(epoch_s))
     if times:
-        k4_dev = sum(v for k, v in times.items() if k in K4_KERNELS)
+        k4_dev = sum(v for k, v in times.items()
+                     if any(name in k for name in K4_KERNELS))
         split.update(k4_device_us=k4_dev / picks,
                      other_device_us=(sum(times.values()) - k4_dev) / picks,
                      device_busy_share=sum(times.values()) / (epoch_s * 1e6))
@@ -1292,6 +1363,8 @@ def wkv6_phase(dev):
     B, S, H, D = RWKV_WKV
     ms = cuda_ms(lambda: k6.wkv6(*main_args), 10)
     plain = cuda_ms(lambda: k6.wkv6_ref(*main_args), 3)
+    per_launch, why = device_us(lambda: k6.wkv6(*main_args),
+                                r"wkv6_(intra|scan|inter)", calls=10)
     C, nC = 64, -(-S // 64)
     nbytes = 5 * B * S * H * D * 4 + H * D * 4 + B * H * D * D * 4
     # per chunk of a stream: the intra-chunk scores (difference, exp, two
@@ -1299,12 +1372,20 @@ def wkv6_phase(dev):
     # the two (C, D) x (D, D) products of the state
     ops = B * H * nC * (4 * (C * (C - 1) // 2) * D + 2 * C * C * D
                         + 4 * C * D * D)
-    log(f"K6 wkv6 {RWKV_WKV} f32: {ms:.4f} ms, plain {plain:.4f} ms")
+    # the exponentials the function needs: the strict lower triangle of the
+    # pair decays, the decays of r and of k, and each chunk's total decay
+    exps = B * H * nC * ((C * (C - 1) // 2) * D + 2 * C * D + D)
+    times = dict(bytes=nbytes / HBM_BYTES_PER_S,
+                 operations=ops / F32_OPS_PER_S, exponentials=exps / SFU_PER_S)
+    bound = max(times, key=times.get)
+    log(f"K6 wkv6 {RWKV_WKV} f32: {ms:.4f} ms, plain {plain:.4f} ms; "
+        "device a call: " + (f"{per_launch:.1f} us ({why})" if per_launch
+                             else f"not measured ({why})")
+        + "; bound " + ", ".join(f"{k} {v * 1e3:.4f} ms"
+                                 for k, v in times.items()))
     return dict(ms=ms, plain_ms=plain, library_ms=None, max_abs_err=main_err,
-                bound_ms=max(nbytes / HBM_BYTES_PER_S,
-                             ops / F32_OPS_PER_S) * 1e3,
-                bound_by=("operations" if ops / F32_OPS_PER_S >
-                          nbytes / HBM_BYTES_PER_S else "bytes"))
+                bound_ms=times[bound] * 1e3,
+                bound_by="bytes" if bound == "bytes" else "operations")
 
 
 def _rel_l2(a, b):
@@ -1590,7 +1671,6 @@ def main(argv=None):
     from repro_torch import _build
     from repro_torch.kernels.epoch_persistent import ops as k3
     from repro_torch.kernels.flash_attention import ops as k5
-    from repro_torch.kernels.psdsf_score import kernel as tiles_kernel
     from repro_torch.kernels.psdsf_score import ops as tiles
     from repro_torch.kernels.rwkv6 import ops as k6
 
@@ -1608,7 +1688,6 @@ def main(argv=None):
     for name in k5.SOURCES:
         k5.library(name)
     k6.library()
-    tiles_kernel.compiled()     # imports Triton (K4)
     log(f"built {', '.join(src.name for src in sources)} in "
         f"{time.perf_counter() - t0:.1f} s")
     for src in sources:
@@ -1661,8 +1740,8 @@ def main(argv=None):
             source="src/repro_torch/kernels/epoch_persistent/csrc/epoch.cu",
             replaces="src/repro/kernels/epoch_persistent/ops.py:49"),
         "psdsf_argmin": dict(
-            route="triton",
-            source="src/repro_torch/kernels/psdsf_score/kernel.py",
+            route="cuda",
+            source="src/repro_torch/kernels/psdsf_score/csrc/argmin.cu",
             replaces="src/repro/kernels/psdsf_score/kernel.py:168"),
         "flash_attention": dict(
             route="cuda",

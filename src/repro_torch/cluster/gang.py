@@ -12,7 +12,7 @@ Mapping (see DESIGN.md §2):
 The allocator is the paper's online allocator (repro.core.online); all its
 criteria (DRF/TSF/PS-DSF/rPS-DSF/BF-DRF) apply unchanged.  For fleets large
 enough that scoring matters (10k x 10k), `repro_torch.kernels.psdsf_score`
-provides the fused scoring/argmin (the Triton kernel K4 on the card).  The
+provides the fused scoring/argmin (the CUDA kernel K4 on the card).  The
 scheduler's allocator runs on the card (``device="cuda"``) unless asked for
 the CPU.
 """

@@ -92,10 +92,11 @@ class BatchedEpoch:
     usage : (N, R) aggregate held resources — only consulted for the
         oblivious DRF/TSF usage-share surrogate.
     use_kernel : opt in to the PER-GRANT ``psdsf_argmin`` scoring/argmin
-        backend (the Triton kernel K4 on a CUDA ``device``, its plain
+        backend (the CUDA kernel K4 on a CUDA ``device``, its plain
         version on the CPU): one kernel launch + scalar readback per
         pick, against device-resident mirrors of the kernel inputs that are
-        uploaded once per epoch and updated incrementally per grant.
+        uploaded once per epoch and updated incrementally per grant (by
+        the next pick's launch).
         Engaged only when it matches the numpy semantics: characterized
         rPS-DSF + pooled policy + tie="low" + no placement constraints
         (otherwise the numpy incremental path runs).  Tie-breaking across
@@ -159,6 +160,9 @@ class BatchedEpoch:
             self._dev_phi = mirror(self.phi)
             self._dev_kd = mirror(self._kd)
             self._dev_kres = mirror(self._kres)
+            # K4's outputs, workspace and pinned answer, and the grant's
+            # pending mirror update, which the next pick's launch applies
+            self._pick = _kops.PickOut(dev, self.D.shape[1])
             self.policy = None
             return
         self.policy = make_policy(policy, J, rng, tie, bf_metric)
@@ -235,14 +239,15 @@ class BatchedEpoch:
     def _select_kernel(self) -> Optional[tuple[int, int]]:
         """Fused score+feasibility+argmin (rPS-DSF pooled), K4.
 
-        Operates on the cached device mirrors (see ``__init__``); the only
-        host<->device traffic per pick is the ``(n, j)`` readback, one
-        sync (the fully fused alternative is
-        :mod:`repro_torch.core.engine_torch`)."""
-        _, n, j = _kops.psdsf_argmin(
+        Operates on the cached device mirrors (see ``__init__``); a pick is
+        one launch, which also applies the last grant's mirror update, and
+        one sync, after which ``(n, j)`` is read from pinned memory (the
+        fully fused alternative is :mod:`repro_torch.core.engine_torch`)."""
+        _kops.psdsf_argmin(
             self._dev_tot, self._dev_phi, self._dev_kd, self._dev_kres,
+            out=self._pick,
         )
-        n, j = torch.stack((n, j)).tolist()
+        n, j = self._pick.result()
         if n < 0:
             return None
         return n, j
@@ -263,18 +268,17 @@ class BatchedEpoch:
             demand_changed = True
         if self.kernel:
             # masks ride on the kernel inputs: exhausted frameworks get an
-            # unsatisfiable demand row, blocked servers zero residuals.  Only
-            # the touched row/column moves host->device, in place.
+            # unsatisfiable demand row, blocked servers zero residuals.  The
+            # touched row/column reach the device mirrors with the next
+            # pick's launch.
             self.cap[j] = self.C[j] - self.X[:, j] @ self.D
             self._kres[j] = self.cap[j]
             if self.limit is not None and self.used[j] >= self.limit:
                 self._kres[j] = 0.0
-            self._dev_tot[n] += float(n_units)
-            self._dev_kres[j] = torch.as_tensor(self._kres[j],
-                                                dtype=torch.float32)
-            if self.tot[n] >= self.wanted[n]:
+            exhausted = self.tot[n] >= self.wanted[n]
+            if exhausted:
                 self._kd[n] = _KBIG
-                self._dev_kd[n] = _KBIG
+            self._pick.defer(n, n_units, j, self._kres[j], exhausted)
             return
         # feasibility: column j saw FREE change; row n may have hit `wanted`
         wants = self.tot < self.wanted

@@ -925,7 +925,7 @@ class OnlineAllocator:
             from the allocator rng (see the engine_jax module docstring for
             the cross-epoch rng-stream caveat).
           * ``"pergrant"`` — the legacy per-grant ``psdsf_argmin``
-            backend (the Triton kernel K4 on the card, its plain version on
+            backend (the CUDA kernel K4 on the card, its plain version on
             the CPU; one kernel launch + readback per pick; characterized
             rPS-DSF + pooled only), kept for benchmarking the boundary cost.
           * ``False`` — pure numpy incremental epoch.

@@ -1,12 +1,11 @@
 """Hand-written Hopper kernels of the port.
 
-Each kernel package holds the kernel (Triton ``kernel.py`` or CUDA
-``csrc/*.cu``), its wrapper ``ops.py`` (plain version for CPU tensors,
+Each kernel package holds the kernel (CUDA C++, ``csrc/*.cu``), its wrapper ``ops.py`` (plain version for CPU tensors,
 kernel launch for CUDA tensors, a launch count) and its plain PyTorch
 version ``ref.py``:
 
-  psdsf_score      — masked argmins of the epoch's selects (K1, K2; CUDA
-                     C++) and the fused per-grant PS-DSF pick (K4; Triton)
+  psdsf_score      — masked argmins of the epoch's selects (K1, K2) and the
+                     fused per-grant PS-DSF pick (K4; CUDA C++)
   epoch_persistent — the whole epoch segment in one launch (K3; CUDA C++)
   flash_attention  — the dense LMs' prefill attention (K5; CUDA C++)
   rwkv6            — RWKV6's chunked WKV recurrence (K6; CUDA C++)

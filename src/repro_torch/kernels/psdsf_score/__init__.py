@@ -1,1 +1,2 @@
-"""Masked-argmin kernels of the allocation epoch's selects (Triton)."""
+"""Masked-argmin kernels of the allocation epoch's selects and the per-grant
+pick (CUDA C++, ``csrc/argmin.cu``)."""

@@ -14,7 +14,7 @@ do not count).
     ``csrc/argmin.cu``;
   * :func:`psdsf_argmin` — fused PS-DSF / rPS-DSF score, feasibility and
     argmin from raw (x, phi, d, res), the per-grant ``BatchedEpoch``
-    backend; two Triton launches (:mod:`.kernel`).
+    backend; one launch of ``csrc/argmin.cu``.
 
 Results stay on the device as 0-d tensors, so a select costs no host sync.
 K1 and K2 write into an :class:`ArgminOut` the caller keeps (``out=``): a
@@ -22,7 +22,10 @@ call with it allocates nothing, makes no tensor and can be captured in a
 CUDA graph.  The holder also carries K2's 16-byte workspace, which every
 launch leaves ready for the next.  Without ``out`` each call makes a fresh
 holder (a convenience for one-off calls and tests; the tiles loop passes
-one).
+one).  K4 writes into a :class:`PickOut`, which also carries a pinned host
+pair that the launch writes (n, j) into, and the previous grant's pending
+mirror update, which the launch applies: a pick is one launch and one
+stream sync (:meth:`PickOut.result`).
 """
 from __future__ import annotations
 
@@ -30,13 +33,14 @@ import ctypes
 import functools
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from repro_torch import _build
 from repro_torch.kernels import KernelError
-from repro_torch.kernels.psdsf_score import kernel
 from repro_torch.kernels.psdsf_score.ref import (  # noqa: F401 (re-exported)
     BIG,
+    IBIG,
     _block,
     masked_argmin1d_ref,
     masked_argmin2d_ref,
@@ -60,6 +64,13 @@ def library() -> ctypes.CDLL:
         for fn in (lib.argmin2d_launch, lib.argmin1d_launch):
             fn.argtypes = [ctypes.c_void_p]     # an ArgminOut's word array
             fn.restype = i32
+        lib.psdsf_pick_launch.argtypes = [ctypes.c_void_p]   # PickOut's
+        lib.psdsf_pick_launch.restype = i32
+        lib.psdsf_pick_wait.argtypes = [ctypes.c_void_p]
+        lib.psdsf_pick_wait.restype = i32
+        lib.argmin_host_device_ptr.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)]
+        lib.argmin_host_device_ptr.restype = i32
         lib.argmin_noop_launch.argtypes = [i32, ctypes.c_void_p]
         lib.argmin_noop_launch.restype = i32
         lib.argmin_error.argtypes = [i32]
@@ -107,6 +118,101 @@ class ArgminOut:
         return self.views
 
 
+class PickOut:
+    """What K4's caller keeps across picks, made once an epoch and handed to
+    every call as ``out=``: ``views``, the 0-d (val, n, j) a call returns
+    (f32, int32, int32); the ``workspace`` its blocks meet in (as
+    :class:`ArgminOut`'s); ``host``, an int32 pair in pinned memory that
+    the launch also writes (n, j) into; ``pending``, the previous grant's
+    mirror update (:meth:`defer`), which the next call applies; and the
+    array of 64-bit words in which a CUDA call passes its arguments
+    (``PickArgs`` of ``csrc/argmin.cu``).  Calls on one holder must not
+    overlap."""
+
+    __slots__ = ("views", "workspace", "host", "device_index", "R",
+                 "pending", "_host_np", "_ptrs", "_args", "_addr", "_units",
+                 "_row", "_bound")
+    _PENDING = 20               # the word of pend_n in PickArgs
+
+    def __init__(self, device, R: int):
+        if not 1 <= R <= 8:
+            raise ValueError(f"PickOut: R must be 1 to 8, got {R}")
+        device = torch.device(device)
+        self.R = R
+        self.views = (torch.empty((), dtype=_F32, device=device),
+                      torch.empty((), dtype=torch.int32, device=device),
+                      torch.empty((), dtype=torch.int32, device=device))
+        self.workspace = torch.arange(-1, 1, dtype=torch.int64, device=device)
+        cuda = device.type == "cuda"
+        self.host = torch.full((2,), -1, dtype=torch.int32, pin_memory=cuda)
+        self._host_np = self.host.numpy()
+        self.device_index = self.views[0].get_device()
+        self.pending = None
+        self._args = (ctypes.c_longlong * 28)()
+        self._addr = ctypes.addressof(self._args)
+        self._units = ctypes.c_double.from_buffer(self._args, 23 * 8)
+        self._row = (ctypes.c_float * 8).from_buffer(self._args, 24 * 8)
+        self._args[self._PENDING:self._PENDING + 2] = (-1, -1)
+        self._ptrs = ()
+        # (x, phi, d, res, bn, bj, N, J) of the last CUDA call, whose
+        # argument words stand: a call on the same four tensors (the
+        # engine's mirrors, never resized) skips the checks
+        self._bound = None
+        if cuda:
+            lib = _LIB or library()
+            host_dev = ctypes.c_void_p()
+            rc = lib.argmin_host_device_ptr(self.host.data_ptr(),
+                                            ctypes.byref(host_dev))
+            if rc:
+                raise KernelError("PickOut: pinned pair not mapped: "
+                                  + lib.argmin_error(rc).decode())
+            self._ptrs = tuple(v.data_ptr() for v in self.views) + (
+                self.workspace.data_ptr(), host_dev.value)
+
+    def defer(self, n: int, units, j: int, row, exhausted: bool) -> None:
+        """Record a grant's mirror update for the next call to apply: x[n]
+        += units, res[j] = row (R values, rounded to f32), and d[n] =
+        ``ref.EXHAUSTED`` where ``exhausted``.  One update between two
+        calls."""
+        if self.pending is not None:
+            raise KernelError("PickOut: an update is already pending; a "
+                              "pick must come between two grants")
+        row = np.asarray(row, np.float32)
+        if row.shape != (self.R,):
+            raise KernelError(f"PickOut: the res row must have {self.R} "
+                              f"values (got {row.shape})")
+        self.pending = (int(n), float(units), int(j), row, bool(exhausted))
+        a = self._args
+        a[self._PENDING:self._PENDING + 3] = (n, j, int(bool(exhausted)))
+        self._units.value = float(units)
+        self._row[:self.R] = row.tolist()
+
+    def take(self):
+        """-> the pending update (or None), cleared."""
+        p, self.pending = self.pending, None
+        self._args[self._PENDING:self._PENDING + 2] = (-1, -1)
+        return p
+
+    def write(self, result):
+        """Copy a plain version's (val, n, j) into the holder -> its views."""
+        for view, r in zip(self.views, result):
+            view.copy_(r)
+        self.host.copy_(torch.stack(result[1:]).to(torch.int32))
+        return self.views
+
+    def result(self) -> tuple[int, int]:
+        """-> (n, j) of the last call: on the card, after one sync of the
+        stream it launched on, read from the pinned pair."""
+        if self._ptrs:
+            lib = _LIB or library()
+            rc = lib.psdsf_pick_wait(self._args[9])
+            if rc:
+                raise KernelError("psdsf_argmin failed: "
+                                  + lib.argmin_error(rc).decode())
+        h = self._host_np
+        return int(h[0]), int(h[1])
+
+
 @functools.lru_cache(maxsize=64)
 def _blocks2d(N: int, J: int, bn: int, bj: int):
     """-> K2's tile words (log2 bn, log2 bj, tj, pad): the reference's tile
@@ -119,7 +225,7 @@ def _blocks2d(N: int, J: int, bn: int, bj: int):
                           f"(got {bn} x {bj})")
     tn, tj = -(-N // bn), -(-J // bj)
     cells = tn * bn * tj * bj
-    if cells >= kernel.IBIG:
+    if cells >= IBIG:
         raise KernelError(f"masked_argmin2d: {N} x {J} padded to {cells} "
                           "cells overflows the int32 cell key")
     return (bn.bit_length() - 1, bj.bit_length() - 1, tj,
@@ -130,7 +236,7 @@ def _blocks2d(N: int, J: int, bn: int, bj: int):
 def _pad1d(n: int) -> int:
     """-> K1's ``pad``: whether the reference pads n to whole tiles.
     Raises where n overflows the kernel's 31-bit index."""
-    if n >= kernel.IBIG:
+    if n >= IBIG:
         raise KernelError(f"masked_argmin1d: {n} entries overflow the int32 "
                           "index")
     return int(n % _block(n, 128) != 0)
@@ -232,20 +338,15 @@ def noop_launch(index: int) -> None:
                           + lib.argmin_error(rc).decode())
 
 
-def psdsf_argmin(x, phi, d, res, *, bn: int = 128, bj: int = 128):
-    """Fused feasibility-masked PS-DSF argmin over (frameworks x servers).
-    x (N,), phi (N,), d (N, R), res (J, R) with R <= 8 -> (val, n, j) as
-    0-d tensors; n == j == -1 when no pair is feasible.  Residual
-    capacities as ``res`` give rPS-DSF, full capacities PS-DSF.  Exact ties
-    resolve in (bn, bj) tile order (see :func:`.ref.psdsf_argmin_ref`)."""
-    if d.device.type == "cpu":
-        return psdsf_argmin_ref(x, phi, d, res, bn=bn, bj=bj)
+def _bind_pick(x, phi, d, res, bn, bj, out):
+    """Check K4's CUDA inputs and write their argument words into ``out``
+    (a fresh holder where None) -> the holder."""
     dev = d.device
     if dev.type != "cuda" or any(t.device != dev for t in (x, phi, res)):
         raise KernelError(f"psdsf_argmin: inputs must share one CUDA device "
                           f"(got {x.device}, {phi.device}, {dev}, "
                           f"{res.device})")
-    if any(t.dtype != torch.float32 for t in (x, phi, d, res)):
+    if any(t.dtype != _F32 for t in (x, phi, d, res)):
         raise KernelError("psdsf_argmin: needs f32 inputs")
     N, R = d.shape if d.dim() == 2 else (-1, -1)
     J = res.shape[0] if res.dim() == 2 else -1
@@ -258,26 +359,51 @@ def psdsf_argmin(x, phi, d, res, *, bn: int = 128, bj: int = 128):
     if (x.stride(0) != 1 or phi.stride(0) != 1 or d.stride(1) != 1
             or res.stride(1) != 1):
         raise KernelError("psdsf_argmin: vectors and rows must be contiguous")
-    if N * J >= kernel.IBIG:
-        raise KernelError(f"psdsf_argmin: {N} x {J} cells overflow the "
-                          "int32 cell index")
-    bn, bj = _block(N, bn), _block(J, bj)
-    tn, tj = -(-N // bn), -(-J // bj)
-    pmin = torch.empty(tn * tj, dtype=torch.float32, device=dev)
-    parg = torch.empty(tn * tj, dtype=torch.int32, device=dev)
-    val = torch.empty(1, dtype=torch.float32, device=dev)
-    nj = torch.empty(2, dtype=torch.int32, device=dev)
-    try:
-        k_reduce, k_score = kernel.compiled()
-        k_score[(tn, tj)](x, phi, d, res, pmin, parg, N, J, d.stride(0),
-                          res.stride(0), R=R, BN=bn, BJ=bj, BIG=BIG,
-                          IBIG=kernel.IBIG, num_warps=8)
-        k_reduce[(1,)](pmin, parg, val, nj, tn * tj, J, BLOCK=1024, BIG=BIG,
-                       IBIG=kernel.IBIG, num_warps=4)
-    except Exception as exc:    # Triton build or launch
-        raise KernelError(f"psdsf_argmin: {exc!r}") from exc
+    geometry = _blocks2d(N, J, bn, bj)
+    index = d.get_device()
+    if out is None:
+        out = PickOut(dev, R)
+    elif (not isinstance(out, PickOut) or out.device_index != index
+            or out.R != R):
+        raise KernelError(f"psdsf_argmin: out must be a PickOut({dev}, {R})")
+    out._args[:20] = (x.data_ptr(), phi.data_ptr(), d.data_ptr(),
+                      res.data_ptr(), *out._ptrs, 0, N, J, R, d.stride(0),
+                      res.stride(0), *geometry, index)
+    out._bound = (x, phi, d, res, bn, bj, N, J)
+    return out
+
+
+def psdsf_argmin(x, phi, d, res, *, bn: int = 128, bj: int = 128,
+                 out: PickOut | None = None):
+    """Fused feasibility-masked PS-DSF argmin over (frameworks x servers).
+    x (N,), phi (N,), d (N, R), res (J, R) with R <= 8 -> (val, n, j) as
+    0-d tensors (``out.views`` when ``out`` is given); n == j == -1 when no
+    pair is feasible.  Residual capacities as ``res`` give rPS-DSF, full
+    capacities PS-DSF.  Exact ties resolve in (bn, bj) tile order (see
+    :func:`.ref.psdsf_argmin_ref`).  With ``out``, the holder's pending
+    mirror update is applied to x, d and res first (in place), and (n, j)
+    also reaches the holder's host pair; a CUDA call then allocates
+    nothing."""
+    if d.device.type == "cpu":
+        return psdsf_argmin_ref(x, phi, d, res, bn=bn, bj=bj, out=out)
+    b = getattr(out, "_bound", None)
+    if (b is None or b[0] is not x or b[1] is not phi or b[2] is not d
+            or b[3] is not res or b[4] != bn or b[5] != bj):
+        out = _bind_pick(x, phi, d, res, bn, bj, out)
+        b = out._bound
+    p = out.pending
+    if p is not None and not (0 <= p[0] < b[6] and 0 <= p[2] < b[7]):
+        raise KernelError(f"psdsf_argmin: the pending update's row {p[0]} "
+                          f"or column {p[2]} is outside {b[6:]}")
+    lib = _LIB or library()
+    out._args[9] = torch._C._cuda_getCurrentRawStream(out.device_index)
+    rc = lib.psdsf_pick_launch(out._addr)
+    if rc:
+        raise KernelError("psdsf_argmin launch failed: "
+                          + lib.argmin_error(rc).decode())
+    out.take()          # the launch carried it
     psdsf_argmin.launches += 1
-    return val[0], nj[0], nj[1]
+    return out.views
 
 
 masked_argmin1d.launches = 0

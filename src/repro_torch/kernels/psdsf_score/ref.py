@@ -1,8 +1,7 @@
 """Plain PyTorch versions of the psdsf_score kernels (K1, K2, K4).
 
-They define the functions the kernels compute (K1 and K2 in
-``csrc/argmin.cu``, K4 in :mod:`.kernel`), tie order included, and they are
-what :mod:`.ops` runs for tensors on the CPU.
+They define the functions the kernels of ``csrc/argmin.cu`` compute, tie
+order included, and they are what :mod:`.ops` runs for tensors on the CPU.
 ``masked_argmin2d_ref`` keeps the tile order of the TPU kernel it replaces
 (``repro/kernels/psdsf_score/kernel.py::masked_argmin2d_tiles``): the first
 minimum inside each (bn, bj) tile in row-major order, then the first tile in
@@ -14,6 +13,10 @@ from __future__ import annotations
 import torch
 
 BIG = 3.4e38  # masked-entry sentinel (~f32 max), as in the TPU kernels
+IBIG = 2**31 - 1  # the kernels' cell keys and indices are below it
+#: the per-grant backend's unsatisfiable demand: a framework that reached
+#: its wanted count gets this demand row (``core/engine.py``'s ``_KBIG``)
+EXHAUSTED = 3.0e38
 
 
 def next_pow2(n: int, lo: int = 8) -> int:
@@ -64,7 +67,41 @@ def masked_argmin2d_ref(s, feas, *, bn: int = 128, bj: int = 128):
             torch.where(bad, -1, j).to(torch.int32))
 
 
-def psdsf_argmin_ref(x, phi, d, res, *, bn: int = 128, bj: int = 128):
+def apply_update(x, d, res, update) -> None:
+    """Apply a pending mirror update (``PickOut.defer``'s words) to the
+    per-grant backend's mirrors in place, as the engine's eager writes did:
+    ``x[n] += units`` as one f32 add, ``d[n] = EXHAUSTED`` where row n is
+    now exhausted, ``res[j] = row``.  ``update`` is ``(n, units, j, row,
+    exhausted)`` or None."""
+    if update is None:
+        return
+    n, units, j, row, exhausted = update
+    x[n] += float(units)
+    if exhausted:
+        d[n] = EXHAUSTED
+    res[j] = torch.as_tensor(row, dtype=torch.float32)
+
+
+def _psdsf_scores(x, phi, d, res):
+    """-> ((N, J) f32 scores, (N, J) feasibility) of the fused pick, in the
+    reference kernel's order of operations."""
+    x, phi, d, res = (t.float() for t in (x, phi, d, res))
+    N, J = d.shape[0], res.shape[0]
+    dom = torch.zeros((N, J), dtype=torch.float32, device=d.device)
+    feas = torch.ones((N, J), dtype=torch.bool, device=d.device)
+    for r in range(d.shape[1]):
+        d_r = d[:, r, None]                               # (N, 1)
+        res_r = res[None, :, r]                           # (1, J)
+        ok = res_r > 0.0
+        frac = torch.where(ok, d_r / torch.where(ok, res_r, 1.0), BIG)
+        frac = torch.where((d_r == 0.0) & ~ok, 0.0, frac)
+        dom = torch.maximum(dom, frac)
+        feas &= d_r <= res_r
+    return (x / phi)[:, None] * dom, feas
+
+
+def psdsf_argmin_ref(x, phi, d, res, *, bn: int = 128, bj: int = 128,
+                     out=None):
     """The fused PS-DSF / rPS-DSF pick: x, phi (N,), d (N, R), res (J, R)
     -> (min_value, n, j) of ``K[n, j] = (x_n / phi_n) * max_r d[n, r] /
     res[j, r]`` over the pairs with ``d[n] <= res[j]`` in every resource;
@@ -78,22 +115,18 @@ def psdsf_argmin_ref(x, phi, d, res, *, bn: int = 128, bj: int = 128):
     neither may reach the minimum.  The pick is :func:`masked_argmin2d_ref`,
     so ties resolve in the reference kernel's tile order.  Cells beyond
     (N, J) take no part (the reference pads them infeasible for every
-    framework with a nonzero demand)."""
-    x, phi, d, res = (t.float() for t in (x, phi, d, res))
-    N, J = d.shape[0], res.shape[0]
-    dom = torch.zeros((N, J), dtype=torch.float32, device=d.device)
-    feas = torch.ones((N, J), dtype=torch.bool, device=d.device)
-    for r in range(d.shape[1]):
-        d_r = d[:, r, None]                               # (N, 1)
-        res_r = res[None, :, r]                           # (1, J)
-        ok = res_r > 0.0
-        frac = torch.where(ok, d_r / torch.where(ok, res_r, 1.0), BIG)
-        frac = torch.where((d_r == 0.0) & ~ok, 0.0, frac)
-        dom = torch.maximum(dom, frac)
-        feas &= d_r <= res_r
-    score = (x / phi)[:, None] * dom
-    return masked_argmin2d_ref(torch.where(feas, score, BIG), feas, bn=bn,
-                               bj=bj)
+    framework with a nonzero demand).
+
+    With ``out`` (an ``ops.PickOut``) it does what the kernel's launch does
+    with its holder: it first applies the holder's pending mirror update to
+    x, d and res (the mirrors, in place; :func:`apply_update`), then writes
+    the result into the holder and returns its views."""
+    if out is not None:
+        apply_update(x, d, res, out.take())
+    score, feas = _psdsf_scores(x, phi, d, res)
+    r = masked_argmin2d_ref(torch.where(feas, score, BIG), feas, bn=bn,
+                            bj=bj)
+    return r if out is None else out.write(r)
 
 
 # -- an emulation of csrc/argmin.cu's reduction ------------------------------
@@ -241,3 +274,46 @@ def argmin_cases(rng, shape):
         ("NaN only where masked", masked_nan, ok),
         ("all NaN", np.full(shape, np.nan, np.float32), every),
     ]
+
+
+def pick_parts(N: int, J: int, grid_cap: int = 528, threads: int = 256):
+    """(N, J) block numbers of K4's split of the cells: column chunks of
+    ``threads`` columns times row groups, enough groups for about
+    ``grid_cap`` blocks (four a SM), block = group * chunks + chunk."""
+    chunks = -(-J // threads)
+    groups = min(max(grid_cap // chunks, 1), N)
+    rows = -(-N // groups)
+    n = torch.arange(N)[:, None]
+    j = torch.arange(J)[None, :]
+    return (n // rows) * chunks + j // threads
+
+
+def psdsf_argmin_emulated(x, phi, d, res, parts, *, update=None,
+                          bn: int = 128, bj: int = 128):
+    """K4 as ``csrc/argmin.cu``'s launch computes it, in plain PyTorch: the
+    inputs as the launch sees them (``update``, the pending mirror update,
+    applied to copies: no block reads the mirrors at its row and column),
+    each cell's score and feasibility, the packed (value, tile key) minimum
+    over ``parts`` (an (N, J) block number per cell), decoded, the winner's
+    value recomputed from the updated inputs; then the last block's
+    write-back of ``update`` to the mirrors (in place).  Equals
+    :func:`psdsf_argmin_ref` for every partition."""
+    xu, du, ru = x.clone(), d.clone(), res.clone()
+    apply_update(xu, du, ru, update)
+    score, feas = _psdsf_scores(xu, phi, du, ru)
+    N, J = score.shape
+    bn, bj = _block(N, bn), _block(J, bj)
+    v, key = _packed_min(score, feas, tile_keys(N, J, bn, bj), parts)
+    big = torch.tensor(BIG).item()
+    i32 = torch.int32
+    if _feasible_win(v, big):
+        tj = -(-J // bj)
+        t, cell = key // (bn * bj), key % (bn * bj)
+        n, j = (t // tj) * bn + cell // bj, (t % tj) * bj + cell % bj
+        out = (score[n, j], torch.tensor(n, dtype=i32),
+               torch.tensor(j, dtype=i32))
+    else:
+        none = torch.tensor(-1, dtype=i32)
+        out = (_decoded(v, big, N % bn or J % bj), none, none.clone())
+    apply_update(x, d, res, update)
+    return out

@@ -13,154 +13,433 @@
 // last chunk, which `wkv6_chunked` returns and the prefill keeps for the
 // decode cache, and it may start from a given state.
 //
-// Design.  The Pallas grid (B*H streams x sequential chunks) becomes one
-// block of 256 threads per (b, h) stream looping over its chunks: the
-// (D, D) f32 state lives in shared memory for the whole sequence (16 KB at
-// D = 64), with the chunk's r, k, v, cumulative decays and the (C, C)
-// intra-chunk scores beside it (about 149 KB at C = D = 64).  Inputs are read
-// in the model layout (B, S, H, D) f32; the tail of the last chunk is read as
-// zeros (zero k and zero log-decay leave the state unchanged), which is the
-// reference's zero padding without a copy.  Every product is an f32 FMA on
-// the CUDA cores; the exponentials are `expf` (full precision).
+// Design: one call is THREE launches on the caller's stream, so that the
+// work that does not depend on the carried state (most of it) runs in
+// parallel over every chunk of every stream, not chunk after chunk:
 //
-// Bound on the H100: at the rwkv6-3b prefill shape (B*H = 160 streams of
-// 2048 x 64) the kernel reads 4 x 84 MB and writes 84 MB (0.126 ms at
-// 3.35 TB/s) and does about 10.7 GFLOP of f32 work (0.16 ms at 67 TFLOP/s):
-// bound by operations.  160 blocks fill the 132 SMs only 1.2 times, and the
-// C * C * D / 2 exponentials of the intra-chunk scores dominate.
+//   (a) wkv6_intra, grid (B*H, nC), one chunk a block: the cumulative
+//       log-decays (a thread a channel, in token order: see scan_tile);
+//       the strict lower triangle of the (C, C) scores,
+//       att[t, j] = sum_d r[t,d] k[j,d] exp(cum_prev[t,d] - cum[j,d]), its
+//       C(C-1)/2 pairs spread evenly over the threads, two rows a thread
+//       against one k row; y = att @ v + (r . u k) v written to y; the
+//       chunk's own state increment (k * exp(total - cum))^T v and `total`
+//       written to a scratch the wrapper allocates, (B, H, nC, D, D) and
+//       (B, H, nC, D);
+//   (b) wkv6_scan, grid (B*H, D*D / 256): the columns (and rows) of S are
+//       independent scalar recurrences over the chunks.  A thread owns one
+//       element: it writes S_start of chunk c over that chunk's increment,
+//       then S = exp(total) * S + increment (the reference's order), from
+//       state0 or zeros, and writes the final state;
+//   (c) wkv6_inter, grid (B*H, nC): y += (r * exp(cum_prev)) @ S_start,
+//       the scan of (a) done again (same code, same bits).
+//
+// The exponent is never factored (exp(cum_prev[t]) / exp(cum[j]) would
+// overflow under strong decay); a factored form on the tensor cores is a
+// later step.  All arithmetic is f32 on the CUDA cores, `expf` at full
+// precision.  Inputs are read in the model layout (B, S, H, D) f32; the
+// tail of the last chunk reads as zeros (zero k and zero log-decay leave
+// the state unchanged), the reference's zero padding without a copy.
+//
+// Bound on the H100: exponentials.  At the rwkv6-3b prefill shape (B*H =
+// 160 streams of 2048 x 64, 5120 chunks) the scores take C(C-1)/2 * D =
+// 129,024 exponentials a chunk, 0.70 G in all with the decays: 0.168 ms at
+// the SFU's 16 a clock a SM (1.98 GHz); the f32 work (10.7 GFLOP) takes
+// 0.160 ms at 67 TFLOP/s and the bytes that must move (4 x 84 MB in, 84 MB
+// out) 0.126 ms.  This design moves more: the increments (84 MB) out of
+// (a), through (b) and into (c), y twice more and r and the log-decays
+// again in (c), about 1 GB, 0.31 ms at 3.35 TB/s.  In (a) the shared-memory
+// rows are padded to 68 floats and read as float4, so that the 32 lanes of
+// a warp, on 32 neighbouring j, read k and cum without bank conflicts; a
+// thread scores two rows against each k and cum row it reads, so shared
+// memory serves about 1.6 wavefronts a warp's product, not 2.75.
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int NT = 256;
+constexpr int NT = 512;     // threads a block, (a) and (c)
+constexpr int NS = 256;     // threads a block, (b)
+constexpr int MAXC = 64;    // chunk and head dimension, at most
+constexpr int LD = 68;      // row stride of the (C, D) tiles, floats
 
-__global__ void __launch_bounds__(NT)
-wkv6_fwd(const float* __restrict__ r, const float* __restrict__ k,
-         const float* __restrict__ v, const float* __restrict__ lw,
-         const float* __restrict__ u, const float* __restrict__ s0,
-         float* __restrict__ y, float* __restrict__ s_out, int H, int S,
-         int D, int C) {
-  extern __shared__ float smem[];
-  const int CS = C + 1;                 // row stride of the transposed tiles
-  float* R = smem;                      // [C][D]  r
-  float* CP = R + C * D;                // [C][D]  cum_prev (exclusive)
-  float* RD = CP + C * D;               // [C][D]  r * exp(cum_prev)
-  float* KD = RD + C * D;               // [C][D]  k * exp(total - cum)
-  float* V = KD + C * D;                // [C][D]  v
-  float* Kt = V + C * D;                // [D][CS] k, transposed
-  float* CT = Kt + D * CS;              // [D][CS] cum (inclusive), transposed
-  float* ATT = CT + D * CS;             // [C][C]  intra-chunk scores
-  float* St = ATT + C * C;              // [D][D]  state
-  float* DG = St + D * D;               // [C]     r . (u * k)
-  float* TOT = DG + C;                  // [D]     total log-decay of the chunk
-  float* U = TOT + D;                   // [D]     bonus
+// Chunk c of stream (b, h): the element offset of its first token, the
+// stride of a token and the tokens before S.
+struct Stream {
+  long long off;
+  long long tok;  // H * D
+  int valid;
+};
 
-  const int tid = threadIdx.x;
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const long long tok = (long long)H * D;            // stride of one token
-  const long long base = (long long)b * S * tok + (long long)h * D;
-  const long long sbase = (long long)blockIdx.x * D * D;
+struct Shape {
+  int B, S, H, D, C, nC, Dp;
+  int vec;  // D a multiple of 4 and every input on 16 bytes
+};
 
-  for (int e = tid; e < D * D; e += NT) St[e] = s0 ? s0[sbase + e] : 0.f;
-  for (int d = tid; d < D; d += NT) U[d] = u[h * D + d];
+__device__ __forceinline__ Stream stream_of(const Shape& g, int bh, int c) {
+  const int b = bh / g.H, h = bh % g.H;
+  Stream s;
+  s.tok = (long long)g.H * g.D;
+  s.off = ((long long)b * g.S + (long long)c * g.C) * s.tok +
+          (long long)h * g.D;
+  s.valid = min(g.C, g.S - c * g.C);
+  return s;
+}
 
-  for (int c0 = 0; c0 < S; c0 += C) {
-    __syncthreads();                    // the previous chunk is consumed
-    for (int e = tid; e < C * D; e += NT) {
-      const int t = e / D, d = e % D;
-      const bool in = c0 + t < S;
-      const long long off = base + (c0 + t) * tok + d;
-      const float kk = in ? k[off] : 0.f;
-      R[e] = in ? r[off] : 0.f;
-      V[e] = in ? v[off] : 0.f;
-      CP[e] = in ? lw[off] : 0.f;       // the log-decay, for the cumsum
-      Kt[d * CS + t] = kk;
-    }
-    __syncthreads();
-    // cumulative log-decays down each channel (in the reference's terms
-    // cum = cumsum(lw), cum_prev = cum - lw, total = cum[C - 1])
-    for (int d = tid; d < D; d += NT) {
-      float run = 0.f;
-      for (int t = 0; t < C; ++t) {
-        const float w = CP[t * D + d];
-        run += w;
-        CT[d * CS + t] = run;
-        CP[t * D + d] = run - w;
+// Four floats of a row at p, n of them inside it (n >= 1): one 16-byte
+// access where `vec`.
+__device__ __forceinline__ float4 load4(const float* p, int n, int vec) {
+  if (vec) return *reinterpret_cast<const float4*>(p);
+  return make_float4(p[0], n > 1 ? p[1] : 0.0f, n > 2 ? p[2] : 0.0f,
+                     n > 3 ? p[3] : 0.0f);
+}
+
+__device__ __forceinline__ void store4(float* p, float4 a, int n, int vec) {
+  if (vec) {
+    *reinterpret_cast<float4*>(p) = a;
+    return;
+  }
+  p[0] = a.x;
+  if (n > 1) p[1] = a.y;
+  if (n > 2) p[2] = a.z;
+  if (n > 3) p[3] = a.w;
+}
+
+// The chunk's tokens from src (the chunk's first element) as the 64 tile
+// rows t, D padded to a multiple of 4 (Dp) by zeros, the rows past S or C
+// zero: 16-byte loads where `vec` (then every row starts on 16 bytes),
+// single floats elsewhere.
+__device__ __forceinline__ void load_tile(float* dst, const Stream& s,
+                                          const float* src, int D, int Dp,
+                                          int vec) {
+  if (vec) {
+    for (int e = threadIdx.x; e < MAXC * (MAXC / 4); e += NT) {
+      const int t = e >> 4, d = (e & 15) * 4;
+      if (d < Dp) {
+        *reinterpret_cast<float4*>(dst + t * LD + d) =
+            t < s.valid ? *reinterpret_cast<const float4*>(src + t * s.tok + d)
+                        : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       }
-      TOT[d] = run;
     }
-    __syncthreads();
-    for (int e = tid; e < C * D; e += NT) {
-      const int t = e / D, d = e % D;
-      RD[e] = R[e] * expf(CP[e]);
-      KD[e] = Kt[d * CS + t] * expf(TOT[d] - CT[d * CS + t]);
-    }
-    // att[t, j] = sum_d r[t,d] k[j,d] exp(cum_prev[t,d] - cum[j,d]), j < t
-    for (int e = tid; e < C * C; e += NT) {
-      const int t = e / C, j = e % C;
-      float a = 0.f;
-      if (j < t) {
-        for (int d = 0; d < D; ++d)
-          a = fmaf(R[t * D + d] * Kt[d * CS + j],
-                   expf(CP[t * D + d] - CT[d * CS + j]), a);
+  } else {
+    for (int e = threadIdx.x; e < MAXC * MAXC; e += NT) {
+      const int t = e >> 6, d = e & (MAXC - 1);
+      if (d < Dp) {
+        dst[t * LD + d] = (t < s.valid && d < D) ? src[t * s.tok + d] : 0.0f;
       }
-      ATT[e] = a;
-    }
-    for (int t = tid; t < C; t += NT) {
-      float a = 0.f;
-      for (int d = 0; d < D; ++d)
-        a = fmaf(R[t * D + d] * U[d], Kt[d * CS + t], a);
-      DG[t] = a;
-    }
-    __syncthreads();
-    // y = att @ v + diag * v + r_dec @ S_start
-    for (int e = tid; e < C * D; e += NT) {
-      const int t = e / D, f = e % D;
-      float intra = 0.f;
-      for (int j = 0; j < t; ++j) intra = fmaf(ATT[t * C + j], V[j * D + f], intra);
-      intra = fmaf(DG[t], V[e], intra);
-      float inter = 0.f;
-      for (int d = 0; d < D; ++d) inter = fmaf(RD[t * D + d], St[d * D + f], inter);
-      if (c0 + t < S) y[base + (c0 + t) * tok + f] = intra + inter;
-    }
-    __syncthreads();
-    // S = diag(exp(total)) S + (k * exp(total - cum))^T v
-    for (int e = tid; e < D * D; e += NT) {
-      const int d = e / D, f = e % D;
-      float a = 0.f;
-      for (int t = 0; t < C; ++t) a = fmaf(KD[t * D + d], V[t * D + f], a);
-      St[e] = fmaf(expf(TOT[d]), St[e], a);
     }
   }
+}
+
+// cum (inclusive) and cum_prev = cum - lw of each channel of the tile
+// `cu` (which holds lw on entry), into `cu` and `cp`, and total = cum[C - 1].
+// One thread a channel sums its tokens in order, as torch.cumsum does: the
+// exponents take differences of cum, which reaches -1e4 under strong
+// decay, so a sum in another order (a scan in runs) moves them by ~1e-3,
+// outside the tolerance.  The loads come first, 16 in flight.
+__device__ __forceinline__ void scan_tile(float* cu, float* cp,
+                                          float* total, int C, int Dp) {
+  const int d = threadIdx.x;
+  if (d < Dp) {
+    float run = 0.0f;
+    for (int t0 = 0; t0 < C; t0 += 16) {
+      float w[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) w[i] = cu[(t0 + i) * LD + d];  // rows < 64
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        if (t0 + i < C) {
+          run += w[i];
+          cu[(t0 + i) * LD + d] = run;
+          cp[(t0 + i) * LD + d] = run - w[i];
+        }
+      }
+    }
+    total[d] = run;
+  }
   __syncthreads();
-  for (int e = tid; e < D * D; e += NT) s_out[sbase + e] = St[e];
+}
+
+struct IntraSmem {
+  float R[MAXC * LD];    // r
+  float K[MAXC * LD];    // k, then k * exp(total - cum)
+  float CP[MAXC * LD];   // cum_prev
+  float CU[MAXC * LD];   // lw, then cum
+  float V[MAXC * LD];    // v
+  float ATT[MAXC * (MAXC + 1)];  // att, the bonus on its diagonal
+  float TOT[MAXC];
+  float U[MAXC];
+};
+
+__global__ void __launch_bounds__(NT, 2)
+wkv6_intra(const float* __restrict__ r, const float* __restrict__ k,
+           const float* __restrict__ v, const float* __restrict__ lw,
+           const float* __restrict__ u, float* __restrict__ y,
+           float* __restrict__ inc, float* __restrict__ tot, Shape g) {
+  extern __shared__ float4 smem4[];
+  IntraSmem& sm = *reinterpret_cast<IntraSmem*>(smem4);
+  const int bh = blockIdx.x, c = blockIdx.y, C = g.C, D = g.D, Dp = g.Dp;
+  const Stream s = stream_of(g, bh, c);
+  const long long off = s.off;
+  load_tile(sm.R, s, r + off, D, Dp, g.vec);
+  load_tile(sm.K, s, k + off, D, Dp, g.vec);
+  load_tile(sm.V, s, v + off, D, Dp, g.vec);
+  load_tile(sm.CU, s, lw + off, D, Dp, g.vec);
+  const int h = bh % g.H;
+  for (int d = threadIdx.x; d < MAXC; d += NT) {
+    sm.U[d] = d < D ? u[h * D + d] : 0.0f;
+  }
+  __syncthreads();
+  scan_tile(sm.CU, sm.CP, sm.TOT, C, Dp);
+  // the strict lower triangle, att[t, j] = sum_d r[t,d] k[j,d]
+  // exp(cum_prev[t,d] - cum[j,d]), j < t, as items: for each pair of rows
+  // (2m, 2m + 1), a "double" per j < 2m (both rows against k[j], cum[j],
+  // read once for the two), then a "single" (2m + 1, 2m).  Neighbouring
+  // threads take neighbouring j of one row pair: the rows' loads are
+  // broadcasts, and k's and cum's rows (68 floats apart) meet no bank
+  // conflict.
+  {
+    const int M = (C + 1) / 2, doubles = M * (M - 1), items = doubles + C / 2;
+    for (int it = threadIdx.x; it < items; it += NT) {
+      int ta, tb, j;
+      if (it < doubles) {
+        int m = static_cast<int>((1.0f + sqrtf(1.0f + 4.0f * it)) * 0.5f);
+        while (m * (m - 1) > it) --m;
+        while ((m + 1) * m <= it) ++m;
+        ta = 2 * m;
+        tb = 2 * m + 1;
+        j = it - m * (m - 1);
+      } else {
+        const int m = it - doubles;
+        ta = tb = 2 * m + 1;
+        j = 2 * m;
+      }
+      const float4* ra = reinterpret_cast<const float4*>(sm.R + ta * LD);
+      const float4* pa = reinterpret_cast<const float4*>(sm.CP + ta * LD);
+      const float4* rb = reinterpret_cast<const float4*>(sm.R + tb * LD);
+      const float4* pb = reinterpret_cast<const float4*>(sm.CP + tb * LD);
+      const float4* kj = reinterpret_cast<const float4*>(sm.K + j * LD);
+      const float4* cj = reinterpret_cast<const float4*>(sm.CU + j * LD);
+      float a0 = 0.0f, a1 = 0.0f;
+      for (int q = 0; q < Dp / 4; ++q) {
+        const float4 kk = kj[q], cc = cj[q];
+        const float4 r0 = ra[q], p0 = pa[q], r1 = rb[q], p1 = pb[q];
+        a0 = fmaf(r0.x * kk.x, expf(p0.x - cc.x), a0);
+        a1 = fmaf(r1.x * kk.x, expf(p1.x - cc.x), a1);
+        a0 = fmaf(r0.y * kk.y, expf(p0.y - cc.y), a0);
+        a1 = fmaf(r1.y * kk.y, expf(p1.y - cc.y), a1);
+        a0 = fmaf(r0.z * kk.z, expf(p0.z - cc.z), a0);
+        a1 = fmaf(r1.z * kk.z, expf(p1.z - cc.z), a1);
+        a0 = fmaf(r0.w * kk.w, expf(p0.w - cc.w), a0);
+        a1 = fmaf(r1.w * kk.w, expf(p1.w - cc.w), a1);
+      }
+      // a row 2m + 1 past the chunk (C odd) is computed and not kept
+      if (ta != tb) sm.ATT[ta * (MAXC + 1) + j] = a0;
+      if (tb < C) sm.ATT[tb * (MAXC + 1) + j] = a1;
+    }
+  }
+  // the bonus diagonal, r . (u * k), on att's diagonal; zeros above it
+  for (int t = threadIdx.x; t < MAXC; t += NT) {
+    float a = 0.0f;
+    for (int d = 0; d < Dp; ++d) {
+      a = fmaf(sm.R[t * LD + d] * sm.U[d], sm.K[t * LD + d], a);
+    }
+    sm.ATT[t * (MAXC + 1) + t] = a;
+  }
+  for (int e = threadIdx.x; e < MAXC * MAXC; e += NT) {
+    const int t = e >> 6, j = e & (MAXC - 1);
+    if (j > t) sm.ATT[t * (MAXC + 1) + j] = 0.0f;
+  }
+  __syncthreads();
+  // y_intra = att @ v + diag * v, (att | diag) lower triangular: a thread
+  // owns four columns of rows a = tt and b = 63 - tt (65 terms in all,
+  // whatever tt), each a float4 of v a term
+  {
+    const int tt = threadIdx.x >> 4, f0 = (threadIdx.x & 15) * 4;
+    if (f0 < Dp) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int t = half ? MAXC - 1 - tt : tt;
+        if (t >= s.valid) continue;
+        float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        for (int j = 0; j <= t; ++j) {
+          const float w = sm.ATT[t * (MAXC + 1) + j];
+          const float4 vv = *reinterpret_cast<const float4*>(sm.V + j * LD + f0);
+          a.x = fmaf(w, vv.x, a.x);
+          a.y = fmaf(w, vv.y, a.y);
+          a.z = fmaf(w, vv.z, a.z);
+          a.w = fmaf(w, vv.w, a.w);
+        }
+        store4(y + off + t * s.tok + f0, a, D - f0, g.vec);
+      }
+    }
+  }
+  // k_dec = k * exp(total - cum), over k (the scores are done with it)
+  for (int e = threadIdx.x; e < MAXC * MAXC; e += NT) {
+    const int t = e >> 6, d = e & (MAXC - 1);
+    if (t < C && d < Dp) sm.K[t * LD + d] *= expf(sm.TOT[d] - sm.CU[t * LD + d]);
+  }
+  __syncthreads();
+  // the chunk's increment k_dec^T v, (D, D): a 2 x 4 tile a thread
+  const long long chunk = (long long)bh * g.nC + c;
+  float* incc = inc + chunk * D * D;
+  const int d0 = (threadIdx.x >> 4) * 2, f0 = (threadIdx.x & 15) * 4;
+  if (d0 < Dp && f0 < Dp) {
+    float acc[2][4] = {};
+    for (int t = 0; t < C; ++t) {
+      const float2 kd = *reinterpret_cast<const float2*>(sm.K + t * LD + d0);
+      const float4 vv = *reinterpret_cast<const float4*>(sm.V + t * LD + f0);
+      const float ka[2] = {kd.x, kd.y};
+      const float va[4] = {vv.x, vv.y, vv.z, vv.w};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) acc[i][jj] = fmaf(ka[i], va[jj], acc[i][jj]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        if (d0 + i < D && f0 + jj < D) incc[(d0 + i) * D + f0 + jj] = acc[i][jj];
+      }
+    }
+  }
+  for (int d = threadIdx.x; d < D; d += NT) tot[chunk * D + d] = sm.TOT[d];
+}
+
+// A thread owns element e = (d, f) of a stream's state and walks the
+// chunks: inc[c] <- S_start(c); S = exp(total_c[d]) * S + inc_c.  Eight
+// chunks' increments and totals are loaded before any is written over.
+__global__ void __launch_bounds__(NS)
+wkv6_scan(float* __restrict__ inc, const float* __restrict__ tot,
+          const float* __restrict__ s0, float* __restrict__ s_out, Shape g) {
+  constexpr int kAhead = 8;
+  const int bh = blockIdx.x, D = g.D;
+  const int e = blockIdx.y * NS + threadIdx.x;
+  if (e >= D * D) return;
+  const int d = e / D;
+  const long long dd = (long long)D * D;
+  float S = s0 ? s0[bh * dd + e] : 0.0f;
+  float* p = inc + bh * g.nC * dd + e;
+  const float* w = tot + (long long)bh * g.nC * D + d;
+  for (int c0 = 0; c0 < g.nC; c0 += kAhead) {
+    float add[kAhead], lw[kAhead];
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i) {
+      if (c0 + i < g.nC) {
+        add[i] = p[(c0 + i) * dd];
+        lw[i] = w[(c0 + i) * D];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i) {
+      if (c0 + i < g.nC) {
+        p[(c0 + i) * dd] = S;
+        S = expf(lw[i]) * S + add[i];
+      }
+    }
+  }
+  s_out[bh * dd + e] = S;
+}
+
+struct InterSmem {
+  float RD[MAXC * LD];   // r, then r * exp(cum_prev)
+  float CP[MAXC * LD];   // cum_prev
+  float CU[MAXC * LD];   // lw, then cum
+  float St[MAXC * LD];   // S_start
+  float TOT[MAXC];
+};
+
+__global__ void __launch_bounds__(NT, 2)
+wkv6_inter(const float* __restrict__ r, const float* __restrict__ lw,
+           const float* __restrict__ sst, float* __restrict__ y, Shape g) {
+  extern __shared__ float4 smem4[];
+  InterSmem& sm = *reinterpret_cast<InterSmem*>(smem4);
+  const int bh = blockIdx.x, c = blockIdx.y, C = g.C, D = g.D, Dp = g.Dp;
+  const Stream s = stream_of(g, bh, c);
+  const long long off = s.off;
+  load_tile(sm.RD, s, r + off, D, Dp, g.vec);
+  load_tile(sm.CU, s, lw + off, D, Dp, g.vec);
+  // S_start as a (D, D) tile: its rows are D floats apart
+  Stream st;
+  st.off = 0;
+  st.tok = D;
+  st.valid = D;
+  load_tile(sm.St, st, sst + ((long long)bh * g.nC + c) * D * D, D, Dp,
+            g.vec);
+  __syncthreads();
+  scan_tile(sm.CU, sm.CP, sm.TOT, C, Dp);
+  for (int e = threadIdx.x; e < MAXC * MAXC; e += NT) {
+    const int t = e >> 6, d = e & (MAXC - 1);
+    if (t < C && d < Dp) sm.RD[t * LD + d] *= expf(sm.CP[t * LD + d]);
+  }
+  __syncthreads();
+  // y[t, f] += sum_d r_dec[t, d] S_start[d, f]: a 2 x 4 tile a thread
+  const int t0 = (threadIdx.x >> 4) * 2, f0 = (threadIdx.x & 15) * 4;
+  if (t0 < s.valid && f0 < Dp) {
+    float acc[2][4] = {};
+    for (int d = 0; d < Dp; ++d) {
+      const float4 sv = *reinterpret_cast<const float4*>(sm.St + d * LD + f0);
+      const float sa[4] = {sv.x, sv.y, sv.z, sv.w};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float rd = sm.RD[(t0 + i) * LD + d];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) acc[i][jj] = fmaf(rd, sa[jj], acc[i][jj]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (t0 + i >= s.valid) break;
+      float* yt = y + off + (t0 + i) * s.tok + f0;
+      float4 a = load4(yt, D - f0, g.vec);
+      a.x += acc[i][0];
+      a.y += acc[i][1];
+      a.z += acc[i][2];
+      a.w += acc[i][3];
+      store4(yt, a, D - f0, g.vec);
+    }
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-size_t wkv6_smem_bytes(int D, int C) {
-  return sizeof(float) *
-         (5 * (size_t)C * D + 2 * (size_t)D * (C + 1) + (size_t)C * C +
-          (size_t)D * D + C + 2 * D);
-}
-
 // r, k, v, lw: (B, S, H, D) f32 contiguous; u: (H, D); s0: (B, H, D, D) or
-// null; y: (B, S, H, D); s_out: (B, H, D, D).  Returns a cudaError_t.
+// null; y: (B, S, H, D); s_out: (B, H, D, D); inc: (B, H, nC, D, D) and
+// tot: (B, H, nC, D) f32 scratch, nC = ceil(S / C).  Three launches on
+// `stream`.  Returns a cudaError_t.
 int wkv6_launch(const float* r, const float* k, const float* v,
                 const float* lw, const float* u, const float* s0, float* y,
-                float* s_out, int B, int S, int H, int D, int C,
-                void* stream) {
-  if (B < 1 || S < 1 || H < 1 || D < 1 || D > 64 || C < 1 || C > 64)
+                float* s_out, float* inc, float* tot, int B, int S, int H,
+                int D, int C, void* stream) {
+  if (B < 1 || S < 1 || H < 1 || D < 1 || D > MAXC || C < 1 || C > MAXC)
     return (int)cudaErrorInvalidValue;
-  const size_t bytes = wkv6_smem_bytes(D, C);
+  auto aligned = [](const void* ptr) {
+    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+  };
+  const int vec = D % 4 == 0 && aligned(r) && aligned(k) && aligned(v) &&
+                  aligned(lw) && aligned(inc);
+  const Shape g{B, S, H, D, C, (S + C - 1) / C, (D + 3) / 4 * 4, vec};
+  auto st = static_cast<cudaStream_t>(stream);
+  const int intra = (int)sizeof(IntraSmem), inter = (int)sizeof(InterSmem);
   cudaError_t err = cudaFuncSetAttribute(
-      wkv6_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      wkv6_intra, cudaFuncAttributeMaxDynamicSharedMemorySize, intra);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(
+        wkv6_inter, cudaFuncAttributeMaxDynamicSharedMemorySize, inter);
+  }
   if (err != cudaSuccess) return (int)err;
-  wkv6_fwd<<<B * H, NT, bytes, static_cast<cudaStream_t>(stream)>>>(
-      r, k, v, lw, u, s0, y, s_out, H, S, D, C);
+  const dim3 chunks(B * H, g.nC);
+  wkv6_intra<<<chunks, NT, intra, st>>>(r, k, v, lw, u, y, inc, tot, g);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  wkv6_scan<<<dim3(B * H, (D * D + NS - 1) / NS), NS, 0, st>>>(inc, tot, s0,
+                                                                s_out, g);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  wkv6_inter<<<chunks, NT, inter, st>>>(r, lw, inc, y, g);
   return (int)cudaGetLastError();
 }
 

@@ -3,8 +3,11 @@
 For tensors on the CPU :func:`wkv6` runs the kernel's plain version
 (:func:`.ref.wkv6_ref`); for CUDA tensors it launches ``csrc/wkv6.cu``
 (built by nvcc on first use, see :mod:`repro_torch._build`) on PyTorch's
-current stream, or raises :class:`~repro_torch.kernels.KernelError`.
-``wkv6.launches`` counts kernel launches.
+current stream, or raises :class:`~repro_torch.kernels.KernelError`.  A
+call is three CUDA launches (the chunks' own parts, the scan of the state
+over the chunks, the chunks' inter-chunk parts) into a scratch of one
+(D, D) increment a chunk that the wrapper allocates; ``wkv6.launches``
+counts calls, one a layer of the prefill.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ def library() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.load(SOURCE)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.wkv6_launch.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
+        lib.wkv6_launch.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
         lib.wkv6_launch.restype = i32
         lib.wkv6_error.argtypes = [i32]
         lib.wkv6_error.restype = ctypes.c_char_p
@@ -68,13 +71,19 @@ def wkv6(r, k, v, logw, u, *, chunk: int = 64, state0=None):
         state0 = state0.to(f32).contiguous()
     y = torch.empty((B, S, H, D), dtype=f32, device=dev)
     s_end = torch.empty((B, H, D, D), dtype=f32, device=dev)
+    nC = -(-S // chunk)
+    # each chunk's state increment, then (in place) the state at its start;
+    # each chunk's total log-decay
+    inc = torch.empty((B, H, nC, D, D), dtype=f32, device=dev)
+    tot = torch.empty((B, H, nC, D), dtype=f32, device=dev)
     lib = library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.wkv6_launch(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
             u.data_ptr(), None if state0 is None else state0.data_ptr(),
-            y.data_ptr(), s_end.data_ptr(), B, S, H, D, int(chunk), stream)
+            y.data_ptr(), s_end.data_ptr(), inc.data_ptr(), tot.data_ptr(),
+            B, S, H, D, int(chunk), stream)
     if rc != 0:
         raise KernelError("wkv6 launch failed: "
                           + lib.wkv6_error(rc).decode())

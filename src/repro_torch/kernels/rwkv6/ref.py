@@ -7,6 +7,9 @@
   sequence's.  Returns ``(y, state_end)``.
 * :func:`wkv6_scan` — the exact token-by-token recurrence
   (``repro.nn.ssm.wkv6_scan``): the decode step and the oracle.
+* :func:`wkv6_three_phase` — an emulation of ``csrc/wkv6.cu``'s algorithm
+  (every chunk's own part at once, the scan of the state over the chunks,
+  every chunk's inter-chunk part at once), for the tests.
 """
 from __future__ import annotations
 
@@ -73,3 +76,50 @@ def wkv6_scan(r, k, v, logw, u, state0=None):
         ys.append(torch.einsum("bhd,bhde->bhe", r[:, t], s + uu * kv))
         s = torch.exp(logw[:, t])[..., None] * s + kv
     return torch.stack(ys, dim=1), s
+
+
+def wkv6_three_phase(r, k, v, logw, u, *, chunk: int = 64, state0=None):
+    """K6 as ``csrc/wkv6.cu`` computes it, in three phases: (a) every
+    chunk at once: the cumulative log-decays (in token order), the
+    strict lower triangle of the scores, ``att @ v + diag * v`` and the
+    chunk's state increment ``(k * exp(total - cum))^T v``; (b) the scan of
+    the state over the chunks, keeping each chunk's starting state; (c)
+    every chunk at once: ``y += (r * exp(cum_prev)) @ S_start``.  Same
+    arguments and results as :func:`wkv6_ref`."""
+    B, S, H, D = r.shape
+    f32 = torch.float32
+    pad = (-S) % chunk
+    nC = (S + pad) // chunk
+
+    def prep(t):
+        t = t.to(f32)
+        if pad:
+            t = F.pad(t, (0, 0, 0, 0, 0, pad))
+        return t.reshape(B, nC, chunk, H, D)
+
+    rc, kc, vc, wc = prep(r), prep(k), prep(v), prep(logw)
+    u = u.to(f32)
+    # (a) the chunks' own parts, (B, nC, C, H, D)
+    cum = torch.cumsum(wc, dim=2)
+    cum_prev = cum - wc
+    total = cum[:, :, -1]                                    # (B,nC,H,D)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=r.device), -1)[:, :, None, None]
+    dec = torch.exp(cum_prev[:, :, :, None] - cum[:, :, None])
+    att = torch.sum(rc[:, :, :, None] * kc[:, :, None]
+                    * torch.where(tri, dec, 0.0), dim=-1)     # (B,nC,t,j,H)
+    diag = torch.sum(rc * u * kc, dim=-1)
+    y = torch.einsum("bntjh,bnjhd->bnthd", att, vc) + diag[..., None] * vc
+    k_dec = kc * torch.exp(total[:, :, None] - cum)
+    inc = torch.einsum("bnchd,bnche->bnhde", k_dec, vc)       # (B,nC,H,D,D)
+    # (b) the scan over the chunks
+    s = (torch.zeros((B, H, D, D), dtype=f32, device=r.device)
+         if state0 is None else state0.to(f32))
+    starts = []
+    for n in range(nC):
+        starts.append(s)
+        s = torch.exp(total[:, n])[..., None] * s + inc[:, n]
+    # (c) the chunks' inter-chunk parts
+    y = y + torch.einsum("bnchd,bnhde->bnche", rc * torch.exp(cum_prev),
+                         torch.stack(starts, dim=1))
+    return y.reshape(B, nC * chunk, H, D)[:, :S], s

@@ -465,6 +465,78 @@ def test_psdsf_argmin_kernel_equals_plain(dev, N, J, R, family):
     assert float(got[0]) == float(ops.psdsf_argmin_ref(*args)[0])
 
 
+@pytest.mark.parametrize("family", ["quantized", "non-dyadic"])
+@pytest.mark.parametrize("N,J,R", [(512, 4096, 2), (300, 257, 3),
+                                   (128, 128, 8), (130, 129, 2)])
+def test_psdsf_pick_with_pending_updates_equals_plain(dev, N, J, R, family):
+    """A run of picks on one ``PickOut`` as the per-grant engine makes
+    them: each grant's mirror update (units, the column's new residual row,
+    an exhausted row) rides only in the holder's pending words, and the
+    launch == the plain version on eagerly updated inputs, the mirrors
+    equal after every pick, the pinned pair equal to the views."""
+    from repro_torch.kernels.psdsf_score import ops, ref
+
+    arrays = [torch.as_tensor(a, device=dev)
+              for a in psdsf_inputs(N + J + R, N, J, R, family)]
+    arrays[3] = arrays[3] + 4.0
+    eager = [a.clone() for a in arrays]
+    lazy = [a.clone() for a in arrays]
+    out = ops.PickOut(dev, R)
+    tot = np.zeros(N)
+    for step in range(24):
+        n0 = ops.psdsf_argmin.launches
+        views = ops.psdsf_argmin(*lazy, out=out)
+        n, j = out.result()
+        assert ops.psdsf_argmin.launches == n0 + 1 and views is out.views
+        want = ops.psdsf_argmin_ref(*eager)
+        _exact(views, want)
+        assert (n, j) == (int(views[1]), int(views[2]))
+        for a, b in zip(lazy, eager):
+            assert torch.equal(a, b)
+        if n < 0:
+            break
+        tot[n] += 1
+        row = (eager[3][j] - eager[2][n]).double().cpu().numpy() / 3.0
+        upd = (n, 1.0, j, row, bool(tot[n] >= 2 or step % 5 == 4))
+        ref.apply_update(eager[0], eager[2], eager[3], upd)
+        out.defer(*upd)
+
+
+def test_psdsf_pick_is_one_launch_and_allocates_nothing(dev):
+    """One K4 pick with its holder, a pending update included, is one CUDA
+    launch and nothing else on the device (no copy, no memset), and
+    allocates no device memory."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.psdsf_score import ops
+
+    N, J, R = 512, 4096, 2
+    args = [torch.as_tensor(a, device=dev)
+            for a in psdsf_inputs(5, N, J, R, "non-dyadic")]
+    out = ops.PickOut(dev, R)
+    ops.psdsf_argmin(*args, out=out)
+    out.result()
+    out.defer(3, 1.0, 7, np.array([1.5, 2.5]), True)
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.psdsf_argmin(*args, out=out)
+        out.result()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == allocs
+    on_device = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+    assert len(on_device) == 1 and "psdsf_pick" in on_device[0], on_device
+    assert float(args[2][3, 0]) == _exhausted() and float(
+        args[3][7, 1]) == 2.5
+
+
+def _exhausted():
+    from repro_torch.kernels.psdsf_score import ref
+
+    return float(np.float32(ref.EXHAUSTED))
+
+
 def test_pergrant_allocator_launches_k4(dev):
     """``use_kernel="pergrant"`` on the card: K4 launches once a grant and
     once for the pick that ends the epoch, and grants as on the CPU."""
@@ -578,7 +650,8 @@ def test_flash_tc_refuses_what_tma_cannot_read(dev, case):
 @pytest.mark.parametrize("B,S,H,D,chunk,strong", [
     (2, 128, 3, 16, 32, False), (1, 70, 2, 64, 64, False),
     (1, 2000, 4, 64, 64, False), (1, 160, 2, 8, 32, True),
-    (2, 64, 40, 64, 64, True)])
+    (2, 64, 40, 64, 64, True), (1, 2000, 40, 64, 64, False),
+    (2, 100, 3, 40, 48, True), (1, 90, 2, 30, 32, False)])
 def test_wkv6_kernel_equals_plain(dev, B, S, H, D, chunk, strong):
     from repro_torch.kernels.rwkv6 import ops
 
@@ -599,6 +672,25 @@ def test_wkv6_kernel_equals_plain(dev, B, S, H, D, chunk, strong):
         assert torch.isfinite(y).all() and torch.isfinite(s).all()
         torch.testing.assert_close(y, yr, **tol)
         torch.testing.assert_close(s, sr, **tol)
+
+
+def test_wkv6_kernel_reads_unaligned_inputs(dev):
+    """Inputs that start off a 16-byte boundary (views one float into their
+    storage) take the kernel's single-float loads, with the same result."""
+    from repro_torch.kernels.rwkv6 import ops
+
+    B, S, H, D = 1, 100, 2, 16
+    g = torch.Generator(dev).manual_seed(3)
+    flat = [torch.randn(B * S * H * D + 1, generator=g, device=dev) * 0.5
+            for _ in range(4)]
+    r, k, v, z = (t[1:].view(B, S, H, D) for t in flat)
+    lw = -torch.exp(z)
+    u = torch.randn((H, D), generator=g, device=dev) * 0.5
+    assert r.data_ptr() % 16 and r.is_contiguous()
+    y, s = ops.wkv6(r, k, v, lw, u, chunk=32)
+    yr, sr = ops.wkv6_ref(r, k, v, lw, u, chunk=32)
+    torch.testing.assert_close(y, yr, rtol=0, atol=1e-4)
+    torch.testing.assert_close(s, sr, rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize("arch", ["qwen2_1_5b", "gemma3_12b", "rwkv6_3b"])

@@ -54,15 +54,28 @@ def test_import_loads_neither_jax_nor_reference():
     assert proc.returncode == 0, proc.stderr
 
 
-@pytest.mark.parametrize("path", sorted(
+PORT_FILES = sorted(
     [os.path.join(d, f) for d, _s, fs in os.walk(PKG) for f in fs
-     if f.endswith(".py")] + [os.path.join(ROOT, "chip_smoke.py")]),
-    ids=lambda p: os.path.relpath(p, ROOT))
+     if f.endswith(".py")] + [os.path.join(ROOT, "chip_smoke.py")])
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_file_imports_jax_or_reference(path):
     with open(path) as f:
         text = f.read()
     assert not _IMPORT.findall(text)
     assert "jnp" not in text
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_file_imports_triton(path):
+    """Every kernel of the port is CUDA C++ under ``csrc/``."""
+    with open(path) as f:
+        text = f.read()
+    assert not re.findall(r"^\s*(?:from|import)\s+triton\b", text,
+                          re.MULTILINE)
 
 
 def test_default_device_without_cuda_raises():
