@@ -76,14 +76,30 @@ kernel from the sources in the checkout (nvcc into ``build/``).  Phases:
    (K6: 32), against the same serve with the kernel swapped for its plain
    version, teacher-forced with the first run's tokens: prefill logits,
    the whole cache and every decode step's logits within a relative L2
-   tolerance; greedy-token agreement is printed, not gated.
+   tolerance; greedy-token agreement is printed, not gated;
+7. fill: progressive filling, the paper's Section 2
+   (``repro_torch.core.filling_torch``).  The paper's example on the card:
+   PS-DSF and rPS-DSF pooled (one K3 launch each) and BF-DRF (the step
+   loop) equal the numpy filler exactly; DRF, TSF, RRR-PS-DSF and
+   RRR-rPS-DSF as 200 trials on the card, each trial mean within 0.8 of
+   ``run_trials(seed=1)``'s and every RRR-rPS-DSF trial (19, 2, 2, 19); the
+   totals beside the paper's.  The fleet (512 frameworks x 4096 agents,
+   its placement constraints, no wanted cap) filled to exhaustion, pooled,
+   for the four criteria: one K3 launch a fill, equal to the same fill with
+   K3 swapped for its plain version in the allocation and the grant count,
+   nothing feasible left and no residual below -1e-4.  RRR trials (DRF and
+   rPS-DSF, random ties) at the fleet size, 8 to exhaustion.  The paper's
+   Figure 3-8 driver on the card equal to the CPU (2 seeds of its 8) and
+   the Figure 9 driver on the card with both claims passing.
 
 Outside the chaos serve the allocator fault counters must be zero.
 Launches are counted per path, from zero just before it to just after it:
 K3 over the allocator's fleet epochs, K1/K2 over the tiles-loop replays,
 K4 over the fleet serve on the per-grant backend, K5 and K6 over the
-prefills of their model serves; each must have launched.  The last lines are the kernels
-JSON, the ``nvidia-smi`` name and power limit, and the device JSON.
+prefills of their model serves, K3 over each pooled fill (once a fill,
+added to its allocator count in the JSON); each must have launched.  The
+last lines are the kernels JSON, the ``nvidia-smi`` name and power limit,
+and the device JSON.
 """
 from __future__ import annotations
 
@@ -1651,12 +1667,265 @@ def models_phase(dev, seed):
     return rows, launches
 
 
+# -- phase 7: progressive filling, the paper's Section 2 --------------------
+
+FILL_TRIALS = 200           # paper_tables' trials a stochastic scheduler
+FILL_MEAN_ATOL = 0.8        # tests/test_filling_jax.py's RRR tolerance
+FLEET_FILL_STEPS = 2 ** 15  # the fleet fill takes about 14,000 grants
+FLEET_TRIALS = 8
+FIG_SEEDS = 2               # paper_figures' seeds, cut from 8
+
+
+def fleet_fill_inputs(agents, fws, dev):
+    """-> (D, C, phi, allowed) of the fleet on the card, no wanted cap."""
+    import torch
+
+    arr = fleet_arrays(agents, fws)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
+                                  device=dev)
+    return (f(arr["D"]), f(arr["C"]), f(arr["phi"]),
+            torch.as_tensor(arr["allowed"], device=dev))
+
+
+def saturated(x, D, C, allowed):
+    """-> (no feasible pair left, least residual) of an int (N, J)
+    allocation, in f64 on the host as the numpy filler's ``Instance``
+    checks it."""
+    D, C = D.double().cpu().numpy(), C.double().cpu().numpy()
+    x = np.asarray(x.cpu().numpy(), np.float64)
+    res = C - x.T @ D
+    fits = (D[:, None, :] <= res[None, :, :] + 1e-9).all(-1)
+    if allowed is not None:
+        fits &= allowed.cpu().numpy()
+    return not fits.any(), float(res.min())
+
+
+@contextlib.contextmanager
+def loop_counts():
+    """-> a list that receives the grant count of every
+    ``engine_torch.epoch_loop`` run inside the block."""
+    from unittest import mock
+
+    from repro_torch.core import engine_torch
+
+    counts, loop = [], engine_torch.epoch_loop
+
+    def spy(*a, **k):
+        out = loop(*a, **k)
+        counts.append(int(out[2]))
+        return out
+
+    with mock.patch.object(engine_torch, "epoch_loop", spy):
+        yield counts
+
+
+def k3_plain():
+    """Swap K3 for its plain version inside the engine."""
+    from unittest import mock
+
+    from repro_torch.core import engine_torch
+    from repro_torch.kernels.epoch_persistent.ref import persistent_epoch_ref
+
+    return mock.patch.object(engine_torch, "persistent_epoch",
+                             persistent_epoch_ref)
+
+
+def paper_fill(dev, seed):
+    """The paper's example on the card: -> K3 launches of its pooled
+    fills (one each)."""
+    import torch
+
+    from repro_torch.core.filling import (
+        PAPER_SCHEDULERS,
+        progressive_fill,
+        run_trials,
+    )
+    from repro_torch.core.filling_torch import (
+        fill_trials_torch,
+        is_deterministic,
+        progressive_fill_torch,
+    )
+    from repro_torch.core.instance import paper_example
+    from repro_torch.kernels.epoch_persistent import ops as k3
+    from repro_torch.launch.paper_tables import PAPER_T1
+
+    inst = paper_example()
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
+                                  device=dev)
+    args = (f(inst.demands), f(inst.capacities), f(inst.weights))
+    launches, totals = 0, {}
+    for name, cfg in PAPER_SCHEDULERS.items():
+        kw = dict(criterion=cfg.criterion, policy=cfg.server_policy,
+                  tie=cfg.tie, lookahead=cfg.lookahead)
+        if is_deterministic(cfg.server_policy, cfg.tie):
+            reset_counts()
+            x = progressive_fill_torch(*args, None, **kw)
+            n = k3.persistent_epoch.launches
+            check(n == (cfg.server_policy == "pooled"),
+                  f"fill {name}: K3 launched {n} times")
+            launches += n
+            want = progressive_fill(inst, cfg, seed=0).x
+            check(np.array_equal(x.cpu().numpy(), want),
+                  f"fill {name}: {x.flatten().tolist()} on the card, "
+                  f"{want.ravel().tolist()} from the numpy filler")
+            totals[name] = (float(x.sum()), "equal", None)
+            continue
+        x = fill_trials_torch(
+            *args, FILL_TRIALS,
+            generator=torch.Generator(device=dev).manual_seed(seed + 1),
+            **kw).cpu().numpy()
+        want = run_trials(inst, cfg, FILL_TRIALS, seed=1)
+        gap = float(np.abs(x.mean(0) - want.mean(0)).max())
+        check(gap <= FILL_MEAN_ATOL, f"fill {name}: trial means "
+              f"{x.mean(0).ravel()} against {want.mean(0).ravel()}")
+        if name == "RRR-rPS-DSF":
+            bad = int((x.reshape(FILL_TRIALS, 4) != [19, 2, 2, 19])
+                      .any(1).sum())
+            check(bad == 0, f"fill {name}: {bad} of {FILL_TRIALS} trials "
+                  "differ from (19, 2, 2, 19)")
+        totals[name] = (float(x.mean(0).sum()), f"means within {gap:.3f}",
+                        float(want.mean(0).sum()))
+    paper = {k: sum(v) for k, v in PAPER_T1.items()}
+    paper["RRR-rPS-DSF"] = paper["rPS-DSF"]     # the paper's claim
+    log("fill, the paper's example on the card (total tasks; the paper's "
+        "in brackets; stochastic: the mean of 200 trials against the numpy "
+        "filler's): " + ", ".join(
+            f"{k} {t:.2f} [{paper[k]:g}] ({note}"
+            + ("" if ref is None else f" of {ref:.2f}") + ")"
+            for k, (t, note, ref) in totals.items()))
+    return launches
+
+
+def fleet_fill(dev, agents, fws):
+    """The pooled fleet fill to exhaustion on K3, against the same fill on
+    K3's plain version: -> K3 launches (one a fill)."""
+    import torch
+
+    from repro_torch.core.filling_torch import progressive_fill_torch
+    from repro_torch.kernels.epoch_persistent import ops as k3
+
+    D, C, phi, allowed = fleet_fill_inputs(agents, fws, dev)
+    launches = 0
+    for crit in CRITERIA:
+        kw = dict(criterion=crit, policy="pooled", tie="low",
+                  lookahead=False, max_steps=FLEET_FILL_STEPS,
+                  allowed=allowed)
+
+        def fill():
+            return progressive_fill_torch(D, C, phi, None, **kw)
+
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with loop_counts() as count:
+            x = fill()
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        n = k3.persistent_epoch.launches
+        check(n == 1, f"fleet fill {crit}: K3 launched {n} times")
+        launches += n
+        grid = k3.persistent_epoch.grid
+        ms = cuda_ms(fill, 3, warmup=0)
+        with k3_plain(), loop_counts() as count_plain:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = fill()
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+        check(torch.equal(x, y) and count == count_plain,
+              f"fleet fill {crit}: K3 ({count}) differs from its plain "
+              f"version ({count_plain})")
+        grants = int(x.sum())
+        check(count == [grants] and grants < FLEET_FILL_STEPS,
+              f"fleet fill {crit}: {count} grants, budget "
+              f"{FLEET_FILL_STEPS}")
+        full, least = saturated(x, D, C, allowed)
+        check(full and least >= -1e-4, f"fleet fill {crit}: a feasible "
+              f"pair is left or a residual is {least}")
+        log(f"fleet fill {crit}/pooled {D.shape[0]}x{C.shape[0]}: {grants} "
+            f"grants, {ms:.2f} ms a fill ({ms / grants * 1e3:.2f} us a "
+            f"grant; first {first_ms:.2f} ms), K3 launches {n} on grid "
+            f"{grid}; K3's plain version {plain_s:.1f} s, equal; saturated, "
+            f"least residual {least:g}")
+    return launches
+
+
+def fleet_trials(dev, agents, fws, seed):
+    """RRR trials at the fleet size on the step loop, each to exhaustion."""
+    import torch
+
+    from repro_torch.core import filling_torch
+
+    D, C, phi, allowed = fleet_fill_inputs(agents, fws, dev)
+    for crit in ("drf", "rpsdsf"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = filling_torch.fill_trials_torch(
+            D, C, phi, FLEET_TRIALS,
+            generator=torch.Generator(device=dev).manual_seed(seed),
+            criterion=crit, policy="rrr", tie="random", lookahead=False,
+            max_steps=FLEET_FILL_STEPS, allowed=allowed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        grants = x.sum((1, 2)).tolist()
+        steps = max(grants)
+        check(steps < FLEET_FILL_STEPS, f"fleet trials {crit}/rrr: the step "
+              "budget ran out")
+        for t in range(FLEET_TRIALS):
+            full, least = saturated(x[t], D, C, allowed)
+            check(full and least >= -1e-4, f"fleet trials {crit}/rrr: trial "
+                  f"{t} left a feasible pair or a residual of {least}")
+        log(f"fleet trials {crit}/rrr tie random: {FLEET_TRIALS} trials of "
+            f"{D.shape[0]}x{C.shape[0]}, grants {min(grants)}-{steps}, "
+            f"{steps} steps in {wall:.1f} s ({steps / wall:.0f} steps/s, "
+            f"{wall / steps * 1e3:.3f} ms a step of all trials; alive "
+            f"checked every {filling_torch.ALIVE_EVERY} steps); every trial "
+            "saturated")
+
+
+def paper_drivers(dev):
+    """The paper's Figure 3-8 and Figure 9 drivers on the card."""
+    import io
+    from unittest import mock
+
+    from repro_torch.launch import fig9_adaptation, paper_figures
+
+    seeds = len(paper_figures.SEEDS)
+    with mock.patch.object(paper_figures, "SEEDS", range(FIG_SEEDS)):
+        rows = {d: paper_figures.run(print_csv=False, device=d)
+                for d in (dev, "cpu")}
+    check(rows[dev].keys() == rows["cpu"].keys() and all(
+        np.array_equal(rows[dev][k], rows["cpu"][k]) for k in rows["cpu"]),
+        "paper_figures on the card differs from the CPU")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fig9_adaptation.run(device=dev)
+    claims = [ln for ln in buf.getvalue().splitlines()
+              if ln.startswith("# CLAIM")]
+    check(len(claims) == 2 and all("PASS" in ln for ln in claims),
+          f"fig9_adaptation on the card: {claims}")
+    log(f"paper_figures: {len(rows[dev])} configurations on the card == "
+        f"CPU (seeds cut from {seeds} to {FIG_SEEDS}); fig9_adaptation on "
+        "the card: " + "; ".join(claims))
+
+
+def fill_phase(dev, agents, fws, seed):
+    """-> K3's launches over the phase's pooled fills."""
+    t0 = time.perf_counter()
+    launches = paper_fill(dev, seed)
+    launches += fleet_fill(dev, agents, fws)
+    fleet_trials(dev, agents, fws, seed)
+    paper_drivers(dev)
+    log(f"fill phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="kernels,allocator,des,serve,gang,models",
+                    default="kernels,allocator,des,serve,gang,models,fill",
                     help="comma list of kernels, allocator, des, serve, gang, "
-                    "models")
+                    "models, fill")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1726,6 +1995,12 @@ def main(argv=None):
             f"{time.perf_counter() - t0:.1f} s")
         for name, n in model_launches.items():
             check(n > 0, f"main path never launched {name}")
+    if "fill" in phases:
+        n = fill_phase(dev, agents, fws, args.seed)
+        log(f"launches (K3 over the pooled fills, one a fill): {n}")
+        check(n > 0, "main path never launched persistent_epoch")
+        launches["persistent_epoch"] = launches.get("persistent_epoch",
+                                                    0) + n
     meta = {
         "masked_argmin1d": dict(
             route="cuda",

@@ -5,10 +5,10 @@ here ONCE, as array code parameterized by namespace (``xp=numpy`` or
 ``xp=jax.numpy``), and wrapped in pluggable :class:`Criterion` strategy
 objects.  Every engine dispatches into this module:
 
-  * the exact numpy reference filler (:mod:`repro.core.filling`),
-  * the online Mesos-style allocator (:mod:`repro.core.online`) and its
-    batched epoch engine (:mod:`repro.core.engine`),
-  * the jitted JAX fleet engine (:mod:`repro.core.filling_jax`).
+  * the exact numpy reference filler (:mod:`repro_torch.core.filling`),
+  * the online Mesos-style allocator (:mod:`repro_torch.core.online`) and
+    its batched epoch engine (:mod:`repro_torch.core.engine`),
+  * the PyTorch fleet filler (:mod:`repro_torch.core.filling_torch`).
 
 All criteria are expressed as *scores to be minimized* by progressive
 filling: the framework (or framework x server pair) with the smallest score

@@ -738,3 +738,72 @@ def test_model_on_card_equals_cpu(dev, arch):
                else dict(rtol=1e-4, atol=1e-4))
         torch.testing.assert_close(out["cuda"][1][name], out["cpu"][1][name],
                                    **tol)
+
+
+@pytest.mark.parametrize("crit", ["drf", "tsf", "psdsf", "rpsdsf"])
+@pytest.mark.parametrize("J", [300, 301])
+def test_pooled_fill_on_k3_equals_plain(dev, crit, J, monkeypatch):
+    """The deterministic pooled fill is one K3 launch on the card and
+    equals the same fill with K3 swapped for its plain version; a J that
+    is not a multiple of 4 is padded and cropped."""
+    from repro_torch.core.filling_torch import progressive_fill_torch
+    from repro_torch.kernels.epoch_persistent import ops as k3
+    from repro_torch.kernels.epoch_persistent.ref import persistent_epoch_ref
+
+    rng = np.random.default_rng(J)
+    N = 40
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa
+    D = t(2.0 ** rng.integers(-2, 2, (N, 2)))
+    C = t(rng.integers(4, 13, (J, 2)))
+    phi = t(np.array([0.5, 1.0, 2.0])[np.arange(N) % 3])
+    allowed = torch.as_tensor(rng.random((N, J)) > 0.2, device=dev)
+    kw = dict(criterion=crit, policy="pooled", tie="low", max_steps=16384,
+              allowed=allowed)
+    n0 = k3.persistent_epoch.launches
+    x = progressive_fill_torch(D, C, phi, None, **kw)
+    assert k3.persistent_epoch.launches == n0 + 1
+    assert x.device.type == "cuda" and x.shape == (N, J)
+    monkeypatch.setattr(et, "persistent_epoch", persistent_epoch_ref)
+    assert torch.equal(x, progressive_fill_torch(D, C, phi, None, **kw))
+    assert k3.persistent_epoch.launches == n0 + 1
+    res = C - x.float().T @ D
+    fits = (D[:, None, :] <= res[None] + 1e-6).all(-1) & allowed
+    assert not fits.any() and int(x.sum()) < 16384
+
+
+@pytest.mark.parametrize("name,want", [
+    ("PS-DSF", [19, 0, 2, 20]), ("rPS-DSF", [19, 2, 2, 19]),
+    ("BF-DRF", [19, 2, 2, 19])])
+def test_paper_example_rows_on_the_card(dev, name, want):
+    """The paper's deterministic schedulers on the card equal the numpy
+    filler (PS-DSF and rPS-DSF pooled on K3, BF-DRF on the step loop)."""
+    from repro_torch.core.filling import PAPER_SCHEDULERS, progressive_fill
+    from repro_torch.core.filling_torch import progressive_fill_torch
+    from repro_torch.core.instance import paper_example
+
+    inst = paper_example()
+    cfg = PAPER_SCHEDULERS[name]
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa
+    x = progressive_fill_torch(
+        t(inst.demands), t(inst.capacities), t(inst.weights), None,
+        criterion=cfg.criterion, policy=cfg.server_policy, tie=cfg.tie,
+        lookahead=cfg.lookahead)
+    assert x.device.type == "cuda"
+    assert x.flatten().tolist() == want
+    np.testing.assert_array_equal(x.cpu().numpy(),
+                                  progressive_fill(inst, cfg, seed=0).x)
+
+
+def test_rrr_trials_on_the_card_saturate(dev):
+    from repro_torch.core.filling_torch import fill_trials_torch
+    from repro_torch.core.instance import paper_example
+
+    inst = paper_example()
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa
+    x = fill_trials_torch(
+        t(inst.demands), t(inst.capacities), t(inst.weights), 64,
+        generator=torch.Generator(device=dev).manual_seed(1),
+        criterion="rpsdsf", policy="rrr", tie="random")
+    assert x.device.type == "cuda" and x.shape == (64, 2, 2)
+    assert (x.reshape(64, 4).cpu() == torch.tensor([19, 2, 2, 19],
+                                                   dtype=torch.int32)).all()

@@ -42,7 +42,13 @@ def test_import_loads_neither_jax_nor_reference():
             "repro_torch.kernels.flash_attention.ops",
             "repro_torch.kernels.flash_attention.ref",
             "repro_torch.kernels.rwkv6.ops",
-            "repro_torch.kernels.rwkv6.ref"} <= set(mods)
+            "repro_torch.kernels.rwkv6.ref",
+            "repro_torch.core.filling_torch", "repro_torch.core.filling",
+            "repro_torch.core.instance", "repro_torch.core.fairness",
+            "repro_torch.configs.paper_cluster",
+            "repro_torch.launch.paper_tables",
+            "repro_torch.launch.paper_figures",
+            "repro_torch.launch.fig9_adaptation"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -176,7 +182,8 @@ def test_unknown_epoch_kernel_refused():
 
 
 VERBATIM = ("policies", "cluster_state", "preemption", "faults", "invariants",
-            "journal", "epoch_cache", "tenancy", "metrics", "workloads")
+            "journal", "epoch_cache", "tenancy", "metrics", "workloads",
+            "instance", "filling", "fairness")
 
 
 @pytest.mark.parametrize("name", VERBATIM)
@@ -193,7 +200,7 @@ def test_copied_module_differs_only_in_imports(name):
 CONFIG_FILES = ("__init__", "shapes", "gemma3_12b", "qwen3_8b",
                 "mistral_nemo_12b", "qwen2_1_5b", "whisper_large_v3",
                 "rwkv6_3b", "llama32_vision_90b", "deepseek_v2_236b",
-                "granite_moe_3b", "hymba_1_5b")
+                "granite_moe_3b", "hymba_1_5b", "paper_cluster")
 
 
 @pytest.mark.parametrize("name", CONFIG_FILES)
