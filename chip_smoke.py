@@ -78,12 +78,12 @@ kernel from the sources in the checkout (nvcc into ``build/``).  Phases:
    the whole cache and every decode step's logits within a relative L2
    tolerance; greedy-token agreement is printed, not gated;
 7. fill: progressive filling, the paper's Section 2
-   (``repro_torch.core.filling_torch``).  The paper's example on the card:
-   PS-DSF and rPS-DSF pooled (one K3 launch each) and BF-DRF (the step
-   loop) equal the numpy filler exactly; DRF, TSF, RRR-PS-DSF and
-   RRR-rPS-DSF as 200 trials on the card, each trial mean within 0.8 of
-   ``run_trials(seed=1)``'s and every RRR-rPS-DSF trial (19, 2, 2, 19); the
-   totals beside the paper's.  The fleet (512 frameworks x 4096 agents,
+   (``repro_torch.core.filling_torch``).  The paper's tables through
+   ``launch.paper_tables`` on the card: the rows of PS-DSF and
+   rPS-DSF pooled (one K3 launch each) and BF-DRF (the step loop) equal
+   the numpy filler's exactly; DRF, TSF and RRR-PS-DSF as 200 trials,
+   each trial mean within 0.8 of ``run_trials(seed=1)``'s; every one of
+   200 RRR-rPS-DSF trials (19, 2, 2, 19); the totals beside the paper's.  The fleet (512 frameworks x 4096 agents,
    its placement constraints, no wanted cap) filled to exhaustion, pooled,
    for the four criteria: one K3 launch a fill, equal to the same fill with
    K3 swapped for its plain version in the allocation and the grant count,
@@ -97,7 +97,7 @@ Launches are counted per path, from zero just before it to just after it:
 K3 over the allocator's fleet epochs, K1/K2 over the tiles-loop replays,
 K4 over the fleet serve on the per-grant backend, K5 and K6 over the
 prefills of their model serves, K3 over each pooled fill (once a fill,
-added to its allocator count in the JSON); each must have launched.  The
+the K3 row's ``fill_launches`` in the JSON); each must have launched.  The
 last lines are the kernels JSON, the ``nvidia-smi`` name and power limit,
 and the device JSON.
 """
@@ -1731,8 +1731,9 @@ def k3_plain():
 
 
 def paper_fill(dev, seed):
-    """The paper's example on the card: -> K3 launches of its pooled
-    fills (one each)."""
+    """The paper's tables on the card, through
+    ``launch.paper_tables``, against the same rows from the numpy
+    filler: -> K3 launches of its pooled fills (one each)."""
     import torch
 
     from repro_torch.core.filling import (
@@ -1740,59 +1741,58 @@ def paper_fill(dev, seed):
         progressive_fill,
         run_trials,
     )
-    from repro_torch.core.filling_torch import (
-        fill_trials_torch,
-        is_deterministic,
-        progressive_fill_torch,
-    )
+    from repro_torch.core.filling_torch import fill_trials_torch
     from repro_torch.core.instance import paper_example
     from repro_torch.kernels.epoch_persistent import ops as k3
-    from repro_torch.launch.paper_tables import PAPER_T1
+    from repro_torch.launch import paper_tables as pt
 
     inst = paper_example()
+    reset_counts()
+    got = pt.run(print_csv=False, device=dev)
+    launches = k3.persistent_epoch.launches
+    check(launches == 2, f"paper tables: K3 launched {launches} times, "
+          "not once for each of PS-DSF and rPS-DSF")
+    want = pt.table_rows(
+        inst, {n: run_trials(inst, PAPER_SCHEDULERS[n], pt.N_TRIALS, seed=1)
+               for n in pt.STOCHASTIC},
+        {n: progressive_fill(inst, PAPER_SCHEDULERS[n], seed=0).x
+         for n in pt.DETERMINISTIC})
+    gap = 0.0
+    for (table, name, i, v, _), (*_, w, _) in zip(got, want):
+        if name in pt.DETERMINISTIC:
+            check(v == w, f"paper tables {table} {name}[{i}]: {v} on the "
+                  f"card, {w} from the numpy filler")
+        elif table == "T1_alloc_mean":
+            gap = max(gap, abs(v - w))
+    check(gap <= FILL_MEAN_ATOL, f"paper tables: trial means {gap} from "
+          "the numpy filler's")
+    # the claim at filling.py's RRR-rPS-DSF: every trial is rPS-DSF's fill
+    cfg = PAPER_SCHEDULERS["RRR-rPS-DSF"]
     f = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
                                   device=dev)
-    args = (f(inst.demands), f(inst.capacities), f(inst.weights))
-    launches, totals = 0, {}
-    for name, cfg in PAPER_SCHEDULERS.items():
-        kw = dict(criterion=cfg.criterion, policy=cfg.server_policy,
-                  tie=cfg.tie, lookahead=cfg.lookahead)
-        if is_deterministic(cfg.server_policy, cfg.tie):
-            reset_counts()
-            x = progressive_fill_torch(*args, None, **kw)
-            n = k3.persistent_epoch.launches
-            check(n == (cfg.server_policy == "pooled"),
-                  f"fill {name}: K3 launched {n} times")
-            launches += n
-            want = progressive_fill(inst, cfg, seed=0).x
-            check(np.array_equal(x.cpu().numpy(), want),
-                  f"fill {name}: {x.flatten().tolist()} on the card, "
-                  f"{want.ravel().tolist()} from the numpy filler")
-            totals[name] = (float(x.sum()), "equal", None)
-            continue
-        x = fill_trials_torch(
-            *args, FILL_TRIALS,
-            generator=torch.Generator(device=dev).manual_seed(seed + 1),
-            **kw).cpu().numpy()
-        want = run_trials(inst, cfg, FILL_TRIALS, seed=1)
-        gap = float(np.abs(x.mean(0) - want.mean(0)).max())
-        check(gap <= FILL_MEAN_ATOL, f"fill {name}: trial means "
-              f"{x.mean(0).ravel()} against {want.mean(0).ravel()}")
-        if name == "RRR-rPS-DSF":
-            bad = int((x.reshape(FILL_TRIALS, 4) != [19, 2, 2, 19])
-                      .any(1).sum())
-            check(bad == 0, f"fill {name}: {bad} of {FILL_TRIALS} trials "
-                  "differ from (19, 2, 2, 19)")
-        totals[name] = (float(x.mean(0).sum()), f"means within {gap:.3f}",
-                        float(want.mean(0).sum()))
-    paper = {k: sum(v) for k, v in PAPER_T1.items()}
-    paper["RRR-rPS-DSF"] = paper["rPS-DSF"]     # the paper's claim
-    log("fill, the paper's example on the card (total tasks; the paper's "
-        "in brackets; stochastic: the mean of 200 trials against the numpy "
-        "filler's): " + ", ".join(
-            f"{k} {t:.2f} [{paper[k]:g}] ({note}"
-            + ("" if ref is None else f" of {ref:.2f}") + ")"
-            for k, (t, note, ref) in totals.items()))
+    x = fill_trials_torch(
+        f(inst.demands), f(inst.capacities), f(inst.weights), FILL_TRIALS,
+        generator=torch.Generator(device=dev).manual_seed(seed + 1),
+        criterion=cfg.criterion, policy=cfg.server_policy, tie=cfg.tie,
+        lookahead=cfg.lookahead).cpu().numpy()
+    bad = int((x.reshape(FILL_TRIALS, 4) != [19, 2, 2, 19]).any(1).sum())
+    check(bad == 0, f"fill RRR-rPS-DSF: {bad} of {FILL_TRIALS} trials "
+          "differ from (19, 2, 2, 19)")
+
+    def totals(rows):
+        return {n: sum(v for t, s, _, v, _ in rows
+                       if t == "T1_alloc_mean" and s == n)
+                for n in pt.PAPER_T1}
+
+    card, numpy_, paper = totals(got), totals(want), {
+        k: sum(v) for k, v in pt.PAPER_T1.items()}
+    log("fill, the paper's tables on the card (launch.paper_tables; total "
+        "tasks, the numpy filler's and the paper's in brackets; "
+        f"stochastic: means of {pt.N_TRIALS} trials, within {gap:.3f} of "
+        "the numpy filler's a cell): " + ", ".join(
+            f"{k} {card[k]:.2f} [{numpy_[k]:.2f}, {paper[k]:g}]"
+            for k in pt.PAPER_T1)
+        + f"; RRR-rPS-DSF all {FILL_TRIALS} trials (19, 2, 2, 19)")
     return launches
 
 
@@ -1912,11 +1912,17 @@ def paper_drivers(dev):
 def fill_phase(dev, agents, fws, seed):
     """-> K3's launches over the phase's pooled fills."""
     t0 = time.perf_counter()
-    launches = paper_fill(dev, seed)
-    launches += fleet_fill(dev, agents, fws)
-    fleet_trials(dev, agents, fws, seed)
-    paper_drivers(dev)
-    log(f"fill phase {time.perf_counter() - t0:.1f} s")
+    parts, launches = {}, 0
+    for part, fn in (("paper tables", lambda: paper_fill(dev, seed)),
+                     ("fleet fills", lambda: fleet_fill(dev, agents, fws)),
+                     ("fleet trials", lambda: fleet_trials(dev, agents, fws,
+                                                           seed)),
+                     ("figure scripts", lambda: paper_drivers(dev))):
+        t = time.perf_counter()
+        launches += fn() or 0
+        parts[part] = time.perf_counter() - t
+    log(f"fill phase {time.perf_counter() - t0:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in parts.items()) + ")")
     return launches
 
 
@@ -1995,12 +2001,13 @@ def main(argv=None):
             f"{time.perf_counter() - t0:.1f} s")
         for name, n in model_launches.items():
             check(n > 0, f"main path never launched {name}")
+    fill_launches = None
     if "fill" in phases:
-        n = fill_phase(dev, agents, fws, args.seed)
-        log(f"launches (K3 over the pooled fills, one a fill): {n}")
-        check(n > 0, "main path never launched persistent_epoch")
-        launches["persistent_epoch"] = launches.get("persistent_epoch",
-                                                    0) + n
+        fill_launches = fill_phase(dev, agents, fws, args.seed)
+        log(f"launches (K3 over the pooled fills, one a fill): "
+            f"{fill_launches}")
+        check(fill_launches > 0, "the fill path never launched "
+              "persistent_epoch")
     meta = {
         "masked_argmin1d": dict(
             route="cuda",
@@ -2030,6 +2037,9 @@ def main(argv=None):
     if set(rows) == set(launches) == set(meta):
         out = [dict(name=name, **meta[name], launches=launches[name],
                     **rows[name]) for name in meta]
+        if fill_launches is not None:   # the fill path's own K3 count
+            out[list(meta).index("persistent_epoch")]["fill_launches"] = (
+                fill_launches)
         log(json.dumps({"kernels": out}))
     log(card)
     print(json.dumps({"ok": True, "device": {

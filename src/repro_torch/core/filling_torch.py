@@ -6,9 +6,11 @@ score in f64 on the host; this one keeps the allocation on the tensors'
 device and computes in f32, as the reference's device engine does.  CPU
 tensors stay on the CPU and CUDA tensors on the card; nothing is moved.
 
-Criterion scores are built from :mod:`repro_torch.core.criteria` with
-``xp=torch``, the formulas the numpy filler and the allocator use; this
-module owns the control flow and the trial dimension.  Two bodies:
+Feasibility, criterion scores and the best-fit metric are
+:mod:`repro_torch.core.criteria`'s functions with ``xp=torch``, the
+formulas the numpy filler and the allocator use, written for one trial and
+mapped over the trials with ``torch.func.vmap``; this module owns the
+control flow and the random draws.  Two bodies:
 
   * **deterministic pooled** (``tie="low"``, ``policy="pooled"``, all four
     criteria): the shared device-resident epoch loop,
@@ -45,6 +47,8 @@ _POL = {"rrr": POL_RRR, "pooled": POL_POOLED, "bestfit": POL_BESTFIT}
 
 #: steps between the host's checks that some trial is still alive
 ALIVE_EVERY = 32
+#: most uniforms a trial draws in one call (a block of its steps' draws)
+DRAW_BLOCK = 2 ** 20
 #: the persistent epoch kernel reads server rows this many cells at a time
 J_MULTIPLE = 4
 
@@ -134,53 +138,17 @@ def _pooled_fill(D, C, phi, *, criterion, lookahead, max_steps, shards,
 
 # -- the step loop: RRR, random ties, best-fit ---------------------------------
 
-def _residual(Xf, D, C):
-    """(T, J, R) residual capacities of every trial:
-    ``criteria.residual_capacities`` with a trial dimension."""
-    return C - torch.einsum("tnj,nr->tjr", Xf, D)
+def _residual(X, D, C):
+    """(J, R) residual capacities of one trial's int32 allocation."""
+    return criteria.residual_capacities(X.to(torch.float32), D, C, xp=torch)
 
 
-def _feasible(res, D, allowed):
-    """(T, N, J) one-more-task feasibility against ``res`` (T, J, R)."""
-    feas = (D[None, :, None, :] <= res[:, None, :, :] + 1e-6).all(-1)
+def _feasible(X, D, C, allowed):
+    """(N, J) one-more-task feasibility of one trial's int32 allocation."""
+    feas = (D[:, None, :] <= _residual(X, D, C)[None, :, :] + 1e-6).all(-1)
     if allowed is not None:
         feas = feas & allowed
     return feas
-
-
-class _Scores:
-    """The criterion's (T, N, J) matrix scores of an int32 (T, N, J)
-    allocation: ``Criterion.matrix_scores`` with a trial dimension, its
-    allocation-independent pieces computed once."""
-
-    def __init__(self, criterion, D, C, phi, lookahead, allowed):
-        self.kind = criteria.get_criterion(criterion).name
-        self.D, self.phi = D, phi
-        self.la = 1.0 if lookahead else 0.0
-        if self.kind == "drf":
-            self.aux = criteria.drf_dominant(D, C, xp=torch)
-        elif self.kind == "tsf":
-            monopoly = criteria.tsf_monopoly(D, C, allowed=allowed, xp=torch)
-            self.aux = phi * monopoly.clamp_min(1e-30)
-        elif self.kind == "psdsf":
-            self.aux = criteria.virtual_dominant(D, C, xp=torch)   # (N, J)
-
-    def __call__(self, X, res):
-        T, N, J = X.shape
-        x = X.sum(2) + self.la                                    # (T, N)
-        if self.kind == "drf":
-            s = x * self.aux / self.phi
-        elif self.kind == "tsf":
-            s = x / self.aux
-        else:
-            if self.kind == "psdsf":
-                dom = self.aux
-            else:   # rpsdsf: against every trial's own residual
-                dom = criteria.virtual_dominant(
-                    self.D, res.reshape(T * J, -1), xp=torch)
-                dom = dom.reshape(N, T, J).permute(1, 0, 2)
-            return (x / self.phi)[:, :, None] * dom
-        return s[:, :, None].expand(T, N, J)
 
 
 def _masked_argmin(scores, mask, noise=None):
@@ -214,34 +182,42 @@ def _step_fill(D, C, phi, gens, *, trials, criterion="drf", policy="rrr",
     T = trials
     rows = torch.arange(T, device=dev)
     arangeJ = torch.arange(J, dtype=i64, device=dev).expand(T, J)
-    scores = _Scores(criterion, D, C, phi, lookahead, allowed)
-    server_specific = scores.kind in ("psdsf", "rpsdsf")
+    crit = criteria.get_criterion(criterion)
+    # one trial's feasibility, scores and best-fit metric, mapped over T
+    feasible = torch.func.vmap(lambda X: _feasible(X, D, C, allowed))
+    scores = torch.func.vmap(lambda X: crit.matrix_scores(
+        X, D, C, phi, lookahead=lookahead, xp=torch, allowed=allowed))
+    bestfit = torch.func.vmap(lambda X, d: criteria.bestfit_scores(
+        _residual(X, D, C), d, metric="cosine", xp=torch))
 
-    def draws(L):
-        # (T, L) uniforms, each trial's from its own generator; f64, so
-        # that permutation keys tie with negligible probability
-        return torch.stack([torch.rand(L, dtype=torch.float64, generator=g,
-                                       device=dev) for g in gens])
-
-    # a step draws two permutations' keys (RRR) and the tie noise
-    n_noise = N * J if pol == POL_POOLED and server_specific else N
+    # a step draws two permutations' keys (RRR) and the tie noise, in f64
+    # so that permutation keys tie with negligible probability.  Each
+    # trial draws a block of steps' numbers at once from its own generator
+    # (at most DRAW_BLOCK numbers, and no more steps than lie between two
+    # alive checks).
+    n_noise = N * J if pol == POL_POOLED and crit.server_specific else N
     n_keys = 2 * J if pol == POL_RRR else 0
     n_draws = n_keys + (n_noise if random_tie else 0)
+    block = max(1, min(ALIVE_EVERY, DRAW_BLOCK // max(n_draws, 1)))
+
+    def draws(*shape):
+        return torch.stack([torch.rand(shape, dtype=torch.float64,
+                                       generator=g, device=dev)
+                            for g in gens])
 
     X = (torch.zeros((T, N, J), dtype=torch.int32, device=dev) if x0 is None
          else x0.to(device=dev, dtype=torch.int32).expand(T, N, J).clone())
-    Xf = X.to(f32)
-    steps = torch.zeros(T, dtype=i64, device=dev)
     perm = draws(J).argsort(1) if pol == POL_RRR else None
     pos = torch.zeros(T, dtype=i64, device=dev)
     for step in range(max_steps):
-        res = _residual(Xf, D, C)
-        feas = _feasible(res, D, allowed)
-        alive = feas.flatten(1).any(1) & (steps < max_steps)
+        feas = feasible(X)
+        alive = feas.flatten(1).any(1)
         if step % ALIVE_EVERY == 0 and not bool(alive.any()):
             break
-        sc = scores(X, res)
-        u = draws(n_draws) if n_draws else None
+        sc = scores(X)
+        if n_draws and step % block == 0:
+            u_block = draws(block, n_draws)
+        u = u_block[:, step % block] if n_draws else None
         noise = u[:, n_keys:].float() if random_tie else None
         if pol == POL_RRR:
             rank = _inverse(perm, arangeJ)
@@ -264,7 +240,7 @@ def _step_fill(D, C, phi, gens, *, trials, criterion="drf", policy="rrr",
             perm = torch.where(alive[:, None], nxt, perm)
             pos = torch.where(alive, p, pos)
         elif pol == POL_POOLED:
-            if server_specific:
+            if crit.server_specific:
                 flat = _masked_argmin(sc.flatten(1), feas.flatten(1), noise)
                 n, j = flat // J, flat % J
             else:
@@ -273,16 +249,6 @@ def _step_fill(D, C, phi, gens, *, trials, criterion="drf", policy="rrr",
         else:   # best-fit: the framework first, then its best-fit server
             per_fw = torch.where(feas, sc, torch.inf).amin(2)
             n = _masked_argmin(per_fw, feas.any(2), noise)
-            j = _masked_argmin(_cosine(res, D[n]), feas[rows, n])
+            j = _masked_argmin(bestfit(X, D[n]), feas[rows, n])
         X[rows, n, j] += alive.to(torch.int32)
-        Xf[rows, n, j] += alive.to(f32)
-        steps += alive.to(i64)
     return X
-
-
-def _cosine(res, d):
-    """(T, J) ``criteria.bestfit_scores(metric="cosine")`` of each trial's
-    residual (T, J, R) against its framework's demand (T, R)."""
-    num = (res * d[:, None, :]).sum(2)
-    den = torch.sqrt((res * res).sum(2) * (d * d).sum(1)[:, None]) + 1e-30
-    return 1.0 - num / den

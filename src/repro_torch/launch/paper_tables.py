@@ -5,15 +5,24 @@ T5_jain_dominant_share row per scheduler: Jain's fairness index over the
 frameworks' dominant shares at the final allocation (repro_torch.core.metrics),
 quantifying the fairness/packing trade-off the tables only imply.
 
-It runs the exact numpy filler on the host, so it takes no device:
+The fills run on the card (``--device cuda``, the default) unless asked
+for the CPU, through :mod:`repro_torch.core.filling_torch`: the pooled
+PS-DSF and rPS-DSF fills on the persistent epoch kernel, the others on the
+step loop.  The deterministic rows equal the exact numpy filler's; the
+stochastic ones are statistics of 200 trials drawn from torch generators:
 
-    PYTHONPATH=src python -m repro_torch.launch.paper_tables
+    PYTHONPATH=src python -m repro_torch.launch.paper_tables --device cpu
 """
 from __future__ import annotations
 
-import numpy as np
+import argparse
 
-from repro_torch.core.filling import PAPER_SCHEDULERS, progressive_fill, run_trials
+import numpy as np
+import torch
+
+from repro_torch.core.engine_torch import resolve_device
+from repro_torch.core.filling import PAPER_SCHEDULERS
+from repro_torch.core.filling_torch import fill_trials_torch, progressive_fill_torch
 from repro_torch.core.instance import paper_example
 from repro_torch.core.metrics import dominant_shares, jain_index
 
@@ -47,8 +56,32 @@ STOCHASTIC = ("DRF", "TSF", "RRR-PS-DSF")
 DETERMINISTIC = ("BF-DRF", "PS-DSF", "rPS-DSF")
 
 
-def run(print_csv: bool = True):
-    inst = paper_example()
+def fills(inst, device):
+    """-> ({name: (T, N, J)} trials of the stochastic schedulers,
+    {name: (N, J)} fills of the deterministic ones), as numpy int32."""
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
+                                  device=device)
+    args = (t(inst.demands), t(inst.capacities), t(inst.weights))
+
+    def kw(name):
+        cfg = PAPER_SCHEDULERS[name]
+        return dict(criterion=cfg.criterion, policy=cfg.server_policy,
+                    lookahead=cfg.lookahead, tie=cfg.tie)
+
+    gen = torch.Generator(device=device)
+    trials = {name: fill_trials_torch(*args, N_TRIALS,
+                                      generator=gen.manual_seed(1),
+                                      **kw(name)).cpu().numpy()
+              for name in STOCHASTIC}
+    once = {name: progressive_fill_torch(*args, None,
+                                         **kw(name)).cpu().numpy()
+            for name in DETERMINISTIC}
+    return trials, once
+
+
+def table_rows(inst, trials, once):
+    """-> the CSV rows (table, scheduler, cell, value, paper_value) of the
+    two dicts :func:`fills` returns."""
     rows = []
 
     def emit(table, sched, cells, paper):
@@ -62,7 +95,7 @@ def run(print_csv: bool = True):
         return jain_index(s)
 
     for name in STOCHASTIC:
-        x = run_trials(inst, PAPER_SCHEDULERS[name], N_TRIALS, seed=1)
+        x = trials[name]
         res = np.array([inst.residual(xi) for xi in x])
         emit("T1_alloc_mean", name, x.mean(0), PAPER_T1[name])
         emit("T2_alloc_std", name, x.std(0, ddof=1), PAPER_T2[name])
@@ -71,11 +104,17 @@ def run(print_csv: bool = True):
                      float(np.mean([jain_of(xi.sum(axis=1)) for xi in x])), 1.0))
 
     for name in DETERMINISTIC:
-        r = progressive_fill(inst, PAPER_SCHEDULERS[name], seed=0)
-        emit("T1_alloc_mean", name, r.x, PAPER_T1[name])
-        emit("T3_unused_mean", name, r.residual, PAPER_T3[name])
+        x = once[name]
+        emit("T1_alloc_mean", name, x, PAPER_T1[name])
+        emit("T3_unused_mean", name, inst.residual(x), PAPER_T3[name])
         rows.append(("T5_jain_dominant_share", name, 0,
-                     jain_of(np.asarray(r.x, np.float64).sum(axis=1)), 1.0))
+                     jain_of(np.asarray(x, np.float64).sum(axis=1)), 1.0))
+    return rows
+
+
+def run(print_csv: bool = True, device="cuda"):
+    inst = paper_example()
+    rows = table_rows(inst, *fills(inst, resolve_device(device)))
 
     if print_csv:
         print("table,scheduler,cell,value,paper_value")
@@ -90,5 +129,13 @@ def run(print_csv: bool = True):
     return rows
 
 
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the fills (cuda or cpu)")
+    args = ap.parse_args(argv)
+    run(device=args.device)
+
+
 if __name__ == "__main__":
-    run()
+    main()

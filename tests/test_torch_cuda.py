@@ -794,6 +794,24 @@ def test_paper_example_rows_on_the_card(dev, name, want):
                                   progressive_fill(inst, cfg, seed=0).x)
 
 
+def test_paper_tables_on_the_card(dev):
+    """``launch.paper_tables`` on the card: its deterministic rows equal the
+    CPU run's, the pooled PS-DSF and rPS-DSF fills are one K3 launch
+    each, and the trial means stay within 0.8 of the CPU run's."""
+    from repro_torch.kernels.epoch_persistent import ops as k3
+    from repro_torch.launch import paper_tables
+
+    n0 = k3.persistent_epoch.launches
+    got = paper_tables.run(print_csv=False, device=dev)
+    assert k3.persistent_epoch.launches == n0 + 2
+    want = paper_tables.run(print_csv=False, device="cpu")
+    for (table, sched, i, v, p), (*_, w, _) in zip(got, want):
+        if sched in paper_tables.DETERMINISTIC:
+            assert v == w, (table, sched, i)
+        elif table == "T1_alloc_mean":
+            assert abs(v - w) <= 0.8, (sched, i, v, w)
+
+
 def test_rrr_trials_on_the_card_saturate(dev):
     from repro_torch.core.filling_torch import fill_trials_torch
     from repro_torch.core.instance import paper_example
