@@ -16,10 +16,12 @@ kernel from the sources in the checkout (nvcc into ``build/``).  Phases:
    +0.0, feasible cells at BIG, inf, all masked, NaN (the first feasible
    NaN wins); with and without ``out``,
    on contiguous inputs and on views; then K1's and K2's time a call with
-   and without ``out``, host enqueue, device time, the launch floor and
-   two PyTorch yardsticks; K3 whole epochs for 4 criteria x {pooled, rrr}
-   (pooled PS-DSF / rPS-DSF on a grid of more than one block, the others on
-   one), each timed a launch and a grant, the grid path's time split by
+   and without ``out``, host enqueue, device time, the launch floor, the
+   plain versions captured as a CUDA graph (and eager) and two PyTorch
+   yardsticks; K3 whole epochs for 4 criteria x {pooled, rrr} (pooled
+   PS-DSF / rPS-DSF on a grid of more than one block, the others on one),
+   each timed a launch and a grant beside its plain version on the loop's
+   graphs (a second run, after the capture), the grid path's time split by
    phase (its profile), and the barrier floor (the grid path's barriers
    alone, ``ops.barrier_floor``); K4
    at (512, 4096, 2), (300, 257, 3), (128, 128, 8) and (1, 1, 1) on
@@ -35,10 +37,17 @@ kernel from the sources in the checkout (nvcc into ``build/``).  Phases:
    the default persistent kernel; each epoch is then replayed through
    ``engine_torch.run_epoch`` from its frozen view on the plain loop, on
    the tiles loop (K1/K2) and on the tiles loop with K1's and K2's plain
-   versions.  Persistent must equal the plain loop and the tiles loop its
-   plain-select run, grant for grant; tiles against the plain loop may
-   differ only on a tie (exact across 128-wide tiles, or within the f32
-   tie tolerance), as the reference's tile kernels do.  The first fleet
+   versions, each on the loop's captured CUDA graphs (chunks of
+   ``engine_torch.CHUNK`` steps, one alive-flag read a chunk; printed per
+   path: ms an epoch and us a grant without the captures, chunk replays,
+   flag reads, captures and their seconds).  Persistent must equal the
+   plain loop and the tiles loop its plain-select run, grant for grant;
+   tiles against the plain loop may differ only on a tie (exact across
+   128-wide tiles, or within the f32 tie tolerance), as the reference's
+   tile kernels do.  The first epoch of rPS-DSF/pooled and of DRF/RRR is
+   also run on the same step eagerly (``engine_torch.run_loop_eager``, one
+   flag read a grant) and must equal the graphed loop; both times are
+   printed.  The first fleet
    epoch's begin+commit is printed for all eight pairs (limit 0.5 s), split
    into begin, the wait for K3 and its readback, and the apply, with the
    time the garbage collector took inside it.  On
@@ -86,15 +95,19 @@ kernel from the sources in the checkout (nvcc into ``build/``).  Phases:
    200 RRR-rPS-DSF trials (19, 2, 2, 19); the totals beside the paper's.  The fleet (512 frameworks x 4096 agents,
    its placement constraints, no wanted cap) filled to exhaustion, pooled,
    for the four criteria: one K3 launch a fill, equal to the same fill with
-   K3 swapped for its plain version in the allocation and the grant count,
-   nothing feasible left and no residual below -1e-4.  RRR trials (DRF and
-   rPS-DSF, random ties) at the fleet size, 8 to exhaustion.  The paper's
+   K3 swapped for its plain version (the plain loop on its graphs) in the
+   allocation and the grant count, nothing feasible left and no residual
+   below -1e-4.  RRR trials (DRF and rPS-DSF, random ties) at the fleet
+   size, 8 to exhaustion, on the step loop's captured graph (one capture a
+   criterion; ms a step printed without it).  The paper's
    Figure 3-8 driver on the card equal to the CPU (2 seeds of its 8) and
    the Figure 9 driver on the card with both claims passing.
 
 Outside the chaos serve the allocator fault counters must be zero.
 Launches are counted per path, from zero just before it to just after it:
-K3 over the allocator's fleet epochs, K1/K2 over the tiles-loop replays,
+K3 over the allocator's fleet epochs, K1/K2 over the tiles-loop replays
+(one a step of each replayed chunk, dead steps included: a replay adds its
+graph's launches to the counters, a capture adds none),
 K4 over the fleet serve on the per-grant backend, K5 and K6 over the
 prefills of their model serves, K3 over each pooled fill (once a fill,
 the K3 row's ``fill_launches`` in the JSON); each must have launched.  The
@@ -572,7 +585,8 @@ def argmin_phase(rng, dev):
         host_fresh = enqueue_us(lambda: fn(s, ok))
         dev_us, dev_why = device_us(lambda: fn(s, ok, out=out),
                                     r"argmin\w*")
-        plain = cuda_ms(lambda: plain_fn(s, ok), 50)
+        plain_eager = cuda_ms(lambda: plain_fn(s, ok), 50)
+        plain = graph_ms(lambda: plain_fn(s, ok), 200)
         lib = cuda_ms(lambda: torch.min(masked, dim=0), reps)
         lib_where = cuda_ms(lambda: torch.min(
             torch.where(ok, s, tiles.BIG).reshape(-1), dim=0), reps)
@@ -583,11 +597,13 @@ def argmin_phase(rng, dev):
             f"host enqueue {host_out:.2f} / {host_fresh:.2f} us; device "
             + (f"{dev_us:.2f} us a launch ({dev_why})" if dev_us else
                f"not measured ({dev_why})")
-            + f"; plain {plain:.4f} ms; torch.min {lib:.4f} ms, torch.where"
+            + f"; plain {plain:.4f} ms as a graph ({plain_eager:.4f} ms "
+            f"eager); torch.min {lib:.4f} ms, torch.where"
             f" + torch.min {lib_where:.4f} ms; launch floor "
             f"{floor_ms:.4f} ms; bound {bound:.3g} ms (bytes)")
         if shape != (FLEET_J,):
-            rows[name] = dict(ms=with_out, plain_ms=plain, library_ms=lib,
+            rows[name] = dict(ms=with_out, plain_ms=plain,
+                              plain_eager_ms=plain_eager, library_ms=lib,
                               max_abs_err=0.0, bound_ms=bound,
                               bound_by="bytes")
     return rows
@@ -636,7 +652,13 @@ def kernels_phase(rng, dev, agents, fws):
             torch.cuda.synchronize()
             t_kernel = (time.perf_counter() - t0) * 1e3
             t0 = time.perf_counter()
-            b = persistent_epoch_ref(*b_in, **kw)
+            b = persistent_epoch_ref(*b_in, **kw)       # captures its graph
+            torch.cuda.synchronize()
+            t_capture = (time.perf_counter() - t0) * 1e3
+            c_in = fresh()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            persistent_epoch_ref(*c_in, **kw)           # replays it
             torch.cuda.synchronize()
             t_plain = (time.perf_counter() - t0) * 1e3
             # returned arrays, then the in-place s, feas, dom, cap
@@ -660,7 +682,9 @@ def kernels_phase(rng, dev, agents, fws):
             log(f"K3 persistent_epoch {crit}/{pol}: {count} grants, "
                 f"{ms:.2f} ms an epoch ({ms / max(count, 1) * 1e3:.2f} us a "
                 f"grant; first launch {t_kernel:.2f} ms), grid {grid}, "
-                f"plain {t_plain:.1f} ms")
+                f"plain {t_plain:.1f} ms on the loop's graph "
+                f"({t_plain / max(count, 1) * 1e3:.1f} us a grant; "
+                f"{t_capture:.1f} ms with its capture)")
             if grid > 1:
                 k3_phases(k3, fresh(), kw, count)
             if (crit, pol) == ("rpsdsf", "pooled"):
@@ -784,6 +808,67 @@ def plain_selects():
     return stack
 
 
+@contextlib.contextmanager
+def graph_counts():
+    """-> a dict that receives, for the epoch loop's graphs inside the
+    block, the chunk replays, the alive-flag reads (each one host sync),
+    the captures and the seconds they took."""
+    from unittest import mock
+
+    from repro_torch.core import engine_torch as et
+
+    n = dict(replays=0, reads=0, captures=0, capture_s=0.0)
+    init, replay_, alive = (et.LoopGraph.__init__, et.LoopGraph.replay,
+                            et.LoopGraph.alive)
+
+    def timed_init(self, *a, **k):
+        t0 = time.perf_counter()
+        init(self, *a, **k)
+        n["captures"] += 1
+        n["capture_s"] += time.perf_counter() - t0
+
+    def counted_replay(self):
+        n["replays"] += 1
+        return replay_(self)
+
+    def counted_alive(self):
+        n["reads"] += 1
+        return alive(self)
+
+    with mock.patch.object(et.LoopGraph, "__init__", timed_init), \
+            mock.patch.object(et.LoopGraph, "replay", counted_replay), \
+            mock.patch.object(et.LoopGraph, "alive", counted_alive):
+        yield n
+
+
+def eager_loop():
+    """Run the engine's loop with its step eagerly on the card, one flag
+    read a grant (``engine_torch.run_loop_eager``): what the graphs are
+    held to."""
+    from unittest import mock
+
+    from repro_torch.core import engine_torch
+
+    return mock.patch.object(engine_torch, "run_loop",
+                             engine_torch.run_loop_eager)
+
+
+def graph_ms(fn, reps):
+    """Mean device time of fn() captured once as a CUDA graph and
+    replayed (CUDA events)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps)
+
+
 def first_tie(ep, seq_ref, seq_tiles, crit, dev):
     """Explain the first divergence of the tiles loop from the plain loop.
     -> a description if both picks are feasible and tied, else None.  Two
@@ -828,6 +913,10 @@ def first_tie(ep, seq_ref, seq_tiles, crit, dev):
     return None
 
 
+#: the pairs whose first fleet epoch is also run on the eager step
+EAGER_CHECKS = (("rpsdsf", "pooled"), ("drf", "rrr"))
+
+
 def allocator_phase(dev, agents, fws, seed, epochs=3):
     """-> the launches of each kernel on its path: K3 over the allocator's
     fleet epochs (the default path), K1/K2 over the tiles-loop replays of
@@ -841,7 +930,7 @@ def allocator_phase(dev, agents, fws, seed, epochs=3):
     from repro_torch.kernels.epoch_persistent import ops as k3
 
     launches = dict.fromkeys(LAUNCH_COUNTERS[:3], 0)
-    first = {}
+    first, replay_s = {}, dict.fromkeys(("plain", "tiles", "tiles-plain"), 0.0)
     for crit in CRITERIA:
         for pol in POLICIES:
             # the default path: the allocator's fused epochs on K3
@@ -883,12 +972,14 @@ def allocator_phase(dev, agents, fws, seed, epochs=3):
             launches["persistent_epoch"] += n["persistent_epoch"]
             seqs = {"persistent": [ep.handle.result() for ep in eps]}
             # the same epochs through the engine: the plain loop, the tiles
-            # loop on K1/K2, and the tiles loop on their plain versions
+            # loop on K1/K2, and the tiles loop on their plain versions, each
+            # on the loop's captured graphs
+            graphs = {}
             for path, kernel in (("plain", None), ("tiles", "tiles"),
                                  ("tiles-plain", "tiles")):
                 reset_counts()
                 with plain_selects() if path == "tiles-plain" else \
-                        contextlib.nullcontext():
+                        contextlib.nullcontext(), graph_counts() as g:
                     seqs[path] = []
                     for ep in eps:
                         torch.cuda.synchronize()
@@ -897,6 +988,8 @@ def allocator_phase(dev, agents, fws, seed, epochs=3):
                         torch.cuda.synchronize()
                         ms.setdefault(path, []).append(
                             (time.perf_counter() - t0) * 1e3)
+                graphs[path] = g
+                replay_s[path] += sum(ms[path]) / 1e3
                 n = read_counts()
                 if path == "tiles":
                     check(n["persistent_epoch"] == 0 and
@@ -907,6 +1000,33 @@ def allocator_phase(dev, agents, fws, seed, epochs=3):
                 else:
                     check(not any(n.values()),
                           f"{crit}/{pol}: {path} path launched {n}")
+                check(g["replays"] > 0 and g["reads"] <= g["replays"],
+                      f"{crit}/{pol}: {path} path ran no graph ({g})")
+            grants = sum(len(x) for x in seqs["plain"])
+            log(f"graphs {crit}/{pol} ({grants} grants over {epochs} "
+                "epochs; ms an epoch without the captures, us a grant, chunk "
+                "replays, flag reads (host syncs besides the readback), "
+                "captures and their seconds): " + "; ".join(
+                    f"{path} {(sum(ms[path]) - g['capture_s'] * 1e3) / epochs:.1f}"
+                    f" ms, {(sum(ms[path]) - g['capture_s'] * 1e3) / grants * 1e3:.1f}"
+                    f" us, {g['replays']} replays, {g['reads']} reads, "
+                    f"{g['captures']} captures {g['capture_s']:.2f} s"
+                    for path, g in graphs.items()))
+            if (crit, pol) in EAGER_CHECKS:
+                # graph against the same step run eagerly, on one epoch
+                with eager_loop(), graph_counts() as g:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    eager = replay(crit, pol, eps[0], dev, None)
+                    torch.cuda.synchronize()
+                    eager_ms = (time.perf_counter() - t0) * 1e3
+                check(eager == seqs["plain"][0] and g["replays"] == 0,
+                      f"{crit}/{pol}: the graphed loop differs from the "
+                      "eager step")
+                log(f"graph vs eager {crit}/{pol}, epoch 0 ({len(eager)} "
+                    f"grants): equal; graphed {ms['plain'][0]:.1f} ms "
+                    f"(capture included), eager {eager_ms:.1f} ms "
+                    f"({eager_ms / len(eager) * 1e3:.1f} us a grant)")
             check(seqs["persistent"] == seqs["plain"],
                   f"{crit}/{pol}: persistent kernel grants differ from the "
                   "plain loop")
@@ -949,7 +1069,65 @@ def allocator_phase(dev, agents, fws, seed, epochs=3):
         + ", ".join(f"{k} {v:.1f} [{b:.1f}, {w:.1f}, {a:.1f}; gc {g:.1f} "
                     f"ms, {f} full] ms" for k, (v, b, w, a, g, f)
                     in first.items()))
+    log(f"replays of the {len(first) * epochs} fleet epochs on the graphs, "
+        f"{sum(replay_s.values()):.1f} s (captures included): " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in replay_s.items()))
     return launches
+
+
+# -- the chunk sweep (not a default phase) ----------------------------------
+
+CHUNK_SWEEP = (16, 32, 64, 128, 256)
+#: a late fleet epoch's grants (the allocator phase's third epochs take
+#: 1,138-1,395), and the first epoch's
+SWEEP_STEPS = (1200, 4096)
+
+
+def chunks_phase(dev, agents, fws):
+    """The graphed plain loop's time a segment for each chunk size in
+    ``CHUNK_SWEEP``, on the fleet's first epoch state cut at
+    ``SWEEP_STEPS`` grants (the last chunk then runs dead steps past the
+    cut), rPS-DSF/pooled and DRF/RRR: the second run of each (graph
+    captured), CUDA-event time, and the first run's capture."""
+    import torch
+
+    from repro_torch.core import engine_torch as et
+
+    arr = fleet_arrays(agents, fws)
+    N, J = arr["X"].shape
+    t = {k: torch.as_tensor(v, device=dev) for k, v in arr.items()}
+    rng = np.random.default_rng(0)
+    chunk0 = et.CHUNK
+    try:
+        for crit, pol in EAGER_CHECKS:
+            perms = (np.stack([rng.permutation(J) for _ in range(8)])
+                     if pol == "rrr" else np.arange(J)[None, :])
+            state = et.epoch_state(
+                t["X"], t["D"], t["TD"], t["C"], t["FREE"], t["phi"],
+                t["wanted"], t["allowed"],
+                torch.as_tensor(perms, dtype=torch.int32, device=dev),
+                torch.zeros(J, dtype=torch.int32, device=dev), 0, 0, J, 1,
+                1e-9, kind=crit, lookahead=False, use_limit=True)
+            for steps in SWEEP_STEPS:
+                row = []
+                for chunk in CHUNK_SWEEP:
+                    et.CHUNK = chunk
+                    kw = dict(kind=crit, policy=pol, lookahead=False,
+                              use_limit=True, max_steps=steps)
+                    inputs = [tuple(a.clone() if torch.is_tensor(a) else a
+                                    for a in state) for _ in range(2)]
+                    with graph_counts() as g:
+                        out = et.run_loop(*inputs.pop(), **kw)
+                        check(int(out[2]) == steps, f"chunks {crit}/{pol}: "
+                              f"{int(out[2])} grants, not {steps}")
+                        ms = cuda_ms(lambda: et.run_loop(*inputs.pop(),
+                                                         **kw), 1, warmup=0)
+                    row.append(f"{chunk}: {ms:.1f} ms ({ms / steps * 1e3:.1f}"
+                               f" us a grant, capture {g['capture_s']:.2f} s)")
+                log(f"chunk sweep {crit}/{pol}, {steps} grants: "
+                    + "; ".join(row))
+    finally:
+        et.CHUNK = chunk0
 
 
 # -- phase 3: the simulator ------------------------------------------------
@@ -1826,12 +2004,14 @@ def fleet_fill(dev, agents, fws):
         launches += n
         grid = k3.persistent_epoch.grid
         ms = cuda_ms(fill, 3, warmup=0)
-        with k3_plain(), loop_counts() as count_plain:
+        with k3_plain(), loop_counts() as count_plain, graph_counts() as g:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             y = fill()
             torch.cuda.synchronize()
             plain_s = time.perf_counter() - t0
+        check(g["replays"] > 0, f"fleet fill {crit}: K3's plain version "
+              "ran no graph")
         check(torch.equal(x, y) and count == count_plain,
               f"fleet fill {crit}: K3 ({count}) differs from its plain "
               f"version ({count_plain})")
@@ -1845,7 +2025,10 @@ def fleet_fill(dev, agents, fws):
         log(f"fleet fill {crit}/pooled {D.shape[0]}x{C.shape[0]}: {grants} "
             f"grants, {ms:.2f} ms a fill ({ms / grants * 1e3:.2f} us a "
             f"grant; first {first_ms:.2f} ms), K3 launches {n} on grid "
-            f"{grid}; K3's plain version {plain_s:.1f} s, equal; saturated, "
+            f"{grid}; K3's plain version {plain_s:.2f} s on the loop's graph "
+            f"({(plain_s - g['capture_s']) / grants * 1e6:.1f} us a grant "
+            f"without its capture of {g['capture_s']:.2f} s; {g['replays']} "
+            f"replays, {g['reads']} flag reads), equal; saturated, "
             f"least residual {least:g}")
     return launches
 
@@ -1856,17 +2039,31 @@ def fleet_trials(dev, agents, fws, seed):
 
     from repro_torch.core import filling_torch
 
+    from unittest import mock
+
     D, C, phi, allowed = fleet_fill_inputs(agents, fws, dev)
+    init = filling_torch._FillGraph.__init__
     for crit in ("drf", "rpsdsf"):
+        capture = []
+
+        def timed_init(self, *a, **k):
+            t = time.perf_counter()
+            init(self, *a, **k)
+            capture.append(time.perf_counter() - t)
+
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        x = filling_torch.fill_trials_torch(
-            D, C, phi, FLEET_TRIALS,
-            generator=torch.Generator(device=dev).manual_seed(seed),
-            criterion=crit, policy="rrr", tie="random", lookahead=False,
-            max_steps=FLEET_FILL_STEPS, allowed=allowed)
+        with mock.patch.object(filling_torch._FillGraph, "__init__",
+                               timed_init):
+            x = filling_torch.fill_trials_torch(
+                D, C, phi, FLEET_TRIALS,
+                generator=torch.Generator(device=dev).manual_seed(seed),
+                criterion=crit, policy="rrr", tie="random", lookahead=False,
+                max_steps=FLEET_FILL_STEPS, allowed=allowed)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0 - sum(capture)
+        check(len(capture) == 1, f"fleet trials {crit}/rrr: {len(capture)} "
+              "captures of the step loop, not one")
         grants = x.sum((1, 2)).tolist()
         steps = max(grants)
         check(steps < FLEET_FILL_STEPS, f"fleet trials {crit}/rrr: the step "
@@ -1877,10 +2074,11 @@ def fleet_trials(dev, agents, fws, seed):
                   f"{t} left a feasible pair or a residual of {least}")
         log(f"fleet trials {crit}/rrr tie random: {FLEET_TRIALS} trials of "
             f"{D.shape[0]}x{C.shape[0]}, grants {min(grants)}-{steps}, "
-            f"{steps} steps in {wall:.1f} s ({steps / wall:.0f} steps/s, "
-            f"{wall / steps * 1e3:.3f} ms a step of all trials; alive "
-            f"checked every {filling_torch.ALIVE_EVERY} steps); every trial "
-            "saturated")
+            f"{steps} steps in {wall:.2f} s on the step loop's graph, "
+            f"without its capture of {capture[0]:.2f} s ({steps / wall:.0f} "
+            f"steps/s, {wall / steps * 1e3:.3f} ms a step of all trials; one "
+            f"replay and one alive read every {filling_torch.ALIVE_EVERY} "
+            "steps); every trial saturated")
 
 
 def paper_drivers(dev):
@@ -1931,7 +2129,8 @@ def main(argv=None):
     ap.add_argument("--phases",
                     default="kernels,allocator,des,serve,gang,models,fill",
                     help="comma list of kernels, allocator, des, serve, gang, "
-                    "models, fill")
+                    "models, fill, and chunks (a sweep of the epoch loop's "
+                    "chunk size; not a default phase)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1950,6 +2149,7 @@ def main(argv=None):
     from repro_torch.kernels.rwkv6 import ops as k6
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     card = nvidia_smi()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
@@ -2002,6 +2202,8 @@ def main(argv=None):
         for name, n in model_launches.items():
             check(n > 0, f"main path never launched {name}")
     fill_launches = None
+    if "chunks" in phases:
+        chunks_phase(dev, agents, fws)
     if "fill" in phases:
         fill_launches = fill_phase(dev, agents, fws, args.seed)
         log(f"launches (K3 over the pooled fills, one a fill): "
@@ -2034,6 +2236,8 @@ def main(argv=None):
             source="src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
             replaces="src/repro/kernels/rwkv6/kernel.py:67"),
     }
+    log(f"chip_smoke phases {','.join(sorted(phases))}: "
+        f"{time.perf_counter() - t_start:.1f} s, the builds included")
     if set(rows) == set(launches) == set(meta):
         out = [dict(name=name, **meta[name], launches=launches[name],
                     **rows[name]) for name in meta]

@@ -31,15 +31,28 @@ stream parity is per epoch and fused-vs-fused is exact; see the reference
 module docstring.  :func:`run_epoch_async` returns an :class:`EpochHandle`
 whose ``result()`` is the commit point: with the persistent kernel on the
 card the launch is asynchronous and the only host sync is the readback of
-the count and the grant sequence.  The plain and tiles loops are driven
-from the host and finish inside the dispatch.
+the count and the grant sequence.
+
+The plain and tiles loops (and the sharded selects) are the reference's
+device-resident ``while_loop`` too.  :class:`EpochLoop` is its ``cond`` and
+``body``: one grant a step, every write predicated on the loop being alive,
+every index a 1-element tensor, so a step never syncs the host and a step
+past the end changes nothing.  On the card :func:`run_loop` replays
+:data:`CHUNK` steps captured as one CUDA graph (:class:`LoopGraph`) and
+reads one alive flag a chunk; each graph is captured once per
+:func:`graph_key` (shape bucket and static configuration), the counterpart
+of the reference's jit cache, and :data:`CAPTURE_COUNT` is the counterpart
+of its ``TRACE_COUNT``.  On the CPU the same step runs eagerly.
 
 Not ported yet: the multi-device mesh epoch (``devices > 1`` raises after
-clamping to the device count).  Buffer donation and the trace counter have
-no counterpart: PyTorch has no jit.
+clamping to the device count).  Buffer donation has no counterpart: a
+graph's buffers are its own, and a segment is copied in and out.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+from collections import OrderedDict
 from typing import Optional
 
 import numpy as np
@@ -56,6 +69,17 @@ _IBIG = 2**31 - 1
 
 #: incremented once per device dispatch (every segment and replay).
 DISPATCH_COUNT = 0
+#: incremented once per captured :class:`LoopGraph` (the reference's
+#: ``TRACE_COUNT``): flat across epochs of one shape bucket.
+CAPTURE_COUNT = 0
+#: steps in one captured chunk of the epoch loop, between two reads of its
+#: alive flag on the card (at most CHUNK - 1 dead steps a segment)
+CHUNK = 64
+#: captured graphs kept (epoch loops and fill step loops), the least
+#: recently used dropped first
+GRAPH_CACHE_SIZE = 64
+_GRAPHS: OrderedDict = OrderedDict()
+_GRAPHS_LOCK = threading.Lock()
 
 #: chaos hook (:mod:`repro_torch.core.faults`): when set, called with no
 #: args before EVERY fused dispatch — including chained and grow-and-replay
@@ -149,96 +173,415 @@ def _tiles_2d(mat, ok, out):
 
 
 def _dominant_col(D, cap_j, big):
-    """(N,) dominant shares against one server's residual ``cap_j`` (R,):
-    ``criteria.virtual_dominant``'s arithmetic with sentinel ``big``."""
-    safe = torch.where(cap_j > 1e-12, cap_j, 1e-30)[None, :]
+    """(N, 1) dominant shares against one server's residual ``cap_j``
+    (1, R): ``criteria.virtual_dominant``'s arithmetic with sentinel
+    ``big``."""
+    safe = torch.where(cap_j > 1e-12, cap_j, 1e-30)
     frac = D / safe
-    frac = torch.where((cap_j[None, :] <= 1e-12) & (D > 0.0), big, frac)
-    return frac.amax(1)
+    frac = torch.where((cap_j <= 1e-12) & (D > 0.0), big, frac)
+    return frac.amax(1, keepdim=True)
+
+
+def _index(v, size):
+    """A select's result as a 1-element int64 index, clamped into
+    ``[0, size)``: a select over nothing feasible returns 0 (the tie-low
+    rule), -1 (K1/K2) or the int32 sentinel, and a dead step must still
+    index in range."""
+    return v.reshape(1).long().clamp(0, size - 1)
+
+
+def _put(t, dim, i, new, alive):
+    """``t``'s slice ``i`` (a 1-element index) along ``dim`` becomes
+    ``new`` where ``alive``, and stays as it was elsewhere."""
+    t.index_copy_(dim, i, torch.where(alive, new, t.index_select(dim, i)))
+
+
+def _selects(select, shards):
+    """The two select functions of a loop, as the module holds them now
+    (``chip_smoke.plain_selects`` patches ``_tiles_1d``/``_tiles_2d``)."""
+    if shards > 1:
+        return _argmin_tie_low_sharded, _argmin2d_tie_low_sharded
+    if select == "tiles":
+        return _tiles_1d, _tiles_2d
+    return _argmin_tie_low, _flat_tie_low
+
+
+#: the tensors of one segment the loop reads and writes: its state, updated
+#: in place, then its constants
+LOOP_TENSORS = ("X", "tot", "FREE", "cap", "dom", "s", "feas", "used", "D",
+                "TD", "C", "phi", "wanted", "allowed", "perms", "aux")
+
+
+class EpochLoop:
+    """The epoch loop over one segment's tensors (a dict keyed by
+    :data:`LOOP_TENSORS`): the reference's ``cond`` and ``body``
+    (``engine_jax.epoch_loop``) as :meth:`step`, one grant applied only
+    where the loop is alive, with no host sync.
+
+    The state tensors are updated in place.  The loop owns the rest of the
+    reference's loop state as (1,)-shaped device tensors — ``count``, the
+    RRR cursor ``pidx``/``pos``, the grant sequence ``nsjs`` (2, max_steps)
+    — and holds ``j_real``, ``limit`` and ``eps`` on the device too, so
+    that a captured chunk of steps serves every segment of its shape
+    bucket.  ``select`` is ``"plain"`` (the tie-low rule) or ``"tiles"``
+    (K1/K2, into output holders the loop keeps); ``shards > 1`` takes the
+    sharded tie-low selects instead of either."""
+
+    def __init__(self, tensors: dict, *, kind: str, policy: str,
+                 lookahead: bool, use_limit: bool, max_steps: int,
+                 select: str = "plain", shards: int = 1,
+                 dom_big=criteria._BIG):
+        self.t = tensors
+        X = tensors["X"]
+        dev = X.device
+        self.N, self.J = X.shape
+        self.kind, self.policy = kind, policy
+        self.la = 1.0 if lookahead else 0.0
+        self.use_limit, self.max_steps = use_limit, max_steps
+        self.dom_big = dom_big
+        self.ss = kind in ("psdsf", "rpsdsf")
+        i32 = torch.int32
+        one = lambda dtype: torch.zeros(1, dtype=dtype, device=dev)  # noqa
+        self.count, self.pidx, self.pos = one(i32), one(i32), one(i32)
+        self.j_real, self.limit = one(i32), one(i32)
+        self.eps = one(torch.float32)
+        self.nsjs = torch.full((2, max_steps), -1, dtype=i32, device=dev)
+        self.flag = one(torch.bool)
+        self.arangeJ = torch.arange(self.J, dtype=i32, device=dev)
+        a1, a2 = _selects(select, shards)
+        if shards > 1:
+            self.argmin1d = lambda v, ok: a1(v, ok, shards)
+            self.argmin2d = lambda m, ok: a2(m, ok, shards)
+        elif select == "tiles":
+            # one output holder per select for the loop's life: each grant
+            # consumes (n, j) on the stream before the next select
+            # overwrites them
+            out1, out2 = _tiles.ArgminOut(dev, 1), _tiles.ArgminOut(dev, 2)
+            self.argmin1d = lambda v, ok: a1(v, ok, out1)
+            self.argmin2d = lambda m, ok: a2(m, ok, out2)
+        else:
+            self.argmin1d, self.argmin2d = a1, a2
+
+    def reset(self, pidx0, pos0, j_real, limit, eps):
+        """Start a segment: no grants yet, the RRR cursor at (pidx0,
+        pos0)."""
+        self.count.zero_()
+        self.nsjs.fill_(-1)
+        for t, v in ((self.pidx, pidx0), (self.pos, pos0),
+                     (self.j_real, j_real), (self.limit, limit),
+                     (self.eps, eps)):
+            t.fill_(v)
+
+    def alive_now(self):
+        """(1,) bool: the reference's ``cond``, on the device."""
+        return self.t["feas"].any() & (self.count < self.max_steps)
+
+    def step(self):
+        """One pass of the reference's ``body`` where ``cond`` holds; where
+        it does not, every tensor is left as it was."""
+        t = self.t
+        X, tot, FREE, s, feas, used = (t["X"], t["tot"], t["FREE"], t["s"],
+                                       t["feas"], t["used"])
+        N, J = self.N, self.J
+        f32, i32 = torch.float32, torch.int32
+        la = self.la
+        alive = self.alive_now()
+        # -- select ---------------------------------------------------------
+        if self.policy == "pooled":
+            if self.ss:
+                n, j = self.argmin2d(s, feas)
+                n1, j1 = _index(n, N), _index(j, J)
+            else:
+                n1 = _index(self.argmin1d(s, feas.any(1)), N)
+                row = feas.index_select(0, n1)[0]
+                j1 = _index(torch.where(row, self.arangeJ, _IBIG).min(), J)
+        else:
+            # rrr: the first feasible server at-or-after `pos` in the
+            # round's permutation; wrap to a fresh permutation when the
+            # rest of the round has nothing feasible.
+            perms, K = t["perms"], t["perms"].shape[0]
+            perm = perms.index_select(0, self.pidx.clamp(max=K - 1))[0]
+            rank = torch.zeros(J, dtype=i32, device=X.device).scatter_(
+                0, perm, self.arangeJ)
+            server_ok = feas.any(0)
+            ahead = server_ok & (rank >= self.pos)
+            wrap = ~ahead.any()
+            perm2 = perms.index_select(0, (self.pidx + 1).clamp(max=K - 1))[0]
+            rank2 = torch.zeros(J, dtype=i32, device=X.device).scatter_(
+                0, perm2, self.arangeJ)
+            eff_rank = torch.where(wrap, rank2, rank)
+            eff_ok = torch.where(wrap, server_ok, ahead)
+            j1 = torch.argmin(torch.where(eff_ok, eff_rank, _IBIG)).reshape(1)
+            col = s.index_select(1, j1)[:, 0] if self.ss else s
+            n1 = _index(self.argmin1d(col, feas.index_select(1, j1)[:, 0]), N)
+            krank = eff_rank.index_select(0, j1)
+            last = krank == self.j_real - 1
+            pidx = self.pidx + wrap.to(i32) + last.to(i32)
+            pos = torch.where(last, 0, krank + 1).to(i32)
+        # -- grant: adds of 0 where the loop is dead ------------------------
+        af, ai = alive.to(f32), alive.to(i32)
+        X.view(-1).index_add_(0, n1 * J + j1, af)
+        tot.index_add_(0, n1, af)
+        # -TD[n] where alive, -0.0 where dead (demands are >= 0)
+        FREE.index_add_(0, j1, t["TD"].index_select(0, n1) * -af)
+        used.index_add_(0, j1, ai)
+        # feasibility: column j saw FREE change; row n may have hit `wanted`
+        wants = tot < t["wanted"]
+        colf = (wants & t["allowed"].index_select(1, j1)[:, 0]
+                & (t["TD"] <= FREE.index_select(0, j1) + self.eps).all(1))
+        if self.use_limit:
+            colf = colf & (used.index_select(0, j1) < self.limit)
+        _put(feas, 1, j1, colf[:, None], alive)
+        feas.index_copy_(0, n1, feas.index_select(0, n1)
+                         & (wants.index_select(0, n1) | ~alive))
+        # -- refresh: row n, and for rPS-DSF first residual column j -------
+        phi_n = t["phi"].index_select(0, n1)
+        xt_n = tot.index_select(0, n1) + la
+        if self.kind == "drf":
+            _put(s, 0, n1, xt_n * t["aux"].index_select(0, n1) / phi_n, alive)
+        elif self.kind == "tsf":
+            _put(s, 0, n1, xt_n / t["aux"].index_select(0, n1), alive)
+        else:
+            dom = t["dom"]
+            if self.kind == "rpsdsf":
+                D = t["D"]
+                cap_j = (t["C"].index_select(0, j1)
+                         - X.index_select(1, j1).T @ D)          # (1, R)
+                _put(t["cap"], 0, j1, cap_j, alive)
+                _put(dom, 1, j1, _dominant_col(D, cap_j, self.dom_big), alive)
+                _put(s, 1, j1, ((tot + la) / t["phi"])[:, None]
+                     * dom.index_select(1, j1), alive)
+            _put(s, 0, n1, (xt_n / phi_n)[:, None] * dom.index_select(0, n1),
+                 alive)
+        _put(self.nsjs, 1, self.count.clamp(max=self.max_steps - 1).long(),
+             torch.cat([n1, j1]).to(i32)[:, None], alive)
+        self.count.add_(ai)
+        if self.policy == "rrr":
+            self.pidx.copy_(torch.where(alive, pidx, self.pidx))
+            self.pos.copy_(torch.where(alive, pos, self.pos))
+
+    def run(self, steps: int):
+        """``steps`` steps, then the alive flag for the next one."""
+        for _ in range(steps):
+            self.step()
+        self.flag.copy_(self.alive_now())
+
+    def result(self):
+        """-> ``(ns, js, count, X, tot, FREE, used, pidx, pos)``."""
+        t = self.t
+        return (self.nsjs[0], self.nsjs[1], self.count.reshape(()), t["X"],
+                t["tot"], t["FREE"], t["used"], self.pidx.reshape(()),
+                self.pos.reshape(()))
+
+
+def drive(loop: EpochLoop, chunk: int):
+    """Run ``loop`` eagerly to its end in chunks of ``chunk`` steps, reading
+    its alive flag after each chunk -> :meth:`EpochLoop.result`.  Steps
+    past the end change nothing, so the chunk only sets how often the
+    flag is read."""
+    loop.flag.copy_(loop.alive_now())
+    while bool(loop.flag):
+        loop.run(chunk)
+    return loop.result()
+
+
+def _k12_launches():
+    return _tiles.masked_argmin1d.launches, _tiles.masked_argmin2d.launches
+
+
+def _add_k12_launches(k1, k2):
+    _tiles.masked_argmin1d.launches += k1
+    _tiles.masked_argmin2d.launches += k2
+
+
+class CapturedGraph:
+    """Work captured once as a CUDA graph on buffers its owner keeps, and
+    what keeps two callers off those buffers: :meth:`use` holds a lock on
+    the host and, at its end, records an event that the next use waits
+    for on the device (the last copy out of the buffers is behind it).
+
+    ``warm()`` runs first on a side stream (it builds and loads the
+    kernels and initializes cuBLAS, on buffers whose steps are all dead),
+    then ``body()`` is captured."""
+
+    def __init__(self, device, warm, body):
+        with torch.cuda.device(device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                warm()
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                body()
+        self.lock = threading.Lock()
+        self._done = None
+
+    @contextlib.contextmanager
+    def use(self):
+        with self.lock:
+            if self._done is not None:
+                torch.cuda.current_stream(self._done.device).wait_event(
+                    self._done)
+            yield self
+            self._done = torch.cuda.Event()
+            self._done.record()
+
+
+class LoopGraph(CapturedGraph):
+    """:data:`CHUNK` steps of an :class:`EpochLoop` on static buffers,
+    captured as one CUDA graph, and the alive flag after them.
+
+    :func:`run_loop` keeps one per :func:`graph_key` and copies each
+    segment's tensors into its buffers.  A capture's K1/K2 calls launch
+    nothing, so the capture takes back what they counted, and every
+    :meth:`replay` adds the graph's launches (one a step, dead steps
+    included)."""
+
+    def __init__(self, tensors: dict, loop_kw: dict):
+        global CAPTURE_COUNT
+        self.static = {k: torch.zeros_like(v) for k, v in tensors.items()}
+        self.loop = EpochLoop(self.static, **loop_kw)
+        self.loop.reset(0, 0, 0, 0, 0.0)
+        super().__init__(self.static["X"].device, lambda: self.loop.run(2),
+                         self._captured)
+        CAPTURE_COUNT += 1
+
+    def _captured(self):
+        """The captured chunk.  Its K1/K2 calls launch nothing (the warm-up
+        before it does launch), so their counts are taken back here and
+        added at every replay instead."""
+        before = _k12_launches()
+        try:
+            self.loop.run(CHUNK)
+        finally:
+            counted = _k12_launches()
+            _add_k12_launches(*(b - c for b, c in zip(before, counted)))
+            self.launches = tuple(c - b for b, c in zip(before, counted))
+
+    def load(self, tensors: dict, pidx0, pos0, j_real, limit, eps):
+        """Copy a segment's tensors into the buffers and start it."""
+        for k, v in tensors.items():
+            self.static[k].copy_(v)
+        self.loop.reset(pidx0, pos0, j_real, limit, eps)
+
+    def replay(self):
+        """One chunk of steps; no host sync."""
+        self.graph.replay()
+        _add_k12_launches(*self.launches)
+
+    def alive(self) -> bool:
+        """The alive flag after the last chunk: one host sync."""
+        return bool(self.loop.flag.item())
+
+    def unload(self, tensors: dict):
+        """Copy the state back into a segment's tensors -> fresh copies of
+        what the loop owns, ``(ns, js, count, pidx, pos)``."""
+        for k in LOOP_TENSORS[:8]:
+            tensors[k].copy_(self.static[k])
+        lp = self.loop
+        return (lp.nsjs[0].clone(), lp.nsjs[1].clone(),
+                lp.count.reshape(()).clone(), lp.pidx.reshape(()).clone(),
+                lp.pos.reshape(()).clone())
+
+
+def graph_key(tensors: dict, *, kind, policy, lookahead, use_limit,
+              max_steps, select="plain", shards=1, dom_big=criteria._BIG):
+    """What a captured chunk bakes in, the counterpart of the reference's
+    jit key: the device, the padded shapes (N, J, R and the height of the
+    permutation stack), the tensors' types, the static configuration, the
+    two select functions themselves and the chunk's length."""
+    X, perms = tensors["X"], tensors["perms"]
+    return (str(X.device), *X.shape, tensors["D"].shape[1], perms.shape[0],
+            tuple(str(v.dtype) for v in tensors.values()), max_steps, kind,
+            policy, bool(lookahead), bool(use_limit), select, shards,
+            float(dom_big), _selects(select, shards), CHUNK)
+
+
+def cached_graph(key, make, what: str):
+    """The cached graph of ``key``, captured by ``make()`` on a miss (the
+    least recently used dropped past :data:`GRAPH_CACHE_SIZE`).  A capture
+    that fails raises :class:`KernelError` and caches nothing."""
+    with _GRAPHS_LOCK:
+        g = _GRAPHS.pop(key, None)
+        if g is None:
+            try:
+                g = make()
+            except RuntimeError as exc:
+                if isinstance(exc, KernelError):
+                    raise
+                raise KernelError(f"{what}: capturing a chunk of steps "
+                                  f"failed: {exc}") from exc
+        _GRAPHS[key] = g
+        while len(_GRAPHS) > GRAPH_CACHE_SIZE:
+            _GRAPHS.popitem(last=False)
+    return g
+
+
+def _graph(tensors: dict, loop_kw: dict) -> LoopGraph:
+    return cached_graph(graph_key(tensors, **loop_kw),
+                        lambda: LoopGraph(tensors, loop_kw), "epoch loop")
+
+
+def _loop_tensors(X, tot, FREE, cap, dom, s, feas, used, D, TD, C, phi,
+                  wanted, allowed, perms, aux):
+    return dict(zip(LOOP_TENSORS, (
+        X, tot, FREE, cap, dom, s, feas, used, D, TD, C, phi, wanted,
+        allowed, perms.to(device=X.device, dtype=torch.int64), aux)))
+
+
+def run_loop_eager(*args, kind: str, policy: str, lookahead: bool,
+                   use_limit: bool, max_steps: int, select: str = "plain",
+                   shards: int = 1, dom_big=criteria._BIG):
+    """:func:`run_loop`'s loop with its step run eagerly on the tensors'
+    device and the alive flag read after every step: what :func:`run_loop`
+    does on the CPU, and on the card the yardstick its graphs are held to
+    (it syncs the host once a grant)."""
+    loop = EpochLoop(_loop_tensors(*args[:16]), kind=kind, policy=policy,
+                     lookahead=lookahead, use_limit=use_limit,
+                     max_steps=max_steps, select=select, shards=shards,
+                     dom_big=dom_big)
+    loop.reset(*args[16:])
+    return drive(loop, 1)
 
 
 def run_loop(X, tot, FREE, cap, dom, s, feas, used, D, TD, C, phi, wanted,
              allowed, perms, aux, pidx0, pos0, j_real, limit, eps, *,
              kind: str, policy: str, lookahead: bool, use_limit: bool,
-             max_steps: int, argmin1d=_argmin_tie_low,
-             argmin2d=_flat_tie_low, dom_big=criteria._BIG):
-    """The plain epoch loop from an initialized state, updating ``X, tot,
-    FREE, cap, dom, s, feas, used`` in place.  -> ``(ns, js, count, X, tot,
+             max_steps: int, select: str = "plain", shards: int = 1,
+             dom_big=criteria._BIG):
+    """The epoch loop from an initialized state, updating ``X, tot, FREE,
+    cap, dom, s, feas, used`` in place.  -> ``(ns, js, count, X, tot,
     FREE, used, pidx, pos)``.  With the default selects it is the
-    persistent kernel's plain version (``dom_big=3.0e38`` there)."""
-    N, J = X.shape
-    dev = X.device
-    i32 = torch.int32
-    la = 1.0 if lookahead else 0.0
-    server_specific = kind in ("psdsf", "rpsdsf")
-    arangeJ = torch.arange(J, dtype=i32, device=dev)
-    perms = perms.to(device=dev, dtype=torch.int64)
-    K = perms.shape[0]
-    pidx = torch.as_tensor(pidx0, dtype=i32, device=dev)
-    pos = torch.as_tensor(pos0, dtype=i32, device=dev)
-    ns = torch.full((max_steps,), -1, dtype=i32, device=dev)
-    js = torch.full((max_steps,), -1, dtype=i32, device=dev)
-    count = 0
-    while count < max_steps and bool(feas.any()):
-        # -- select -----------------------------------------------------
-        if policy == "pooled":
-            if server_specific:
-                n, j = argmin2d(s, feas)
-            else:
-                n = argmin1d(s, feas.any(1))
-                j = torch.where(feas[n], arangeJ, _IBIG).min()
-        else:
-            # rrr: the first feasible server at-or-after `pos` in the
-            # round's permutation; wrap to a fresh permutation when the
-            # rest of the round has nothing feasible.
-            perm = perms[torch.clamp(pidx, max=K - 1)]
-            rank = torch.zeros(J, dtype=i32, device=dev).scatter_(
-                0, perm, arangeJ)
-            server_ok = feas.any(0)
-            ahead = server_ok & (rank >= pos)
-            wrap = ~ahead.any()
-            perm2 = perms[torch.clamp(pidx + 1, max=K - 1)]
-            rank2 = torch.zeros(J, dtype=i32, device=dev).scatter_(
-                0, perm2, arangeJ)
-            eff_rank = torch.where(wrap, rank2, rank)
-            eff_ok = torch.where(wrap, server_ok, ahead)
-            j = torch.argmin(torch.where(eff_ok, eff_rank, _IBIG))
-            col = s[:, j] if server_specific else s
-            n = argmin1d(col, feas[:, j])
-            krank = eff_rank[j]
-            last = krank == j_real - 1
-            pidx = pidx + wrap.to(i32) + last.to(i32)
-            pos = torch.where(last, 0, krank + 1).to(i32)
-        # -- grant --------------------------------------------------------
-        X[n, j] += 1.0
-        tot[n] += 1.0
-        FREE[j] += -TD[n]
-        used[j] += 1
-        # feasibility: column j saw FREE change; row n may have hit `wanted`
-        wants = tot < wanted
-        colf = wants & allowed[:, j] & (TD <= FREE[j][None, :] + eps).all(1)
-        if use_limit:
-            colf = colf & (used[j] < limit)
-        feas[:, j] = colf
-        feas[n] = feas[n] & wants[n]
-        # -- refresh: row n, and for rPS-DSF first residual column j -------
-        xt_n = tot[n] + la
-        if kind == "drf":
-            s[n] = xt_n * aux[n] / phi[n]
-        elif kind == "tsf":
-            s[n] = xt_n / aux[n]
-        else:
-            if kind == "rpsdsf":
-                cap_j = C[j] - X[:, j] @ D
-                cap[j] = cap_j
-                dom[:, j] = _dominant_col(D, cap_j, dom_big)
-                s[:, j] = (tot + la) / phi * dom[:, j]
-            s[n] = xt_n / phi[n] * dom[n]
-        ns[count] = n
-        js[count] = j
-        count += 1
-    return (ns, js, torch.tensor(count, dtype=i32, device=dev), X, tot, FREE,
-            used, pidx, pos)
+    persistent kernel's plain version (``dom_big=3.0e38`` there).
+
+    On the CPU the :class:`EpochLoop` runs eagerly on these tensors
+    (:func:`run_loop_eager`; a flag read costs nothing there).  On the card
+    the segment runs on the cached :class:`LoopGraph` of its
+    :func:`graph_key`: one replay and one flag read a :data:`CHUNK` of
+    steps.  A capture or replay that fails raises :class:`KernelError`;
+    nothing falls back to the eager loop."""
+    loop_kw = dict(kind=kind, policy=policy, lookahead=lookahead,
+                   use_limit=use_limit, max_steps=max_steps, select=select,
+                   shards=shards, dom_big=dom_big)
+    if X.device.type != "cuda":
+        return run_loop_eager(X, tot, FREE, cap, dom, s, feas, used, D, TD, C,
+                              phi, wanted, allowed, perms, aux, pidx0, pos0,
+                              j_real, limit, eps, **loop_kw)
+    tensors = _loop_tensors(X, tot, FREE, cap, dom, s, feas, used, D, TD, C,
+                            phi, wanted, allowed, perms, aux)
+    g = _graph(tensors, loop_kw)
+    with g.use():
+        g.load(tensors, pidx0, pos0, j_real, limit, eps)
+        try:
+            g.replay()
+            while g.alive():
+                g.replay()
+        except torch.AcceleratorError as exc:    # a fault on the card
+            raise KernelError(f"epoch loop faulted on the device: "
+                              f"{exc}") from exc
+        ns, js, count, pidx, pos = g.unload(tensors)
+    return ns, js, count, X, tot, FREE, used, pidx, pos
 
 
 def epoch_state(X, D, TD, C, FREE, phi, wanted, allowed, perms, used,
@@ -315,21 +658,8 @@ def epoch_loop(X, D, TD, C, FREE, phi, wanted, allowed, perms, used,
               use_limit=use_limit, max_steps=max_steps)
     if kernel == "persistent":
         return persistent_epoch(*args, **kw)
-    if shards > 1:
-        return run_loop(
-            *args, **kw,
-            argmin1d=lambda v, ok: _argmin_tie_low_sharded(v, ok, shards),
-            argmin2d=lambda m, ok: _argmin2d_tie_low_sharded(m, ok, shards))
-    if kernel == "tiles":
-        # one output holder per select for the whole segment: each grant
-        # consumes (n, j) on the same stream before the next select
-        # overwrites them
-        out1 = _tiles.ArgminOut(X.device, 1)
-        out2 = _tiles.ArgminOut(X.device, 2)
-        return run_loop(*args, **kw,
-                        argmin1d=lambda v, ok: _tiles_1d(v, ok, out1),
-                        argmin2d=lambda m, ok: _tiles_2d(m, ok, out2))
-    return run_loop(*args, **kw)
+    return run_loop(*args, **kw, select="tiles" if kernel == "tiles"
+                    else "plain", shards=shards)
 
 
 def _bucket(n: int, lo: int = 8) -> int:

@@ -22,10 +22,13 @@ control flow and the random draws.  Two bodies:
     the result is cropped back;
   * **the step loop** (RRR, ``tie="random"``, best-fit): one grant a
     step for every trial of a leading T dimension, full recompute of
-    feasibility and scores, as the reference's ``while_loop`` body.  A
-    trial that has finished is frozen (its steps are no-ops), as
-    ``vmap`` of a ``while_loop`` freezes it; the host asks whether any
-    trial is alive once every :data:`ALIVE_EVERY` steps.
+    feasibility and scores, as the reference's ``while_loop`` body
+    (:class:`StepFill`).  A trial that has finished is frozen (its steps
+    are no-ops), as ``vmap`` of a ``while_loop`` freezes it; the host asks
+    whether any trial is alive once every :data:`ALIVE_EVERY` steps.  On
+    the card those steps are one captured CUDA graph, kept per
+    configuration and shape (:class:`_FillGraph`) and replayed; the
+    random numbers of a chunk are drawn before it, outside the graph.
 
 Randomness comes from ``torch.Generator`` objects on the tensors' device
 in place of PRNG keys.  A batch of trials draws each trial's numbers from
@@ -41,6 +44,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import criteria, engine_torch
+from repro_torch.kernels import KernelError
 
 POL_RRR, POL_POOLED, POL_BESTFIT = 0, 1, 2
 _POL = {"rrr": POL_RRR, "pooled": POL_POOLED, "bestfit": POL_BESTFIT}
@@ -51,6 +55,9 @@ ALIVE_EVERY = 32
 DRAW_BLOCK = 2 ** 20
 #: the persistent epoch kernel reads server rows this many cells at a time
 J_MULTIPLE = 4
+#: incremented once per captured chunk of the step loop (:class:`_FillGraph`;
+#: kept in ``engine_torch``'s graph cache)
+CAPTURE_COUNT = 0
 
 
 def trial_generators(generator: torch.Generator, trials: int,
@@ -168,58 +175,106 @@ def _inverse(perm, arange):
     return torch.empty_like(perm).scatter_(1, perm, arange)
 
 
-def _step_fill(D, C, phi, gens, *, trials, criterion="drf", policy="rrr",
-               lookahead=False, tie="low", max_steps=4096, x0=None,
-               allowed=None):
-    dev = D.device
-    f32, i64 = torch.float32, torch.int64
-    pol = _POL[policy]
-    random_tie = tie == "random"
-    D, C, phi = D.to(f32), C.to(f32), phi.to(f32)
-    if allowed is not None:
-        allowed = allowed.bool()
-    N, J = D.shape[0], C.shape[0]
-    T = trials
-    rows = torch.arange(T, device=dev)
-    arangeJ = torch.arange(J, dtype=i64, device=dev).expand(T, J)
-    crit = criteria.get_criterion(criterion)
-    # one trial's feasibility, scores and best-fit metric, mapped over T
-    feasible = torch.func.vmap(lambda X: _feasible(X, D, C, allowed))
-    scores = torch.func.vmap(lambda X: crit.matrix_scores(
-        X, D, C, phi, lookahead=lookahead, xp=torch, allowed=allowed))
-    bestfit = torch.func.vmap(lambda X, d: criteria.bestfit_scores(
-        _residual(X, D, C), d, metric="cosine", xp=torch))
+class StepFill:
+    """The step loop of a batch of T trials: the tensors it reads and
+    writes, and :meth:`step`, one grant a trial with no host sync.
 
-    # a step draws two permutations' keys (RRR) and the tie noise, in f64
-    # so that permutation keys tie with negligible probability.  Each
-    # trial draws a block of steps' numbers at once from its own generator
-    # (at most DRAW_BLOCK numbers, and no more steps than lie between two
-    # alive checks).
-    n_noise = N * J if pol == POL_POOLED and crit.server_specific else N
-    n_keys = 2 * J if pol == POL_RRR else 0
-    n_draws = n_keys + (n_noise if random_tie else 0)
-    block = max(1, min(ALIVE_EVERY, DRAW_BLOCK // max(n_draws, 1)))
+    ``X`` (T, N, J) int32, the RRR permutations ``perm`` (T, J) and
+    positions ``pos`` (T,), and the step count ``steps`` (1,) are its
+    state; ``u`` (T, chunk, n_draws) holds the random numbers of the next
+    :meth:`run` of ``chunk`` steps, drawn outside it (:meth:`draw`), so a
+    captured run draws nothing.  A trial with nothing feasible, or a step
+    at ``max_steps`` or past it, changes nothing."""
 
-    def draws(*shape):
-        return torch.stack([torch.rand(shape, dtype=torch.float64,
-                                       generator=g, device=dev)
-                            for g in gens])
+    def __init__(self, D, C, phi, allowed, trials, *, criterion, policy,
+                 lookahead, tie, chunk):
+        dev = D.device
+        f32, i64 = torch.float32, torch.int64
+        self.D, self.C, self.phi, self.allowed = D, C, phi, allowed
+        N, J = D.shape[0], C.shape[0]
+        T = trials
+        self.pol = _POL[policy]
+        self.random_tie = tie == "random"
+        self.chunk = chunk
+        self.crit = crit = criteria.get_criterion(criterion)
+        self.rows = torch.arange(T, device=dev)
+        self.arangeJ = torch.arange(J, dtype=i64, device=dev).expand(T, J)
+        # one trial's feasibility, scores and best-fit metric, mapped over T
+        self.feasible = torch.func.vmap(lambda X: _feasible(X, D, C, allowed))
+        self.scores = torch.func.vmap(lambda X: crit.matrix_scores(
+            X, D, C, phi, lookahead=lookahead, xp=torch, allowed=allowed))
+        self.bestfit = torch.func.vmap(lambda X, d: criteria.bestfit_scores(
+            _residual(X, D, C), d, metric="cosine", xp=torch))
+        # a step draws two permutations' keys (RRR) and the tie noise, in
+        # f64 so that permutation keys tie with negligible probability.
+        # Each trial draws a block of steps' numbers at once from its own
+        # generator (at most DRAW_BLOCK numbers, and no more steps than a
+        # chunk).
+        n_noise = N * J if self.pol == POL_POOLED and crit.server_specific \
+            else N
+        self.n_keys = 2 * J if self.pol == POL_RRR else 0
+        self.n_draws = self.n_keys + (n_noise if self.random_tie else 0)
+        self.block = max(1, min(chunk, DRAW_BLOCK // max(self.n_draws, 1)))
+        self.X = torch.zeros((T, N, J), dtype=torch.int32, device=dev)
+        self.perm = (torch.zeros((T, J), dtype=i64, device=dev)
+                     if self.pol == POL_RRR else None)
+        self.pos = torch.zeros(T, dtype=i64, device=dev)
+        self.steps = torch.zeros(1, dtype=i64, device=dev)
+        self.max_steps = torch.zeros(1, dtype=i64, device=dev)
+        self.u = (torch.zeros((T, chunk, self.n_draws), dtype=torch.float64,
+                              device=dev) if self.n_draws else None)
+        self.flag = torch.zeros(1, dtype=torch.bool, device=dev)
+        self._drawn = (-1, None)    # (block number, block) last drawn
 
-    X = (torch.zeros((T, N, J), dtype=torch.int32, device=dev) if x0 is None
-         else x0.to(device=dev, dtype=torch.int32).expand(T, N, J).clone())
-    perm = draws(J).argsort(1) if pol == POL_RRR else None
-    pos = torch.zeros(T, dtype=i64, device=dev)
-    for step in range(max_steps):
-        feas = feasible(X)
-        alive = feas.flatten(1).any(1)
-        if step % ALIVE_EVERY == 0 and not bool(alive.any()):
-            break
-        sc = scores(X)
-        if n_draws and step % block == 0:
-            u_block = draws(block, n_draws)
-        u = u_block[:, step % block] if n_draws else None
-        noise = u[:, n_keys:].float() if random_tie else None
-        if pol == POL_RRR:
+    def start(self, gens, x0, max_steps):
+        """A fresh batch: ``x0`` (or zeros) in every trial, the first RRR
+        permutations drawn, step 0 of ``max_steps``."""
+        if x0 is None:
+            self.X.zero_()
+        else:
+            self.X.copy_(x0.to(device=self.X.device, dtype=torch.int32)
+                         .expand_as(self.X))
+        if self.pol == POL_RRR:
+            self.perm.copy_(_draws(gens, self.X.shape[2]).argsort(1))
+        self.pos.zero_()
+        self.steps.zero_()
+        self.max_steps.fill_(max_steps)
+        self._drawn = (-1, None)
+        self.flag.copy_(self.alive_now())
+
+    def draw(self, gens, first: int, max_steps: int):
+        """Fill ``u`` with the numbers of steps ``first`` .. ``first +
+        chunk - 1``: each trial draws a block of ``block`` steps from its
+        own generator when a step opens one, as an uncaptured step loop
+        draws them, so every trial consumes the same numbers whatever the
+        chunk."""
+        if not self.n_draws:
+            return
+        k = 0
+        while k < self.chunk and first + k < max_steps:
+            b, off = divmod(first + k, self.block)
+            if self._drawn[0] != b:
+                self._drawn = (b, _draws(gens, self.block, self.n_draws))
+            take = min(self.block - off, self.chunk - k)
+            self.u[:, k:k + take] = self._drawn[1][:, off:off + take]
+            k += take
+
+    def alive_now(self):
+        """(1,) bool: some trial can take a grant and steps are left."""
+        return (self.feasible(self.X).any() & (self.steps < self.max_steps))
+
+    def step(self, k: int):
+        """One grant for every trial that is alive, on ``u[:, k]``."""
+        X, rows, arangeJ = self.X, self.rows, self.arangeJ
+        J = X.shape[2]
+        crit = self.crit
+        feas = self.feasible(X)
+        alive = feas.flatten(1).any(1) & (self.steps < self.max_steps)
+        sc = self.scores(X)
+        u = self.u[:, k] if self.n_draws else None
+        noise = u[:, self.n_keys:].float() if self.random_tie else None
+        if self.pol == POL_RRR:
+            perm, pos = self.perm, self.pos
             rank = _inverse(perm, arangeJ)
             server_ok = feas.any(1)                              # (T, J)
             ahead = server_ok & (rank >= pos[:, None])
@@ -228,7 +283,7 @@ def _step_fill(D, C, phi, gens, *, trials, criterion="drf", policy="rrr",
             new_rank = _inverse(new_perm, arangeJ)
             eff_rank = torch.where(use_wrap, new_rank, rank)
             eff_mask = torch.where(use_wrap, server_ok, ahead)
-            j = _masked_argmin(eff_rank.to(f32), eff_mask)
+            j = _masked_argmin(eff_rank.to(torch.float32), eff_mask)
             n = _masked_argmin(sc[rows, :, j], feas[rows, :, j], noise)
             p = eff_rank[rows, j] + 1
             p = torch.where(p >= J, 0, p)
@@ -237,18 +292,95 @@ def _step_fill(D, C, phi, gens, *, trials, criterion="drf", policy="rrr",
             nxt = torch.where(use_wrap, new_perm, perm)
             nxt = torch.where((p == 0)[:, None], u[:, J:2 * J].argsort(1),
                               nxt)
-            perm = torch.where(alive[:, None], nxt, perm)
-            pos = torch.where(alive, p, pos)
-        elif pol == POL_POOLED:
+            perm.copy_(torch.where(alive[:, None], nxt, perm))
+            pos.copy_(torch.where(alive, p, pos))
+        elif self.pol == POL_POOLED:
             if crit.server_specific:
                 flat = _masked_argmin(sc.flatten(1), feas.flatten(1), noise)
                 n, j = flat // J, flat % J
             else:
                 n = _masked_argmin(sc[:, :, 0], feas.any(2), noise)
-                j = _masked_argmin(arangeJ.to(f32), feas[rows, n])
+                j = _masked_argmin(arangeJ.to(torch.float32), feas[rows, n])
         else:   # best-fit: the framework first, then its best-fit server
             per_fw = torch.where(feas, sc, torch.inf).amin(2)
             n = _masked_argmin(per_fw, feas.any(2), noise)
-            j = _masked_argmin(bestfit(X, D[n]), feas[rows, n])
+            j = _masked_argmin(self.bestfit(X, self.D[n]), feas[rows, n])
         X[rows, n, j] += alive.to(torch.int32)
-    return X
+        self.steps += 1
+
+    def run(self):
+        """``chunk`` steps, then the alive flag for the next."""
+        for k in range(self.chunk):
+            self.step(k)
+        self.flag.copy_(self.alive_now())
+
+
+def _draws(gens, *shape):
+    """(T, *shape) f64 uniforms, trial t's from ``gens[t]``."""
+    return torch.stack([torch.rand(shape, dtype=torch.float64, generator=g,
+                                   device=g.device) for g in gens])
+
+
+class _FillGraph(engine_torch.CapturedGraph):
+    """A :class:`StepFill` on its own buffers with its :meth:`StepFill.run`
+    captured as one CUDA graph; :func:`_step_fill` keeps one per
+    configuration and shape and copies each fill's inputs in."""
+
+    def __init__(self, D, C, phi, allowed, trials, fill_kw):
+        global CAPTURE_COUNT
+        self.D, self.C, self.phi = D.clone(), C.clone(), phi.clone()
+        self.allowed = None if allowed is None else allowed.clone()
+        self.fill = StepFill(self.D, self.C, self.phi, self.allowed, trials,
+                             **fill_kw)
+        # the warm-up step is dead: no steps are left (max_steps is 0)
+        super().__init__(D.device, lambda: self.fill.step(0), self.fill.run)
+        CAPTURE_COUNT += 1
+
+    def load(self, D, C, phi, allowed):
+        self.D.copy_(D)
+        self.C.copy_(C)
+        self.phi.copy_(phi)
+        if allowed is not None:
+            self.allowed.copy_(allowed)
+
+
+def _drive(fill: StepFill, run, gens, x0, max_steps):
+    """The step loop to its end: chunks of ``fill.chunk`` steps by
+    ``run()``, the alive flag read between two -> the allocation."""
+    fill.start(gens, x0, max_steps)
+    first = 0
+    while first < max_steps and bool(fill.flag.item()):
+        fill.draw(gens, first, max_steps)
+        run()
+        first += fill.chunk
+    return fill.X.clone()
+
+
+def _step_fill(D, C, phi, gens, *, trials, criterion="drf", policy="rrr",
+               lookahead=False, tie="low", max_steps=4096, x0=None,
+               allowed=None):
+    """The step loop of :data:`ALIVE_EVERY`-step chunks.  On the card each
+    chunk is one replay of the cached :class:`_FillGraph` of this
+    configuration and shape; on the CPU the same steps run eagerly."""
+    f32 = torch.float32
+    D, C, phi = D.to(f32), C.to(f32), phi.to(f32)
+    if allowed is not None:
+        allowed = allowed.bool()
+    fill_kw = dict(criterion=criteria.get_criterion(criterion).name,
+                   policy=policy, lookahead=lookahead, tie=tie,
+                   chunk=ALIVE_EVERY)
+    if D.device.type != "cuda":
+        fill = StepFill(D, C, phi, allowed, trials, **fill_kw)
+        return _drive(fill, fill.run, gens, x0, max_steps)
+    key = ("fill", str(D.device), trials, *D.shape, C.shape[0],
+           tuple(sorted(fill_kw.items())), allowed is None)
+    g = engine_torch.cached_graph(
+        key, lambda: _FillGraph(D, C, phi, allowed, trials, fill_kw),
+        "step fill")
+    with g.use():
+        g.load(D, C, phi, allowed)
+        try:
+            return _drive(g.fill, g.graph.replay, gens, x0, max_steps)
+        except torch.AcceleratorError as exc:    # a fault on the card
+            raise KernelError(f"step fill faulted on the device: "
+                              f"{exc}") from exc

@@ -143,7 +143,7 @@ def persistent_epoch_emulated(X, tot, FREE, cap, dom, s, feas, used, D, TD,
             if kind == "rpsdsf":
                 cap_j = C[j] - X[:, j] @ D
                 cap[j] = cap_j
-                dom[:, j] = _dominant_col(D, cap_j, BIG)
+                dom[:, j] = _dominant_col(D, cap_j[None, :], BIG)[:, 0]
                 s[:, j] = (tot + la) / phi * dom[:, j]
             s[n] = xt_n / phi[n] * dom[n]
         if on_grant is not None:

@@ -37,7 +37,7 @@ def masked_argmin1d_ref(s, ok):
     BIG (every ok entry inf) comes back as BIG."""
     masked = torch.where(ok.bool(), s.float(), BIG)
     i = torch.argmin(masked)
-    val = masked[i]
+    val = masked.reshape(-1).index_select(0, i.reshape(1))[0]
     N = s.shape[0]
     if N % _block(N, 128):
         val = torch.clamp(val, max=BIG)
@@ -58,10 +58,11 @@ def masked_argmin2d_ref(s, feas, *, bn: int = 128, bj: int = 128):
         tn * tj, bn * bj)
     cell = torch.argmin(tiles, dim=1)                 # first min per tile
     mins = tiles.gather(1, cell[:, None])[:, 0]
-    t = torch.argmin(mins)                            # first tile with it
-    val = mins[t]
-    n = (t // tj) * bn + cell[t] // bj
-    j = (t % tj) * bj + cell[t] % bj
+    t = torch.argmin(mins).reshape(1)                 # first tile with it
+    val, c = mins.index_select(0, t)[0], cell.index_select(0, t)[0]
+    t = t[0]
+    n = (t // tj) * bn + c // bj
+    j = (t % tj) * bj + c % bj
     bad = val >= BIG
     return (val, torch.where(bad, -1, n).to(torch.int32),
             torch.where(bad, -1, j).to(torch.int32))

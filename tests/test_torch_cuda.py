@@ -825,3 +825,208 @@ def test_rrr_trials_on_the_card_saturate(dev):
     assert x.device.type == "cuda" and x.shape == (64, 2, 2)
     assert (x.reshape(64, 4).cpu() == torch.tensor([19, 2, 2, 19],
                                                    dtype=torch.int32)).all()
+
+
+# -- the epoch loop and the fill's step loop as captured CUDA graphs --------
+
+LOOP_PATHS = {"plain": dict(select="plain", shards=1),
+              "tiles": dict(select="tiles", shards=1),
+              "shards2": dict(select="plain", shards=2)}
+
+
+def _loop_args(dev, crit, N=64, J=300, seed=9):
+    """run_loop's arguments for an instance on the card: quantized demands,
+    phi != 1, placement constraints, a per-agent limit of 2."""
+    rng = np.random.default_rng(seed)
+    f64 = dict(dtype=torch.float64, device=dev)
+    D = torch.as_tensor(2.0 ** rng.integers(-2, 2, (N, 2)), **f64)
+    C = torch.as_tensor(rng.integers(4, 13, (J, 2)), **f64)
+    perms = torch.as_tensor(np.stack([rng.permutation(J) for _ in range(8)]),
+                            dtype=torch.int32, device=dev)
+    return et.epoch_state(
+        torch.zeros((N, J), **f64), D, D, C, C.clone(),
+        torch.as_tensor(np.array([0.5, 1.0, 2.0])[np.arange(N) % 3], **f64),
+        torch.as_tensor(rng.integers(1, 9, N), **f64),
+        torch.as_tensor(rng.random((N, J)) > 0.2, device=dev), perms,
+        torch.zeros(J, dtype=torch.int32, device=dev), 0, 0, J, 2, 1e-9,
+        kind=crit, lookahead=False, use_limit=True)
+
+
+def _fresh(args):
+    return [a.clone() if torch.is_tensor(a) else a for a in args]
+
+
+def _k12():
+    from repro_torch.kernels.psdsf_score import ops
+
+    return ops.masked_argmin1d.launches + ops.masked_argmin2d.launches
+
+
+@pytest.mark.parametrize("path", list(LOOP_PATHS))
+@pytest.mark.parametrize("crit", ["drf", "tsf", "psdsf", "rpsdsf"])
+@pytest.mark.parametrize("pol", ["pooled", "rrr"])
+def test_loop_graph_equals_eager_step(dev, crit, pol, path):
+    """``run_loop`` on the card (chunks of ``CHUNK`` steps replayed from a
+    captured graph) equals the step function run eagerly, one step and one
+    flag read at a time, on every array it returns and every state array;
+    a second run replays the cached graph, and on the tiles loop adds one
+    K1/K2 launch a step to the counters, dead steps included."""
+    args = _loop_args(dev, crit)
+    kw = dict(kind=crit, policy=pol, lookahead=False, use_limit=True,
+              max_steps=1024, **LOOP_PATHS[path])
+    eager_args = _fresh(args)
+    tensors = dict(zip(et.LOOP_TENSORS, eager_args[:16]))
+    tensors["perms"] = tensors["perms"].long()
+    loop = et.EpochLoop(tensors, **kw)
+    loop.reset(*eager_args[16:])
+    want = et.drive(loop, 1)
+    graph_args = _fresh(args)
+    got = et.run_loop(*graph_args, **kw)
+    count = int(got[2])
+    assert count > et.CHUNK
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for a, b in zip(graph_args[:8], eager_args[:8]):
+        assert torch.equal(a, b)
+    c0, k0 = et.CAPTURE_COUNT, _k12()
+    again = et.run_loop(*_fresh(args), **kw)
+    assert et.CAPTURE_COUNT == c0
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+    launched = _k12() - k0
+    if path == "tiles":
+        assert launched % et.CHUNK == 0 and count <= launched < count + \
+            et.CHUNK
+    else:
+        assert launched == 0
+
+
+def _bucket_epoch(dev, n_fw, n_ag):
+    """The reference's no-retrace instance (tests/test_engine_parity.py)
+    on the plain loop: one (8, 8) bucket for 5-8 frameworks and agents."""
+    D = np.array([(1.0 + (n % 3), 2.0) for n in range(n_fw)])
+    C = np.full((n_ag, 2), 8.0)
+    return et.run_epoch(
+        "rpsdsf", "pooled", X=np.zeros((n_fw, n_ag)), D=D, C=C,
+        FREE=C.copy(), phi=np.ones(n_fw), allowed=np.ones((n_fw, n_ag), bool),
+        wanted=np.full(n_fw, 4.0), true_demands=D, kernel=None, device=dev)
+
+
+def test_same_bucket_epochs_do_not_recapture(dev):
+    """The counterpart of the reference's no-retrace test: after a first
+    epoch of the bucket, epochs of other shapes in it capture nothing and
+    dispatch once each."""
+    _bucket_epoch(dev, 5, 5)
+    c0, d0 = et.CAPTURE_COUNT, et.DISPATCH_COUNT
+    g1 = _bucket_epoch(dev, 6, 6)
+    g2 = _bucket_epoch(dev, 7, 8)
+    assert g1 and g2
+    assert et.DISPATCH_COUNT == d0 + 2, "one dispatch per epoch"
+    assert et.CAPTURE_COUNT == c0, "same padded bucket must not recapture"
+    assert g2 == _bucket_epoch("cpu", 7, 8)
+
+
+def test_interleaved_allocators_get_their_own_grants(dev, monkeypatch):
+    """Two allocators of one bucket, with K3 swapped for its plain version
+    (the graphed loop): begin, begin, commit, commit gives each the grants
+    it gets alone."""
+    from repro_torch.core.online import OnlineAllocator
+    from repro_torch.kernels.epoch_persistent.ref import persistent_epoch_ref
+
+    monkeypatch.setattr(et, "persistent_epoch", persistent_epoch_ref)
+
+    def make(k):
+        al = OnlineAllocator(2, criterion="rpsdsf", server_policy="pooled",
+                             seed=k, device=dev)
+        for j in range(12 + k):
+            al.add_agent(f"a{j:02d}", (8.0, 4.0 + 4 * k))
+        for n in range(10 - k):
+            al.register(f"f{n}", demand=(1.0 + ((n + k) % 3), 1.0 + k),
+                        wanted_tasks=6)
+        return al
+
+    def pairs(grants):
+        return [(g.fid, g.agent) for g in grants]
+
+    alone = [pairs(make(k).allocate_batched(use_kernel="fused"))
+             for k in (0, 1)]
+    assert alone[0] != alone[1] and all(alone)
+    a, b = make(0), make(1)
+    ea = a.begin_epoch(use_kernel="fused")
+    eb = b.begin_epoch(use_kernel="fused")
+    assert pairs(a.commit_epoch(ea)) == alone[0]
+    assert pairs(b.commit_epoch(eb)) == alone[1]
+
+
+def test_replays_sync_only_at_the_flag_read(dev):
+    """Loading a segment into a cached graph and replaying its chunks never
+    syncs the host; the per-chunk read of the alive flag does."""
+    args = _loop_args(dev, "rpsdsf")
+    tensors = dict(zip(et.LOOP_TENSORS, args[:16]))
+    tensors["perms"] = tensors["perms"].long()
+    g = et._graph(tensors, dict(kind="rpsdsf", policy="rrr", lookahead=False,
+                                use_limit=True, max_steps=1024,
+                                select="tiles", shards=1))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with g.use():
+            g.load(tensors, *args[16:])
+            for _ in range(3):
+                g.replay()
+            with pytest.raises(RuntimeError):
+                g.alive()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert g.alive()
+
+
+@pytest.mark.parametrize("crit,pol,tie", [
+    ("drf", "rrr", "random"), ("rpsdsf", "rrr", "random"),
+    ("psdsf", "pooled", "random"), ("drf", "bestfit", "random")])
+def test_fill_graph_equals_eager_steps(dev, crit, pol, tie):
+    """The fill's step loop on the card (chunks of ``ALIVE_EVERY`` steps
+    replayed from a captured graph) equals the same trials stepped eagerly
+    on the card, each on its own generator; a second batch of the same
+    shape captures nothing."""
+    from repro_torch.core import filling_torch as ft
+
+    rng = np.random.default_rng(6)
+    N, J, T = 40, 64, 6
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa
+    D, C = t(rng.integers(1, 4, (N, 2))), t(rng.integers(8, 25, (J, 2)))
+    phi = t(np.array([0.5, 1.0, 2.0])[np.arange(N) % 3])
+    allowed = torch.as_tensor(rng.random((N, J)) > 0.2, device=dev)
+    kw = dict(criterion=crit, policy=pol, tie=tie, lookahead=False)
+    x = ft.fill_trials_torch(D, C, phi, T, allowed=allowed,
+                             generator=torch.Generator(dev).manual_seed(4),
+                             **kw)
+    gens = ft.trial_generators(torch.Generator(dev).manual_seed(4), T, dev)
+    fill = ft.StepFill(D, C, phi, allowed, T, chunk=ft.ALIVE_EVERY, **kw)
+    fill.start(gens, None, 4096)
+    first = 0
+    while bool(fill.flag):
+        fill.draw(gens, first, 4096)
+        fill.run()
+        first += fill.chunk
+    assert torch.equal(x, fill.X) and int(x.sum()) > 0
+    c0 = ft.CAPTURE_COUNT
+    y = ft.fill_trials_torch(D, C, phi, T, allowed=allowed,
+                             generator=torch.Generator(dev).manual_seed(4),
+                             **kw)
+    assert ft.CAPTURE_COUNT == c0 and torch.equal(x, y)
+
+
+def test_a_capture_that_fails_raises(dev, monkeypatch):
+    """A select that syncs the host cannot be captured: the loop raises
+    KernelError instead of running the segment eagerly."""
+    from repro_torch.kernels import KernelError
+
+    def syncing(vec, ok, out):
+        return torch.full((), int(torch.where(ok, vec, 3e38).argmin()),
+                          dtype=torch.int32, device=vec.device)
+
+    monkeypatch.setattr(et, "_tiles_1d", syncing)
+    args = _loop_args(dev, "drf", N=24, J=40)
+    with pytest.raises(KernelError, match="capturing"):
+        et.run_loop(*args, kind="drf", policy="pooled", lookahead=False,
+                    use_limit=True, max_steps=256, select="tiles")
