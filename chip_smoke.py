@@ -67,7 +67,9 @@ kernel from the sources in the checkout (nvcc into ``build/``).  Phases:
 5. gang: ``repro_torch.launch.cluster_sim.run`` and ``run_des`` on the card,
    equal to the same runs on the CPU;
 6. models: K5 (flash attention) against its plain version at the
-   qwen2-1.5b prefill shape (4, 12, 2048, 128) x (4, 2, 2048, 128) bf16, in
+   qwen2-1.5b prefill shape (4, 12, 2048, 128) x (4, 2, 2048, 128) bf16, at
+   granite-moe-3b's (4, 24, 2048, 64) x (4, 8, 2048, 64) bf16 (both timed
+   beside their bound and SDPA), in
    f32, with a window below the key tile, non-causal with T != S, at a
    ragged S, in f16 and with rows that see no key, each on the kernel the
    wrapper's rule picks (``flash_tc.cu``, the tensor cores, for bf16 / f16
@@ -81,11 +83,18 @@ kernel from the sources in the checkout (nvcc into ``build/``).  Phases:
    model serve path, ``repro_torch.launch.serve.serve`` at full width
    (batch 4, prompt 2048, 32 tokens, weights from a seeded generator) for
    qwen2-1.5b (K5 exactly once a layer in the prefill, all on the
-   tensor-core kernel: 28) and rwkv6-3b
-   (K6: 32), against the same serve with the kernel swapped for its plain
-   version, teacher-forced with the first run's tokens: prefill logits,
-   the whole cache and every decode step's logits within a relative L2
-   tolerance; greedy-token agreement is printed, not gated;
+   tensor-core kernel: 28), granite-moe-3b-a800m (K5: 32; its 40-expert
+   MoE on the batch-local capacity grid in the prefill, dropless in the
+   decode) and rwkv6-3b
+   (K6: 32), each launch shadowed by the plain version on the same inputs
+   (gated at the kernel's tolerance), against the same serve with the
+   kernel swapped for its plain version, teacher-forced with the first
+   run's tokens: the caches of the first two layers within a relative L2
+   tolerance (for granite also in a prefill on the plain version with
+   every layer's experts forced to the K5 run's, drops equal layer by
+   layer); the other layers, prefill and decode logits,
+   greedy-token agreement, granite's routing agreement by layer and its
+   capacity-drop share are printed, not gated;
 7. fill: progressive filling, the paper's Section 2
    (``repro_torch.core.filling_torch``).  The paper's tables through
    ``launch.paper_tables`` on the card: the rows of PS-DSF and
@@ -108,8 +117,9 @@ Launches are counted per path, from zero just before it to just after it:
 K3 over the allocator's fleet epochs, K1/K2 over the tiles-loop replays
 (one a step of each replayed chunk, dead steps included: a replay adds its
 graph's launches to the counters, a capture adds none),
-K4 over the fleet serve on the per-grant backend, K5 and K6 over the
-prefills of their model serves, K3 over each pooled fill (once a fill,
+K4 over the fleet serve on the per-grant backend, K5 (qwen2-1.5b and
+granite-moe-3b-a800m) and K6 (rwkv6-3b) over the prefills of their model
+serves, K3 over each pooled fill (once a fill,
 the K3 row's ``fill_launches`` in the JSON); each must have launched.  The
 last lines are the kernels JSON, the ``nvidia-smi`` name and power limit,
 and the device JSON.
@@ -1401,6 +1411,7 @@ def gang_phase(dev, seed):
 
 BF16_OPS_PER_S = 989e12         # H100 SXM bf16 dense tensor cores
 QWEN_ATTN = (4, 12, 2, 2048, 2048, 128)     # B, H, K, S, T, D of one prefill
+GRANITE_ATTN = (4, 24, 8, 2048, 2048, 64)   # granite-moe-3b's prefill
 RWKV_WKV = (4, 2048, 40, 64)                # B, S, H, D of one prefill
 # K5's tolerances are stated once, by variant, in
 # repro_torch.kernels.flash_attention.ops.tolerance: f32 rtol 1e-5, atol 2e-5;
@@ -1430,17 +1441,19 @@ def _close(got, want, rtol, atol):
 
 
 def flash_phase(dev):
-    """K5 against its plain version at the qwen2-1.5b prefill shape and on
-    the edge cases, each on the kernel the wrapper's rule picks and within
-    that kernel's tolerance; then the timing block.  -> the kernels row."""
+    """K5 against its plain version at the qwen2-1.5b and granite-moe-3b
+    prefill shapes and on the edge cases, each on the kernel the wrapper's
+    rule picks and within that kernel's tolerance; then the timing block at
+    both prefill shapes.  -> the kernels row (qwen2-1.5b's shape, granite's
+    in ``granite_prefill``)."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as k5
 
     g = torch.Generator(dev).manual_seed(5)
     cases = [
         ("qwen2-1.5b prefill", QWEN_ATTN, torch.bfloat16, True, 0),
+        ("granite-moe-3b prefill", GRANITE_ATTN, torch.bfloat16, True, 0),
         ("f32", (2, 12, 2, 512, 512, 128), torch.float32, True, 0),
         ("window 48 below the key tile, gemma3-style", (2, 8, 4, 1000,
                                                          1000, 256),
@@ -1452,7 +1465,7 @@ def flash_phase(dev):
         ("rows 19-47 with no valid key", (1, 2, 1, 48, 16, 64),
          torch.bfloat16, False, 4),
     ]
-    main_err, inputs = None, None
+    errs, inputs = {}, {}
     for label, (B, H, K, S, T, D), dtype, causal, window in cases:
         q = torch.randn((B, S, H, D), generator=g, device=dev).to(dtype)
         k = torch.randn((B, T, K, D), generator=g, device=dev).to(dtype)
@@ -1473,28 +1486,35 @@ def flash_phase(dev):
         if label.startswith("rows"):
             check(bool((got[:, 19:] == 0).all()), "K5: a row with no valid "
                   "key is not 0")
-        if inputs is None:
-            main_err, inputs = err, (q, k, v)
+        if label.endswith("prefill"):
+            errs[label], inputs[label] = err, (q, k, v)
         del got, want
-    q, k, v = inputs
+    q, k, v = inputs["qwen2-1.5b prefill"]
     B, H, K, S, T, D = QWEN_ATTN
     variant = k5.variant(q.dtype, D)
     ms = cuda_ms(lambda: k5.flash_attention(q, k, v, causal=True), 20)
     simt = cuda_ms(lambda: k5.launch("flash", q, k, v, causal=True), 5)
     plain = cuda_ms(lambda: k5.flash_attention_ref(q, k, v, causal=True), 3)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    try:        # the yardstick only; never on the port's path
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 20)
-        how = "enable_gqa"
-    except TypeError:
-        kr, vr = (x.repeat_interleave(H // K, dim=1) for x in (kt, vt))
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kr, vr, is_causal=True), 20)
-        how = "k/v repeated (no enable_gqa in this torch)"
-    nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
-    flops = 2 * B * H * S * T * D           # causal: half of QK^T and PV
-    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S) * 1e3
+    lib, how = sdpa_ms(q, k, v)
+    bound, bound_by = attention_bound(q, k)
+    flops = 2 * B * H * S * T * D
+    # granite-moe-3b's prefill shape: D = 64, three query heads a kv head
+    qg, kg, vg = inputs["granite-moe-3b prefill"]
+    granite = dict(
+        shape=[list(qg.shape), list(kg.shape)],
+        ms=cuda_ms(lambda: k5.flash_attention(qg, kg, vg, causal=True), 20),
+        plain_ms=cuda_ms(lambda: k5.flash_attention_ref(qg, kg, vg,
+                                                        causal=True), 3),
+        library_ms=sdpa_ms(qg, kg, vg)[0],
+        max_abs_err=errs["granite-moe-3b prefill"])
+    granite["bound_ms"], granite["bound_by"] = attention_bound(qg, kg)
+    log(f"K5 flash_attention {GRANITE_ATTN} bf16 causal: "
+        f"{k5.variant(qg.dtype, qg.shape[-1])} {granite['ms']:.4f} ms "
+        f"({granite['bound_ms'] / granite['ms']:.1%} of the bound "
+        f"{granite['bound_ms']:.4f} ms, {granite['bound_by']}); plain "
+        f"{granite['plain_ms']:.4f} ms; scaled_dot_product_attention "
+        f"({how}) {granite['library_ms']:.4f} ms")
+    del inputs, qg, kg, vg
     # head dim 256 (gemma3-12b's heads), where the kernel compiles its
     # warpgroups' turns out
     B2, H2, K2, S2, D2 = 4, 16, 8, 2048, 256
@@ -1513,10 +1533,40 @@ def flash_phase(dev):
         f"scaled_dot_product_attention ({how}) {lib:.4f} ms "
         f"({flops / lib / 1e9:.1f} TFLOP/s)")
     return dict(variant=variant, ms=ms, plain_ms=plain, library_ms=lib,
-                max_abs_err=main_err, bound_ms=bound,
-                bound_by=("operations" if flops / BF16_OPS_PER_S >
-                          nbytes / HBM_BYTES_PER_S else "bytes"),
-                cuda_core_ms=simt)
+                max_abs_err=errs["qwen2-1.5b prefill"], bound_ms=bound,
+                bound_by=bound_by, cuda_core_ms=simt,
+                granite_prefill=granite)
+
+
+def sdpa_ms(q, k, v):
+    """-> (ms, how) of ``scaled_dot_product_attention`` on K5's inputs
+    (q (B, S, H, D), k/v (B, T, K, D)), causal: the yardstick only, never
+    on the port's path."""
+    import torch.nn.functional as F
+
+    H, K = q.shape[2], k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    try:
+        return cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 20), "enable_gqa"
+    except TypeError:
+        kr, vr = (x.repeat_interleave(H // K, dim=1) for x in (kt, vt))
+        return (cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kr, vr, is_causal=True), 20),
+            "k/v repeated (no enable_gqa in this torch)")
+
+
+def attention_bound(q, k):
+    """-> (ms, what bounds it) of causal bf16 attention on these inputs:
+    q and the output, k and v each moved once; 2·B·H·S·T·D operations (half
+    of QK^T and PV) on the tensor cores."""
+    B, S, H, D = q.shape
+    T = k.shape[1]
+    nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
+    times = {"bytes": nbytes / HBM_BYTES_PER_S,
+             "operations": 2 * B * H * S * T * D / BF16_OPS_PER_S}
+    what = max(times, key=times.get)
+    return times[what] * 1e3, what
 
 
 def wkv6_phase(dev):
@@ -1595,7 +1645,13 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
     the first run's tokens; once more on the kernel, timed.  -> the
     kernel's launches on the first run.  ``seam`` is the (module, name) of
     the alias through which the model reaches ``kernel_mod``: the shadow
-    replaces the alias, so the wrapper itself stays in place and counts."""
+    replaces the alias, so the wrapper itself stays in place and counts.
+
+    The caches of the first two layers must agree between the first two
+    runs.  A MoE model's routing can flip where a router logit differs by
+    an ulp: its routing agreement by layer and its capacity-drop share are
+    printed, not gated, and :func:`routed_alike` gates the first two layers
+    again with the experts forced alike."""
     from types import SimpleNamespace
     from unittest import mock
 
@@ -1605,7 +1661,8 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
     from repro_torch.launch import serve
 
     kw = dict(SERVE_KW, seed=seed, device=dev)
-    n_layers = get_config(arch, smoke=kw["smoke"]).n_layers
+    cfg = get_config(arch, smoke=kw["smoke"])
+    n_layers = cfg.n_layers
     prefill, decode = fam_mod.prefill, fam_mod.decode_step
     kernel, plain = (getattr(kernel_mod, kernel_name),
                      getattr(kernel_mod, kernel_name + "_ref"))
@@ -1632,6 +1689,8 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
             logits, cache = prefill(*a, **k)
             rec["prefill"] = logits.float().cpu()
             rec["cache"] = {n: c.float().cpu() for n, c in cache.items()}
+            if k.get("routing") is not None:
+                rec["experts"] = [r.experts.cpu() for r in k["routing"]]
             return logits, cache
 
         def rec_decode(model, cfg, cache, tokens, pos, media=None):
@@ -1711,6 +1770,15 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
         + f"; greedy tokens agreeing "
         f"{int((out['tokens'] == out_p['tokens']).sum())}/"
         f"{out['tokens'].size} (not gated); finite {finite}")
+    if cfg.is_moe:
+        agree = [float((a == b).float().mean())
+                 for a, b in zip(rec["experts"], rec_p["experts"])]
+        log(f"serve {arch} routing: share of (token, slot) expert choices "
+            f"alike in the kernel run and the plain-version run, by layer "
+            + " ".join(f"{v:.4f}" for v in agree) + f" (not gated); "
+            f"capacity drops in the prefill {out['drop_share']:.4%} of the "
+            f"(token, slot) pairs (plain-version run "
+            f"{out_p['drop_share']:.4%})")
     first = max(v for vals in per_layer.values() for v in vals[:2])
     check(finite and first <= SERVE_FIRST_LAYERS_REL_L2,
           f"{arch}: the caches of the first two layers differ between the "
@@ -1720,19 +1788,80 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     timed = serve.serve(arch, **kw)
+    drops = ("" if timed["drop_share"] is None else
+             f", capacity drops {timed['drop_share']:.4%}")
     log(f"serve {arch} (timed run): prefill {timed['prefill_s'] * 1e3:.2f} ms "
         f"for {kw['batch']} x {kw['prompt_len']} tokens, decode "
         f"{timed['decode_s'] * 1e3:.2f} ms, {timed['tok_per_s']:.2f} "
-        f"tokens/s, parameters {timed['param_bytes'] / 1e9:.3f} GB (f32), "
+        f"tokens/s ({timed['tok_per_s'] / kw['batch']:.2f} a sequence), "
+        f"parameters {timed['param_bytes'] / 1e9:.3f} GB (f32), "
         f"max memory allocated "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; plain-version "
-        f"serve prefill {out_p['prefill_s'] * 1e3:.2f} ms, first kernel "
-        f"serve prefill {out['prefill_s'] * 1e3:.2f} ms")
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB{drops}; "
+        f"plain-version serve prefill {out_p['prefill_s'] * 1e3:.2f} ms, "
+        f"first kernel serve prefill {out['prefill_s'] * 1e3:.2f} ms")
     torch.cuda.empty_cache()
+    if cfg.is_moe:
+        routed_alike(dev, arch, fam_mod, kernel_mod, seed)
     busy_shares(dev, arch, fam_mod,
                 "flash_tc" if kernel_name == "flash_attention" else "wkv6")
     f32_divergence(dev, arch, fam_mod, kernel_mod, kernel_name, seed)
     return n[kernel_name]
+
+
+def routed_alike(dev, arch, fam_mod, kernel_mod, seed):
+    """A MoE model's prefill (the serve's prompts) on K5, then with K5
+    swapped for its plain version and every layer's experts forced to the
+    first run's (``layers._top_k``), so the two differ by K5 alone, as a
+    dense model's serves do: the caches of the first two layers within
+    SERVE_FIRST_LAYERS_REL_L2 and the capacity drops equal, layer by layer
+    (gated); the deeper layers printed."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import init_model
+    from repro_torch.nn import layers
+
+    cfg = get_config(arch)
+    model = init_model(fam_mod, cfg, torch.Generator(dev).manual_seed(0))
+    B, S = SERVE_KW["batch"], SERVE_KW["prompt_len"]
+    prompts = torch.as_tensor(np.random.default_rng(seed).integers(
+        2, cfg.vocab_size, size=(B, S)), dtype=torch.int32, device=dev)
+    runs = {}
+    with torch.no_grad():
+        routing = []
+        runs["kernel"] = fam_mod.prefill(model, cfg, prompts, max_seq=S,
+                                         routing=routing)[1]
+        experts = iter([r.experts for r in routing])
+
+        def forced(probs, k):
+            top_i = next(experts)
+            return probs.gather(1, top_i), top_i
+
+        forced_routing = []
+        with mock.patch.object(kernel_mod, "flash_attention",
+                               kernel_mod.flash_attention_ref), \
+                mock.patch.object(layers, "_top_k", forced):
+            runs["plain"] = fam_mod.prefill(model, cfg, prompts, max_seq=S,
+                                             routing=forced_routing)[1]
+    drops = [int(r.dropped) for r in routing]
+    same_drops = drops == [int(r.dropped) for r in forced_routing]
+    per_layer = {name: [_rel_l2(a, b) for a, b in zip(
+        runs["kernel"][name], runs["plain"][name])] for name in runs["kernel"]}
+    first = max(v for vals in per_layer.values() for v in vals[:2])
+    log(f"serve {arch} prefill on K5 vs on its plain version with the "
+        f"experts forced to the K5 run's: cache by layer, relative L2 "
+        + "; ".join(f"{name} " + " ".join(f"{v:.1e}" for v in vals)
+                    for name, vals in per_layer.items())
+        + f"; capacity drops by layer {drops}, equal {same_drops}")
+    check(first <= SERVE_FIRST_LAYERS_REL_L2 and same_drops,
+          f"{arch}: with the experts forced alike, the caches of the first "
+          f"two layers differ between K5 and its plain version by {first} "
+          f"(tolerance {SERVE_FIRST_LAYERS_REL_L2}), or the drops "
+          f"({same_drops})")
+    del model, runs
+    torch.cuda.empty_cache()
 
 
 def busy_shares(dev, arch, fam_mod, kernel_key, steps=16):
@@ -1777,19 +1906,24 @@ def busy_shares(dev, arch, fam_mod, kernel_key, steps=16):
             for i in range(steps):
                 fam_mod.decode_step(model, cfg, cache, tok, S + 1 + i)
 
-        times_d, why_d = device_times(timed("decode", decode))
+        launched = {}
+        times_d, why_d = device_times(timed("decode", decode), launched)
     if times_p:
         busy = sum(times_p.values()) / 1e6
         kern = sum(v for k, v in times_p.items() if kernel_key in k) / 1e6
+        top = sorted(times_p.items(), key=lambda kv: -kv[1])[:5]
         why_p = (f"device busy share {busy / wall['prefill']:.4f}, "
                  f"{busy * 1e3:.3f} ms of device time in a "
                  f"{wall['prefill'] * 1e3:.3f} ms prefill, of which "
-                 f"{kernel_key} {kern * 1e3:.3f} ms ({kern / busy:.1%})")
+                 f"{kernel_key} {kern * 1e3:.3f} ms ({kern / busy:.1%}); "
+                 f"the five longest kernels: " + "; ".join(
+                     f"{name[:60]} {us / 1e3:.3f} ms" for name, us in top))
     if times_d:
         busy = sum(times_d.values()) / 1e6
         why_d = (f"device busy share {busy / wall['decode']:.4f}, "
                  f"{busy / steps * 1e3:.3f} ms of device time in a "
-                 f"{wall['decode'] / steps * 1e3:.3f} ms step")
+                 f"{wall['decode'] / steps * 1e3:.3f} ms step, "
+                 f"{sum(launched.values()) / steps:.0f} kernels a step")
     log(f"serve {arch} prefill: {why_p}; decode: {why_d} (torch.profiler, "
         f"{steps} steps)")
     del model, cache
@@ -1829,17 +1963,23 @@ def f32_divergence(dev, arch, fam_mod, kernel_mod, kernel_name, seed):
 
 
 def models_phase(dev, seed):
-    """-> (kernels rows, launches) of K5 and K6."""
+    """-> (kernels rows, launches) of K5 and K6: K5's over the qwen2-1.5b
+    and granite-moe-3b-a800m serves' prefills, K6's over rwkv6-3b's."""
     from repro_torch.kernels.flash_attention import ops as k5
     from repro_torch.kernels.rwkv6 import ops as k6
     from repro_torch.models import lm, rwkv
     from repro_torch.nn import layers, ssm
 
     rows = {"flash_attention": flash_phase(dev), "wkv6": wkv6_phase(dev)}
+    k5_serves = {}
+    for arch in ("qwen2-1.5b", "granite-moe-3b-a800m"):
+        t0 = time.perf_counter()
+        k5_serves[arch] = serve_model(dev, arch, lm, k5, "flash_attention",
+                                      (layers, "_k5"), seed)
+        log(f"serve {arch}: {time.perf_counter() - t0:.1f} s")
+    log(f"K5 launches by serve: {k5_serves}")
     launches = {
-        "flash_attention": serve_model(dev, "qwen2-1.5b", lm, k5,
-                                       "flash_attention", (layers, "_k5"),
-                                       seed),
+        "flash_attention": sum(k5_serves.values()),
         "wkv6": serve_model(dev, "rwkv6-3b", rwkv, k6, "wkv6", (ssm, "_k6"),
                             seed)}
     return rows, launches
@@ -2196,8 +2336,9 @@ def main(argv=None):
         model_rows, model_launches = models_phase(dev, args.seed)
         rows.update(model_rows)
         launches.update(model_launches)
-        log(f"launches (K5 over the qwen2-1.5b serve's prefill, K6 over the "
-            f"rwkv6-3b serve's prefill): {model_launches}; models phase "
+        log(f"launches (K5 over the qwen2-1.5b and granite-moe-3b-a800m "
+            f"serves' prefills, K6 over the rwkv6-3b serve's prefill): "
+            f"{model_launches}; models phase "
             f"{time.perf_counter() - t0:.1f} s")
         for name, n in model_launches.items():
             check(n > 0, f"main path never launched {name}")
@@ -2214,11 +2355,11 @@ def main(argv=None):
         "masked_argmin1d": dict(
             route="cuda",
             source="src/repro_torch/kernels/psdsf_score/csrc/argmin.cu",
-            replaces="src/repro/kernels/psdsf_score/kernel.py:90"),
+            replaces="src/repro/kernels/psdsf_score/kernel.py:91"),
         "masked_argmin2d": dict(
             route="cuda",
             source="src/repro_torch/kernels/psdsf_score/csrc/argmin.cu",
-            replaces="src/repro/kernels/psdsf_score/kernel.py:136"),
+            replaces="src/repro/kernels/psdsf_score/kernel.py:137"),
         "persistent_epoch": dict(
             route="cuda",
             source="src/repro_torch/kernels/epoch_persistent/csrc/epoch.cu",
@@ -2226,7 +2367,7 @@ def main(argv=None):
         "psdsf_argmin": dict(
             route="cuda",
             source="src/repro_torch/kernels/psdsf_score/csrc/argmin.cu",
-            replaces="src/repro/kernels/psdsf_score/kernel.py:168"),
+            replaces="src/repro/kernels/psdsf_score/kernel.py:169"),
         "flash_attention": dict(
             route="cuda",
             source="src/repro_torch/kernels/flash_attention/csrc/flash_tc.cu",

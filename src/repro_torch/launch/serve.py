@@ -5,9 +5,10 @@
 
 Runs on the card (``--device cuda``, the default) unless asked for the CPU;
 ``--no-smoke`` serves the full published configuration.  The prefill runs
-the family's kernel (K5 flash attention for the dense LMs, K6 WKV6 for
-RWKV6); the greedy or temperature decode runs plain PyTorch, as the
-reference's does.
+the family's kernel (K5 flash attention for the dense and MoE LMs, K6 WKV6
+for RWKV6); the greedy or temperature decode runs plain PyTorch, as the
+reference's does.  A MoE model's prefill drops the (token, slot) pairs past
+its experts' capacity; the serve reports their share.
 """
 from __future__ import annotations
 
@@ -49,8 +50,10 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
     ``gen`` tokens.  Weights are drawn from ``torch.Generator`` seed 0 on the
     device, prompts from numpy seed ``seed``, temperature samples from a
     generator seeded ``seed``.  Returns the reference's dict plus the
-    parameter bytes, the synchronised prefill/decode times and the kernel
-    launches of each phase."""
+    parameter bytes, the synchronised prefill/decode times, the kernel
+    launches of each phase and, for a MoE model, ``drop_share``: the
+    prefill's (token, slot) pairs dropped past capacity over all it routed
+    (B·S·K a layer, summed over the layers; None for a dense model)."""
     dev = resolve_device(device)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     cfg = get_config(arch, smoke=smoke)
@@ -64,13 +67,15 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
         rng.integers(2, cfg.vocab_size, size=(batch, prompt_len)),
         dtype=torch.int32, device=dev)
     sampler = torch.Generator(dev).manual_seed(seed)
+    routing = [] if cfg.is_moe else None
+    moe = {} if routing is None else {"routing": routing}
 
     with torch.no_grad():
         n0 = launch_counts()
         sync()
         t0 = time.perf_counter()
         logits, cache = fam.prefill(model, cfg, prompts, max_seq=max_seq,
-                                    media=media)
+                                    media=media, **moe)
         sync()
         t_prefill = time.perf_counter() - t0
         n1 = launch_counts()
@@ -95,6 +100,10 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
         sync()
         t_decode = time.perf_counter() - t0
         n2 = launch_counts()
+    drop_share = None
+    if routing:
+        routed = len(routing) * batch * prompt_len * cfg.experts_per_token
+        drop_share = int(sum(r.dropped for r in routing)) / routed
     return {
         "tokens": toks,
         "prefill_s": t_prefill,
@@ -103,6 +112,7 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
         "param_bytes": model.param_bytes(),
         "launches": {"prefill": {k: n1[k] - n0[k] for k in n0},
                      "decode": {k: n2[k] - n1[k] for k in n1}},
+        "drop_share": drop_share,
         "device": str(dev),
     }
 
@@ -123,7 +133,9 @@ def main(argv=None):
               temperature=args.temperature, device=args.device)
     print(f"prefill {r['prefill_s']*1e3:.1f} ms, decode {r['decode_s']*1e3:.1f} ms, "
           f"{r['tok_per_s']:.1f} tok/s, sample row: {r['tokens'][0][:12]}; "
-          f"launches {r['launches']} on {r['device']}")
+          f"launches {r['launches']} on {r['device']}"
+          + ("" if r["drop_share"] is None else
+             f"; prefill capacity drops {r['drop_share']:.4%}"))
     return r
 
 

@@ -117,7 +117,7 @@ def init_model(fam, cfg: ModelConfig, generator: torch.Generator) -> Model:
 # -- registry ----------------------------------------------------------------
 
 _REGISTRY: dict[str, Any] = {}
-NOT_PORTED = ("hybrid", "encdec", "vlm", "moe")
+NOT_PORTED = ("hybrid", "encdec", "vlm")
 
 
 def register_family(name: str):
@@ -127,23 +127,23 @@ def register_family(name: str):
     return deco
 
 
+def not_ported(what: str) -> str:
+    """The message of a refused family or layer."""
+    return (f"{what} is not ported to repro_torch yet (see ROADMAP.md, "
+            "Queue 1 item 6, the model substrate); the ported families are "
+            "the dense and MoE LMs without MLA, and RWKV6")
+
+
 def get_family(cfg_or_name) -> Any:
-    """The family module of a config (or family name).  Only the dense LMs
-    and RWKV6 are ported; the rest raise NotImplementedError."""
+    """The family module of a config (or family name).  The dense and MoE
+    LMs and RWKV6 are ported; MLA attention and the other families raise
+    NotImplementedError."""
     cfg = None if isinstance(cfg_or_name, str) else cfg_or_name
     name = cfg_or_name if cfg is None else cfg.family
-    what = None
     if name in NOT_PORTED:
-        what = f"the {name!r} family"
-    elif cfg is not None and cfg.is_moe:
-        what = "MoE layers"
-    elif cfg is not None and cfg.use_mla:
-        what = "MLA attention"
-    if what is not None:
-        raise NotImplementedError(
-            f"{what} is not ported to repro_torch yet (see ROADMAP.md, "
-            "Queue 1 item 9); the ported families are the dense LMs and "
-            "RWKV6")
+        raise NotImplementedError(not_ported(f"the {name!r} family"))
+    if cfg is not None and cfg.use_mla:
+        raise NotImplementedError(not_ported("MLA attention"))
     import repro_torch.models.lm      # noqa: F401
     import repro_torch.models.rwkv    # noqa: F401
     return _REGISTRY[name]

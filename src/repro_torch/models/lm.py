@@ -1,13 +1,16 @@
-"""Decoder-only dense LM: qwen2-1.5b (QKV bias), qwen3-8b (qk-norm GQA),
-mistral-nemo-12b, gemma3-12b (5:1 local:global sliding window, logit
-softcap in ``unembed``).  The MoE and MLA configs of the reference's ``lm``
-are not ported yet (:func:`repro_torch.models.common.get_family` refuses
-them).
+"""Decoder-only LM, dense and MoE: qwen2-1.5b (QKV bias), qwen3-8b
+(qk-norm GQA), mistral-nemo-12b, gemma3-12b (5:1 local:global sliding
+window, logit softcap in ``unembed``), granite-moe-3b (40-expert MoE).  The
+MLA configs of the reference's ``lm`` (deepseek-v2) are not ported yet
+(:func:`repro_torch.models.common.get_family` refuses them).
 
 The layers are a Python loop over ``model.layers`` (an ``nn.ModuleList``),
 where the reference scans a stacked tree; the per-layer attention kind
 (local or global) is ``cfg.is_global_layer(i)``.  Prefill attention runs on
-K5 (see :func:`repro_torch.nn.layers.attention_core`).
+K5 (see :func:`repro_torch.nn.layers.attention_core`).  The MoE layer runs
+the config's capacity grid in ``forward`` and ``prefill`` and the dropless
+form in ``decode_step``, as the reference's; ``routing``, a list, collects
+each MoE layer's :class:`repro_torch.nn.layers.Routing`.
 """
 from __future__ import annotations
 
@@ -22,11 +25,13 @@ from repro_torch.nn.param import stack_template
 
 
 def layer_template(cfg: ModelConfig):
+    if cfg.use_mla:
+        raise NotImplementedError(C.not_ported("MLA attention"))
     return {
         "ln1": L.rmsnorm_template(cfg.d_model),
         "ln2": L.rmsnorm_template(cfg.d_model),
         "attn": L.attention_template(cfg),
-        "ffn": L.mlp_template(cfg),
+        "ffn": L.moe_template(cfg) if cfg.is_moe else L.mlp_template(cfg),
     }
 
 
@@ -41,13 +46,19 @@ def build(cfg: ModelConfig, device=None, dtype=None) -> C.Model:
     return C.Model(cfg, layer_template, dtype, device)
 
 
+def _ffn(p, cfg: ModelConfig, x, dropless=False, routing=None):
+    if cfg.is_moe:
+        return L.moe_apply(p, cfg, x, dropless=dropless, routing=routing)
+    return L.mlp_apply(p, x)
+
+
 def _positions(tokens):
     B, S = tokens.shape
     return torch.arange(S, dtype=torch.int32,
                         device=tokens.device).expand(B, S)
 
 
-def forward(model, cfg: ModelConfig, tokens, media=None):
+def forward(model, cfg: ModelConfig, tokens, media=None, routing=None):
     """Teacher-forcing forward -> logits (B,S,V); positions ``arange(S)``."""
     del media
     positions = _positions(tokens)
@@ -57,7 +68,7 @@ def forward(model, cfg: ModelConfig, tokens, media=None):
         x = x + L.attention_apply(lp["attn"], cfg, h, positions,
                                   cfg.is_global_layer(i))
         h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        x = x + L.mlp_apply(lp["ffn"], h)
+        x = x + _ffn(lp["ffn"], cfg, h, routing=routing)
     return C.unembed(model.embed, cfg, x)
 
 
@@ -83,11 +94,12 @@ def decode_step(model, cfg: ModelConfig, cache, tokens, pos, media=None):
                                      cfg.is_global_layer(i))
         x = x + h
         h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        x = x + L.mlp_apply(lp["ffn"], h)
+        x = x + _ffn(lp["ffn"], cfg, h, dropless=True)
     return C.unembed(model.embed, cfg, x), cache
 
 
-def prefill(model, cfg: ModelConfig, tokens, max_seq=None, media=None):
+def prefill(model, cfg: ModelConfig, tokens, max_seq=None, media=None,
+            routing=None):
     """Full-sequence prefill -> (logits of the last position, the bf16 K/V
     cache of ``max_seq`` positions, the first S filled)."""
     del media
@@ -101,7 +113,7 @@ def prefill(model, cfg: ModelConfig, tokens, max_seq=None, media=None):
         out = L.attention_core(cfg, q, k, v, cfg.is_global_layer(i))
         x = x + L._out_proj(lp["attn"], out)
         h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        x = x + L.mlp_apply(lp["ffn"], h)
+        x = x + _ffn(lp["ffn"], cfg, h, routing=routing)
         cache["k"][i, :, :S] = k
         cache["v"][i, :, :S] = v
     logits = C.unembed(model.embed, cfg, x[:, -1:])
@@ -109,3 +121,4 @@ def prefill(model, cfg: ModelConfig, tokens, max_seq=None, media=None):
 
 
 C.register_family("dense")(sys.modules[__name__])
+C.register_family("moe")(sys.modules[__name__])

@@ -693,7 +693,8 @@ def test_wkv6_kernel_reads_unaligned_inputs(dev):
     torch.testing.assert_close(s, sr, rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("arch", ["qwen2_1_5b", "gemma3_12b", "rwkv6_3b"])
+@pytest.mark.parametrize("arch", ["qwen2_1_5b", "gemma3_12b", "rwkv6_3b",
+                                  "granite_moe_3b"])
 def test_model_on_card_equals_cpu(dev, arch):
     """The same weights on the card (K5/K6) and on the CPU (their plain
     versions), f32 compute: prefill logits and cache, then decode steps."""
@@ -738,6 +739,78 @@ def test_model_on_card_equals_cpu(dev, arch):
                else dict(rtol=1e-4, atol=1e-4))
         torch.testing.assert_close(out["cuda"][1][name], out["cpu"][1][name],
                                    **tol)
+
+
+def _moe_layer(impl, dtype, cf):
+    """granite-smoke's MoE layer (weights from a seeded generator) in
+    ``dtype`` compute, and (4, 256) tokens of inputs."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.nn import layers as L
+    from repro_torch.nn.param import init_params
+
+    cfg = dataclasses.replace(get_config("granite_moe_3b", smoke=True),
+                              moe_impl=impl, capacity_factor=cf,
+                              compute_dtype=dtype)
+    tree = init_params(L.moe_template(cfg), torch.Generator().manual_seed(0))
+    x = torch.as_tensor(np.random.default_rng(1).normal(
+        size=(4, 256, cfg.d_model)), dtype=torch.float32).to(cfg.cdtype())
+    return cfg, tree, x
+
+
+def _moe_run(cfg, tree, x, device):
+    from repro_torch.models.common import _fill
+    from repro_torch.nn import layers as L
+    from repro_torch.nn.param import Params
+
+    params = Params(L.moe_template(cfg), device=device)
+    _fill(params, tree)
+    routing = []
+    out = L.moe_apply(params, cfg, x.to(device), routing=routing)
+    return out, routing[0]
+
+
+@pytest.mark.parametrize("impl", ["grid_local", "grid", "ragged"])
+def test_moe_apply_on_card_repeats_bit_for_bit(dev, impl):
+    """The MoE layer on the card, bf16 compute, capacity factor 1 (the
+    grids drop pairs): two runs on the same inputs give the same bits and
+    the same drops.  The combine gathers each token's K outputs and sums
+    them in slot order; no scatter-add adds in a racing order."""
+    cfg, tree, x = _moe_layer(impl, "bfloat16", 1.0)
+    a, ra = _moe_run(cfg, tree, x, dev)
+    b, rb = _moe_run(cfg, tree, x, dev)
+    assert torch.equal(a, b)
+    assert torch.equal(ra.experts, rb.experts)
+    assert int(ra.dropped) == int(rb.dropped)
+    assert (int(ra.dropped) > 0) == (impl != "ragged")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("impl", ["grid_local", "grid", "ragged"])
+def test_moe_apply_on_card_equals_cpu(dev, impl, dtype):
+    """The MoE layer on the card against the CPU at capacity factor 4 (no
+    drops, so a token's output depends on its own routing only).  f32
+    compute: the same routing and 1e-4, the order of f32 sums.  bf16
+    compute: a router logit that rounds the other way can flip a choice,
+    so at least 99% of tokens route alike, and on those the outputs agree
+    within rtol 2**-5, atol 2**-5 max|out|: each side rounds the router,
+    the three products, SiLU and the slot sum to bf16 (2**-9 each,
+    relative to what it rounds), and the products' sums cancel, so the
+    bound is taken against the largest output."""
+    cfg, tree, x = _moe_layer(impl, dtype, 4.0)
+    got, rg = _moe_run(cfg, tree, x, dev)
+    want, rw = _moe_run(cfg, tree, x, torch.device("cpu"))
+    got, same = got.cpu().float(), (rg.experts.cpu() == rw.experts).all(-1)
+    want = want.float()
+    if dtype == "float32":
+        assert bool(same.all())
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        return
+    assert float(same.float().mean()) >= 0.99
+    ok = same.reshape(got.shape[:2])
+    torch.testing.assert_close(got[ok], want[ok], rtol=2 ** -5,
+                               atol=2 ** -5 * float(want.abs().max()))
 
 
 @pytest.mark.parametrize("crit", ["drf", "tsf", "psdsf", "rpsdsf"])

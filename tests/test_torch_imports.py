@@ -234,19 +234,21 @@ def _variant(arch, **kw):
 
 
 @pytest.mark.parametrize("make,what", [
-    (lambda: "deepseek-v2-236b", "MoE|'moe'"),
-    (lambda: "granite-moe-3b-a800m", "MoE|'moe'"),
+    (lambda: "deepseek-v2-236b", "MLA"),
+    (lambda: _variant("granite_moe_3b", use_mla=True), "MLA"),
     (lambda: "hymba-1.5b", "'hybrid'"),
     (lambda: "whisper-large-v3", "'encdec'"),
     (lambda: "llama-3.2-vision-90b", "'vlm'"),
-    (lambda: _variant("qwen2_1_5b", n_experts=4, experts_per_token=2),
-     "MoE"),
+    (lambda: _variant("qwen2_1_5b", n_experts=4, experts_per_token=2,
+                      use_mla=True), "MLA"),
     (lambda: _variant("qwen2_1_5b", use_mla=True), "MLA"),
 ], ids=["deepseek", "granite", "hymba", "whisper", "llama-vision",
         "dense+moe", "dense+mla"])
 def test_unported_families_raise(make, what):
     """Families and layers not ported yet raise NotImplementedError naming
-    ROADMAP.md, from the registry and from ``serve``."""
+    ROADMAP.md, from the registry and from ``serve``.  MoE is ported, so a
+    MoE config is refused for its MLA attention alone (granite and a dense
+    config with experts, each with MLA switched on)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models.common import get_family
@@ -267,6 +269,7 @@ def test_ported_families_resolve():
     from repro_torch.models import lm, rwkv
     from repro_torch.models.common import get_family
 
-    for arch in ("qwen2-1.5b", "qwen3-8b", "gemma3-12b", "mistral-nemo-12b"):
+    for arch in ("qwen2-1.5b", "qwen3-8b", "gemma3-12b", "mistral-nemo-12b",
+                 "granite-moe-3b-a800m"):
         assert get_family(get_config(arch)) is lm
     assert get_family(get_config("rwkv6-3b")) is rwkv

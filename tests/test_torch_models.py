@@ -30,9 +30,10 @@ from repro_torch.configs import get_config
 from repro_torch.models.common import get_family, load_reference_params
 
 ARCHS = ("qwen2_1_5b", "qwen3_8b", "gemma3_12b", "mistral_nemo_12b",
-         "rwkv6_3b")
+         "rwkv6_3b", "granite_moe_3b")
 B, S = 2, 16
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
+DECODE_ATOL = {"granite_moe_3b": 6e-2}     # see test_decode_matches_forward
 
 
 def _np(x):
@@ -133,7 +134,12 @@ def test_decode_matches_forward(arch):
     scores and probabilities to bf16 alike, while here the forward's
     attention is K5's, which keeps them in f32 (as the Pallas kernel does)
     and the decode rounds them as the reference's decode does; the gap
-    measured on these configs is at most 0.038 (mistral-nemo)."""
+    measured on these configs is at most 0.038 (mistral-nemo).
+    granite-smoke measures 0.052 here and gets 6e-2: with the forward's
+    attention rounded as the decode's, its gap is 0 (the MoE's dropless
+    decode and capacity grid give the same bits), so all of it is K5's
+    probabilities (tests/test_torch_moe.py holds that form at the
+    reference's 2e-2)."""
     cfg = get_config(arch, smoke=True)
     fam = get_family(cfg)
     params = ref_init(ref_family(ref_config(arch, smoke=True)).template(
@@ -148,10 +154,11 @@ def test_decode_matches_forward(arch):
         logits, cache = fam.decode_step(model, cfg, cache, toks[:, t:t + 1], t)
         outs.append(logits)
     np.testing.assert_allclose(_np(torch.cat(outs, dim=1)), _np(full),
-                               rtol=0, atol=5e-2)
+                               rtol=0, atol=DECODE_ATOL.get(arch, 5e-2))
 
 
-@pytest.mark.parametrize("arch", ["qwen2_1_5b", "gemma3_12b", "rwkv6_3b"])
+@pytest.mark.parametrize("arch", ["qwen2_1_5b", "gemma3_12b", "rwkv6_3b",
+                                  "granite_moe_3b"])
 def test_serve_tokens_equal_reference(arch, monkeypatch):
     """``serve()`` of both packages on the reference's weights in f32 compute
     gives the same greedy tokens."""
@@ -177,12 +184,13 @@ def test_serve_tokens_equal_reference(arch, monkeypatch):
 
 
 def test_full_config_template_and_build():
-    """The full qwen2-1.5b and rwkv6-3b templates count as the reference's,
-    and a model builds on the meta device (no memory) with its shapes."""
+    """The full qwen2-1.5b, rwkv6-3b and granite-moe-3b templates count as
+    the reference's, and a model builds on the meta device (no memory) with
+    its shapes."""
     from repro.nn.param import count_params as ref_count
     from repro_torch.nn.param import count_params
 
-    for arch in ("qwen2_1_5b", "rwkv6_3b"):
+    for arch in ("qwen2_1_5b", "rwkv6_3b", "granite_moe_3b"):
         rc, pc = ref_config(arch), get_config(arch)
         n = count_params(get_family(pc).template(pc))
         assert n == ref_count(ref_family(rc).template(rc))
