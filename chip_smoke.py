@@ -94,7 +94,16 @@ kernel from the sources in the checkout (nvcc into ``build/``).  Phases:
    every layer's experts forced to the K5 run's, drops equal layer by
    layer); the other layers, prefill and decode logits,
    greedy-token agreement, granite's routing agreement by layer and its
-   capacity-drop share are printed, not gated;
+   capacity-drop share are printed, not gated.  Those two serves decode
+   eagerly (``serve.decode_eager``: they record ``decode_step``); the
+   timed serve decodes on the captured graph, one capture, one replay a
+   step, and its tokens and each step's logits (copied after each replay)
+   must equal the first, eager, kernel serve's bit for bit; the same serve
+   on the eager decode is timed beside it.  Printed per model: ms a step
+   and tokens/s a sequence, graphed and eager, against the 20 tokens/s
+   limit; the capture's seconds; and under torch.profiler the busy share
+   and kernels a step of the eager step and of the graph's replays, and
+   the step's byte bound (``decode_bytes``);
 7. fill: progressive filling, the paper's Section 2
    (``repro_torch.core.filling_torch``).  The paper's tables through
    ``launch.paper_tables`` on the card: the rows of PS-DSF and
@@ -1429,6 +1438,7 @@ WKV_TOL_STRONG = dict(rtol=1e-3, atol=2e-3)   # outputs reach ~1e2
 # own inputs (the shadow check).
 SERVE_FIRST_LAYERS_REL_L2 = 2 ** -7
 SERVE_KW = dict(smoke=False, batch=4, prompt_len=2048, gen=32)
+DECODE_LIMIT_PER_SEQ = 20     # PERF.md section 2: tokens/s a sequence
 
 
 def _close(got, want, rtol, atol):
@@ -1707,6 +1717,10 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
                                               rec_prefill))
         stack.enter_context(mock.patch.object(fam_mod, "decode_step",
                                               rec_decode))
+        # a graph calls decode_step only while it is captured: the
+        # recorded (and teacher-forced) serves decode eagerly
+        stack.enter_context(mock.patch.object(serve, "decode",
+                                              serve.decode_eager))
         return stack
 
     runs = {}
@@ -1784,21 +1798,56 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
           f"{arch}: the caches of the first two layers differ between the "
           f"serve on {kernel_name} and on its plain version by {first} "
           f"(tolerance {SERVE_FIRST_LAYERS_REL_L2})")
+    eager_steps = rec["steps"]
     del rec, rec_p, runs
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    timed = serve.serve(arch, **kw)
+    graphed_steps = []
+
+    def graphed(*a, **k):       # each step's logits, copied after a replay
+        return graph_decode(*a, on_step=lambda lg: graphed_steps.append(
+            lg.clone()), **k)
+
+    graph_decode = serve.decode
+    with mock.patch.object(serve, "decode", graphed):
+        timed = serve.serve(arch, **kw)
+    peak = torch.cuda.max_memory_allocated()
+    graphed_steps = [x.float().cpu() for x in graphed_steps]
+    same = (len(graphed_steps) == len(eager_steps) == kw["gen"] - 1
+            and all(torch.equal(a, b)
+                    for a, b in zip(graphed_steps, eager_steps)))
+    check(timed["captures"] == 1 and same
+          and (timed["tokens"] == out["tokens"]).all(),
+          f"{arch}: the graphed decode ({timed['captures']} captures) "
+          f"differs from the eager kernel run: logits alike {same}, tokens "
+          f"alike {int((timed['tokens'] == out['tokens']).sum())}/"
+          f"{out['tokens'].size}")
+    torch.cuda.empty_cache()
+    with mock.patch.object(serve, "decode", serve.decode_eager):
+        eager = serve.serve(arch, **kw)
+    check(eager["captures"] == 0
+          and (eager["tokens"] == timed["tokens"]).all(),
+          f"{arch}: the eager timed serve's tokens differ from the graphed")
     drops = ("" if timed["drop_share"] is None else
              f", capacity drops {timed['drop_share']:.4%}")
-    log(f"serve {arch} (timed run): prefill {timed['prefill_s'] * 1e3:.2f} ms "
+    log(f"serve {arch} (timed run, decode on the graph): prefill "
+        f"{timed['prefill_s'] * 1e3:.2f} ms "
         f"for {kw['batch']} x {kw['prompt_len']} tokens, decode "
         f"{timed['decode_s'] * 1e3:.2f} ms, {timed['tok_per_s']:.2f} "
         f"tokens/s ({timed['tok_per_s'] / kw['batch']:.2f} a sequence), "
         f"parameters {timed['param_bytes'] / 1e9:.3f} GB (f32), "
-        f"max memory allocated "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB{drops}; "
+        f"max memory allocated {peak / 1e9:.3f} GB{drops}; "
         f"plain-version serve prefill {out_p['prefill_s'] * 1e3:.2f} ms, "
         f"first kernel serve prefill {out['prefill_s'] * 1e3:.2f} ms")
+    steps = kw["gen"] - 1
+    log(f"serve {arch} decode, graphed vs eager: "
+        f"{timed['decode_s'] / steps * 1e3:.3f} vs "
+        f"{eager['decode_s'] / steps * 1e3:.3f} ms a step, "
+        f"{timed['tok_per_s'] / kw['batch']:.2f} vs "
+        f"{eager['tok_per_s'] / kw['batch']:.2f} tokens/s a sequence "
+        f"(limit {DECODE_LIMIT_PER_SEQ}); the capture (warm-up step and "
+        f"recording) {timed['capture_s']:.3f} s; the graph's {steps} steps' "
+        f"logits and tokens == the eager kernel run's bit for bit")
     torch.cuda.empty_cache()
     if cfg.is_moe:
         routed_alike(dev, arch, fam_mod, kernel_mod, seed)
@@ -1864,13 +1913,39 @@ def routed_alike(dev, arch, fam_mod, kernel_mod, seed):
     torch.cuda.empty_cache()
 
 
+def decode_bytes(model, cfg, cache):
+    """The bytes one decode step must move: every weight it reads, once, in
+    the compute type (the bf16 casts; the 1-D scales and decays, read in
+    f32 or cast, are counted at the compute type's size too: under 1 MB),
+    less an untied embedding table's rows past the batch's and RWKV
+    channel-mix ``wr`` off its diagonal (the step reads only those); the
+    K/V cache read whole, or the WKV state and the shift tokens read and
+    written; the logits written."""
+    import torch
+
+    esize = torch.empty((), dtype=cfg.cdtype()).element_size()
+    B = next(iter(cache.values())).shape[1]
+    weights = sum(p.numel() for p in model.parameters())
+    if not cfg.tie_embeddings:
+        weights -= (cfg.padded_vocab - B) * cfg.d_model
+    if cfg.family == "ssm":
+        weights -= cfg.n_layers * (cfg.d_model ** 2 - cfg.d_model)
+    state = sum(c.numel() * c.element_size() for c in cache.values())
+    moved = state if cfg.family != "ssm" else 2 * state
+    return weights * esize + moved + B * cfg.padded_vocab * esize
+
+
 def busy_shares(dev, arch, fam_mod, kernel_key, steps=16):
-    """The device's busy share of one prefill (batch 4, prompt 2048) and of
-    ``steps`` decode steps after it, each under torch.profiler, with the
-    device time of the kernels whose names hold ``kernel_key``; printed."""
+    """The device's busy share of one prefill (batch 4, prompt 2048), of
+    ``steps`` eager decode steps after it and of ``steps`` replays of the
+    decode step captured as a CUDA graph (``serve.DecodeStep``), each under
+    torch.profiler, with the device time of the kernels whose names hold
+    ``kernel_key`` and the kernels a decode step; and the step's byte
+    bound (:func:`decode_bytes`); printed."""
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.launch import serve
     from repro_torch.models.common import init_model
 
     cfg = get_config(arch)
@@ -1891,7 +1966,16 @@ def busy_shares(dev, arch, fam_mod, kernel_key, steps=16):
 
     def prefill():
         out["prefill"] = fam_mod.prefill(model, cfg, prompts,
-                                         max_seq=S + steps + 1)
+                                         max_seq=S + 2 * steps + 2)
+
+    def decode_line(key, times, why, launched):
+        if not times:
+            return why
+        busy = sum(times.values()) / 1e6
+        return (f"device busy share {busy / wall[key]:.4f}, "
+                f"{busy / steps * 1e3:.3f} ms of device time in a "
+                f"{wall[key] / steps * 1e3:.3f} ms step, "
+                f"{sum(launched.values()) / steps:.0f} kernels a step")
 
     with torch.no_grad():
         prefill()                                           # warm
@@ -1908,6 +1992,20 @@ def busy_shares(dev, arch, fam_mod, kernel_key, steps=16):
 
         launched = {}
         times_d, why_d = device_times(timed("decode", decode), launched)
+        t0 = time.perf_counter()
+        ds = serve.DecodeStep(fam_mod, model, cfg, cache, steps + 2)
+        capture_s = time.perf_counter() - t0
+        ds.start(tok.to(torch.int32), S + steps + 1)
+        ds.step()                                           # warm
+
+        def replays():
+            for _ in range(steps):
+                ds.step()
+
+        launched_g = {}
+        times_g, why_g = device_times(timed("graph", replays), launched_g)
+        ds.close()
+        nbytes = decode_bytes(model, cfg, cache)
     if times_p:
         busy = sum(times_p.values()) / 1e6
         kern = sum(v for k, v in times_p.items() if kernel_key in k) / 1e6
@@ -1918,15 +2016,18 @@ def busy_shares(dev, arch, fam_mod, kernel_key, steps=16):
                  f"{kernel_key} {kern * 1e3:.3f} ms ({kern / busy:.1%}); "
                  f"the five longest kernels: " + "; ".join(
                      f"{name[:60]} {us / 1e3:.3f} ms" for name, us in top))
-    if times_d:
-        busy = sum(times_d.values()) / 1e6
-        why_d = (f"device busy share {busy / wall['decode']:.4f}, "
-                 f"{busy / steps * 1e3:.3f} ms of device time in a "
-                 f"{wall['decode'] / steps * 1e3:.3f} ms step, "
-                 f"{sum(launched.values()) / steps:.0f} kernels a step")
-    log(f"serve {arch} prefill: {why_p}; decode: {why_d} (torch.profiler, "
-        f"{steps} steps)")
-    del model, cache
+    why_d = decode_line("decode", times_d, why_d, launched)
+    why_g = decode_line("graph", times_g, why_g, launched_g)
+    if times_g:
+        top = sorted(times_g.items(), key=lambda kv: -kv[1])[:5]
+        why_g += "; the five longest kernels a step: " + "; ".join(
+            f"{name[:60]} {us / steps:.1f} us" for name, us in top)
+    log(f"serve {arch} prefill: {why_p}; decode, eager: {why_d}; decode, "
+        f"graph replays: {why_g} (torch.profiler, {steps} steps; the "
+        f"graph's capture {capture_s:.3f} s); a decode step's byte bound "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms ({nbytes / 1e9:.3f} GB "
+        f"at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+    del model, cache, ds
     torch.cuda.empty_cache()
 
 

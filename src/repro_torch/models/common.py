@@ -32,11 +32,26 @@ def embed_template(cfg: ModelConfig):
     return t
 
 
+_EMBED_SCALES: dict = {}
+
+
+def embed_scale(d_model: int, dtype) -> float:
+    """gemma's embedding factor: ``sqrt(d_model)`` computed in ``dtype``, as
+    the reference computes it, kept as a Python float.  Made once per
+    (width, type) on the host, so a decode step captured as a CUDA graph
+    copies nothing from host memory; a tensor times this float gives the
+    bits of the tensor times the 0-d tensor of ``dtype``."""
+    key = (d_model, dtype)
+    if key not in _EMBED_SCALES:
+        _EMBED_SCALES[key] = float(torch.sqrt(torch.tensor(d_model,
+                                                           dtype=dtype)))
+    return _EMBED_SCALES[key]
+
+
 def embed_tokens(params, cfg: ModelConfig, tokens):
     x = params["tok"][tokens.long()].to(cfg.cdtype())
     if cfg.name.startswith("gemma"):
-        x = x * torch.sqrt(torch.tensor(cfg.d_model, dtype=x.dtype,
-                                        device=x.device))
+        x = x * embed_scale(cfg.d_model, x.dtype)
     return x
 
 

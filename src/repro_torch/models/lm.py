@@ -83,9 +83,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def decode_step(model, cfg: ModelConfig, cache, tokens, pos, media=None):
-    """One-token decode. tokens: (B,1); pos: int.  Returns (logits (B,1,V),
-    cache), the cache updated in place at ``pos``."""
+    """One-token decode. tokens: (B,1); pos: a 1-element int64 tensor on
+    the cache's device (the reference's traced ``int32``) or an int.
+    Returns (logits (B,1,V), cache), the cache updated in place at ``pos``;
+    nothing reads the host, so a CUDA graph can capture the step."""
     del media
+    pos = L.decode_position(pos, tokens.device)
     x = C.embed_tokens(model.embed, cfg, tokens)
     for i, lp in enumerate(model.layers):
         h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)

@@ -68,7 +68,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 def decode_step(model, cfg: ModelConfig, cache, tokens, pos=None,
                 media=None):
-    """One-token decode; the state is updated in place."""
+    """One-token decode; the state is updated in place (so a warm-up step
+    runs on a clone of the cache, never on the one being served).  ``pos``
+    is unused: the state carries the position.  Nothing reads the host, so
+    a CUDA graph can capture the step."""
     del pos, media
     x = C.embed_tokens(model.embed, cfg, tokens)  # (B,1,E)
     for i, lp in enumerate(model.layers):

@@ -166,16 +166,30 @@ def attention_apply(params, cfg: ModelConfig, x, positions, is_global,
     return _out_proj(params, out)
 
 
+def decode_position(pos, device):
+    """The decode's position as a 1-element int64 tensor on ``device``: the
+    reference's traced ``int32`` scalar.  A tensor is taken as it is (a
+    captured decode step passes its static buffer); a Python int becomes
+    one by a fill on the device, never a copy from host memory.  Not a 0-d
+    tensor: indexing with one reads it on the host."""
+    if torch.is_tensor(pos):
+        return pos.reshape(1).long()
+    return torch.full((1,), pos, dtype=torch.int64, device=device)
+
+
 def attention_decode(params, cfg: ModelConfig, x, cache_k, cache_v, pos,
                      is_global, use_rope=True):
-    """One-token decode.  x: (B,1,E); cache: (B,T,K,D); pos: int index.
-    Writes the token's k/v into the cache in place (the reference returns
-    updated copies) and returns ``(out, cache_k, cache_v)``."""
+    """One-token decode.  x: (B,1,E); cache: (B,T,K,D); pos: a 1-element
+    int64 tensor (:func:`decode_position`) or an int.  Writes the token's
+    k/v into the cache in place at ``pos`` (the reference returns updated
+    copies), without reading ``pos`` on the host, and returns ``(out,
+    cache_k, cache_v)``."""
     B = x.shape[0]
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    pos = decode_position(pos, x.device)
+    positions = pos.view(1, 1).expand(B, 1)
     q, k, v = _qkv(params, cfg, x, positions, use_rope)
-    cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
+    cache_k.index_copy_(1, pos, k.to(cache_k.dtype))
+    cache_v.index_copy_(1, pos, v.to(cache_v.dtype))
     T = cache_k.shape[1]
     pk = torch.arange(T, dtype=torch.int32, device=x.device)[None, :]
     mask = causal_window_mask(positions, pk, cfg.window, is_global)

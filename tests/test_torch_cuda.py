@@ -1103,3 +1103,94 @@ def test_a_capture_that_fails_raises(dev, monkeypatch):
     with pytest.raises(KernelError, match="capturing"):
         et.run_loop(*args, kind="drf", policy="pooled", lookahead=False,
                     use_limit=True, max_steps=256, select="tiles")
+
+
+SERVED = ("qwen2_1_5b", "qwen3_8b", "gemma3_12b", "mistral_nemo_12b",
+          "granite_moe_3b", "rwkv6_3b")
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+@pytest.mark.parametrize("arch", SERVED)
+def test_graphed_decode_equals_eager(dev, arch, temperature):
+    """The decode on its captured graph (one capture) and the same step run
+    eagerly, from one prefill's cache, default bf16 compute: every step's
+    logits, the tokens and the cache bit for bit, greedy and sampled from
+    generators of one seed."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.common import get_family, init_model
+
+    cfg = get_config(arch, smoke=True)
+    fam = get_family(cfg)
+    model = init_model(fam, cfg, torch.Generator(dev).manual_seed(0))
+    P, gen = 24, 9
+    prompts = torch.randint(2, cfg.vocab_size, (3, P), device=dev,
+                            generator=torch.Generator(dev).manual_seed(1))
+    runs = {}
+    with torch.no_grad():
+        logits, cache = fam.prefill(model, cfg, prompts, max_seq=P + gen)
+        first = serve.pick(logits[:, -1])
+        for graph in (True, False):
+            steps, served = [], {k: v.clone() for k, v in cache.items()}
+            n = serve.CAPTURE_COUNT
+            out = serve.decode(fam, model, cfg, served, first, P, gen,
+                               temperature=temperature,
+                               sampler=torch.Generator(dev).manual_seed(5),
+                               graph=graph,
+                               on_step=lambda lg: steps.append(lg.clone()))
+            runs[graph] = (out["tokens"], steps, served,
+                           serve.CAPTURE_COUNT - n)
+    (tg, sg, cg, ng), (te, se, ce, ne) = runs[True], runs[False]
+    assert (ng, ne) == (1, 0)
+    np.testing.assert_array_equal(tg, te)
+    assert len(sg) == len(se) == gen - 1
+    for i, (a, b) in enumerate(zip(sg, se)):
+        assert torch.equal(a, b), f"step {i}"
+    for name in cache:
+        assert torch.equal(cg[name], ce[name]), name
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+@pytest.mark.parametrize("arch", SERVED)
+def test_graphed_serve_equals_eager_serve(dev, arch, temperature,
+                                          monkeypatch):
+    """``serve()`` on the card captures one decode graph a call and serves
+    the tokens of the same serve on the eager decode."""
+    from repro_torch.launch import serve
+
+    kw = dict(smoke=True, batch=2, prompt_len=16, gen=7,
+              temperature=temperature, seed=3, device="cuda")
+    n = serve.CAPTURE_COUNT
+    got = serve.serve(arch, **kw)
+    assert got["captures"] == 1 and serve.CAPTURE_COUNT == n + 1
+    assert not any(got["launches"]["decode"].values())
+    monkeypatch.setattr(serve, "decode", serve.decode_eager)
+    want = serve.serve(arch, **kw)
+    assert want["captures"] == 0
+    np.testing.assert_array_equal(got["tokens"], want["tokens"])
+
+
+def test_a_decode_capture_that_fails_raises(dev, monkeypatch):
+    """A decode step that reads the host cannot be captured: the serve
+    raises KernelError after the warm-up and the capture, and no step runs
+    eagerly in its place."""
+    from repro_torch.kernels import KernelError
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    calls, real = [], lm.decode_step
+
+    def syncing(*a, **k):
+        capturing = torch.cuda.is_current_stream_capturing()
+        calls.append(capturing)
+        out = real(*a, **k)
+        if capturing:
+            out[0].sum().item()
+        return out
+
+    monkeypatch.setattr(lm, "decode_step", syncing)
+    n = serve.CAPTURE_COUNT
+    with pytest.raises(KernelError, match="capturing"):
+        serve.serve("qwen2_1_5b", smoke=True, batch=2, prompt_len=8, gen=6,
+                    device="cuda")
+    assert calls == [False, True] and serve.CAPTURE_COUNT == n

@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from _torch_nosync import NoSync as _NoSync
 
 from repro.core import engine_jax as ej
 from repro_torch.core import engine_torch as et
@@ -107,21 +107,6 @@ def test_steps_past_the_end_change_nothing(crit, pol, path, max_steps):
     assert not bool(loop.flag)
     for a, b in zip(before, _snapshot(loop)):
         assert torch.equal(a, b)
-
-
-class _NoSync(TorchDispatchMode):
-    """Raises on the operations that make a CUDA stream wait for the host:
-    reading a device scalar, and the two whose output size depends on the
-    data."""
-
-    REFUSED = (torch.ops.aten._local_scalar_dense.default,
-               torch.ops.aten.nonzero.default,
-               torch.ops.aten.masked_select.default)
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func in self.REFUSED:
-            raise AssertionError(f"{func} syncs the host")
-        return func(*args, **(kwargs or {}))
 
 
 @pytest.mark.parametrize("path", list(PATHS))
