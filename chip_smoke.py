@@ -119,7 +119,19 @@ kernel from the sources in the checkout (nvcc into ``build/``).  Phases:
    size, 8 to exhaustion, on the step loop's captured graph (one capture a
    criterion; ms a step printed without it).  The paper's
    Figure 3-8 driver on the card equal to the CPU (2 seeds of its 8) and
-   the Figure 9 driver on the card with both claims passing.
+   the Figure 9 driver on the card with both claims passing;
+8. mesh: the multi-device epoch (``engine_torch.epoch_loop_mesh``) on K
+   logical shards of the one card (``launch.mesh.shard_devices``; no
+   interconnect is exercised) at the fleet size, from each pair's first
+   allocator epoch: all eight pairs at K = 2, rPS-DSF/pooled and DRF/RRR
+   at K = 1, 4 and 8, each on its captured graphs and equal to the plain
+   loop's grants and final X, FREE and used, whose grants equal K3's;
+   printed per run: ms an epoch and us a grant without the capture,
+   captures, chunk replays, beside the plain loop and K3 on the same
+   epoch.  The pooled rPS-DSF fleet fill on two shards equals K3's
+   one-launch fill.  With two cards or more, K = 2 also runs on two cards
+   (eagerly); otherwise the phase says it did not.  The mesh launches no
+   kernel (counted from zero around each run).
 
 Outside the chaos serve the allocator fault counters must be zero.
 Launches are counted per path, from zero just before it to just after it:
@@ -828,17 +840,18 @@ def plain_selects():
 
 
 @contextlib.contextmanager
-def graph_counts():
+def graph_counts(kind="LoopGraph"):
     """-> a dict that receives, for the epoch loop's graphs inside the
-    block, the chunk replays, the alive-flag reads (each one host sync),
-    the captures and the seconds they took."""
+    block (``engine_torch.LoopGraph``, or ``kind``: ``"MeshGraph"`` for the
+    mesh epoch's), the chunk replays, the alive-flag reads (each one host
+    sync), the captures and the seconds they took."""
     from unittest import mock
 
     from repro_torch.core import engine_torch as et
 
+    cls = getattr(et, kind)
     n = dict(replays=0, reads=0, captures=0, capture_s=0.0)
-    init, replay_, alive = (et.LoopGraph.__init__, et.LoopGraph.replay,
-                            et.LoopGraph.alive)
+    init, replay_, alive = cls.__init__, cls.replay, cls.alive
 
     def timed_init(self, *a, **k):
         t0 = time.perf_counter()
@@ -854,9 +867,9 @@ def graph_counts():
         n["reads"] += 1
         return alive(self)
 
-    with mock.patch.object(et.LoopGraph, "__init__", timed_init), \
-            mock.patch.object(et.LoopGraph, "replay", counted_replay), \
-            mock.patch.object(et.LoopGraph, "alive", counted_alive):
+    with mock.patch.object(cls, "__init__", timed_init), \
+            mock.patch.object(cls, "replay", counted_replay), \
+            mock.patch.object(cls, "alive", counted_alive):
         yield n
 
 
@@ -1147,6 +1160,167 @@ def chunks_phase(dev, agents, fws):
                     + "; ".join(row))
     finally:
         et.CHUNK = chunk0
+
+
+# -- phase 8: the multi-device epoch on logical shards -----------------------
+
+#: the mesh phase's runs: every pair at K = 2 shards, two pairs at K = 1, 4
+#: and 8
+MESH_RUNS = ([(c, p, 2) for c in CRITERIA for p in POLICIES]
+             + [(c, p, k) for k in (1, 4, 8) for c, p in EAGER_CHECKS])
+
+
+def timed(fn):
+    """-> (fn(), wall ms) between two device syncs."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def step_calls(a, kw, devices=None):
+    """ATen calls (views excluded) of one step of the plain loop, or with
+    ``devices`` of the mesh loop, on the epoch arguments ``a``: what a
+    captured chunk holds a step, about one kernel each."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.core import engine_torch as et
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func._schema.name.endswith(VIEW_OPS):
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    args = et.epoch_state(*a, kind=kw["kind"], lookahead=kw["lookahead"],
+                          use_limit=kw["use_limit"])
+    tensors = et._loop_tensors(*args[:16])
+    if devices is None:
+        loop = et.EpochLoop(tensors, **kw)
+    else:
+        loop = et.MeshLoop(et.mesh_groups(tensors, devices, kind=kw["kind"],
+                                          policy=kw["policy"]), devices, **kw)
+    loop.reset(*args[16:])
+    with Count() as c:
+        loop.step()
+    return c.n
+
+
+#: ATen operations that make a view (no kernel), by schema name suffix
+VIEW_OPS = ("::view", "::_unsafe_view", "::reshape", "::expand",
+            "::transpose", "::t", "::select", "::slice", "::unsqueeze",
+            "::squeeze", "::permute", "::alias")
+
+
+def mesh_phase(dev, agents, fws, seed):
+    """The multi-device epoch (``engine_torch.epoch_loop_mesh``) on K
+    logical shards of the one card (``mesh.shard_devices``) at the fleet
+    size, from each pair's first allocator epoch (its frozen view, the rng
+    rewound): every pair at K = 2, rPS-DSF/pooled and DRF/RRR at K = 1, 4
+    and 8.  Each run's grants and final X, FREE and used must equal the
+    single-device plain loop's on its graphs, whose grants must equal K3's
+    (the allocator's epoch); the mesh launches no kernel.  Then the pooled
+    rPS-DSF fleet fill on two shards against K3's one-launch fill, and K =
+    2 on two cards where the machine has them."""
+    import torch
+
+    from repro_torch.core import engine_torch as et
+    from repro_torch.core.filling_torch import progressive_fill_torch
+    from repro_torch.launch import mesh
+
+    t_phase = time.perf_counter()
+    firsts = {}
+    for crit, pol, K in MESH_RUNS:
+        if (crit, pol) not in firsts:
+            al = build_allocator(agents, fws, crit, pol, dev, seed)
+            reset_counts()
+            ep = al.begin_epoch(per_agent_limit=1, use_kernel="fused")
+            k3_seq = ep.handle.result()
+            n = read_counts()
+            check(n["persistent_epoch"] == 1, f"mesh {crit}/{pol}: the "
+                  f"allocator's epoch launched {n}")
+            with loop_calls() as calls, graph_counts() as g:
+                seq, plain_ms = timed(lambda: replay(crit, pol, ep, dev,
+                                                     None))
+            check(seq == k3_seq and seq, f"mesh {crit}/{pol}: the plain "
+                  "loop's grants differ from K3's")
+            a, k, out = calls[-1]
+            check(int(out[2]) == len(seq), f"mesh {crit}/{pol}: the epoch "
+                  f"took {len(calls)} dispatches")
+            kw = {x: v for x, v in k.items() if x not in ("kernel",
+                                                          "shards")}
+            k3_ms = cuda_ms(lambda: et.epoch_loop(*a, **kw), 1)
+            firsts[(crit, pol)] = (a, kw, out, seq,
+                                   plain_ms - g["capture_s"] * 1e3, k3_ms,
+                                   step_calls(a, kw))
+            al.abort_epoch(ep)
+        a, kw, out, seq, plain_ms, k3_ms, plain_calls = firsts[(crit, pol)]
+        reset_counts()
+        with graph_counts("MeshGraph") as g:
+            got, ms = timed(lambda: et.epoch_loop_mesh(
+                *a, **kw, devices=mesh.shard_devices(K, dev)))
+        n = read_counts()
+        check(not any(n.values()), f"mesh {crit}/{pol} K={K}: launched {n}")
+        count = int(got[2])
+        mseq = list(zip(got[0][:count].tolist(), got[1][:count].tolist()))
+        check(mseq == seq, f"mesh {crit}/{pol} K={K}: grants differ from "
+              "the plain loop")
+        for name, i in (("X", 3), ("FREE", 5), ("used", 6)):
+            check(torch.equal(got[i], out[i]), f"mesh {crit}/{pol} K={K}: "
+                  f"final {name} differs from the plain loop")
+        check(g["captures"] <= 1 and g["replays"] > 0, f"mesh {crit}/{pol} "
+              f"K={K}: graphs {g}")
+        ms -= g["capture_s"] * 1e3
+        calls = step_calls(a, kw, mesh.shard_devices(K, dev))
+        log(f"mesh {crit}/{pol} K={K}: {count} grants, {ms:.1f} ms an epoch "
+            f"without the capture, {ms / count * 1e3:.1f} us a grant, "
+            f"{calls} ATen calls a step; {g['captures']} captures "
+            f"{g['capture_s']:.2f} s, {g['replays']} chunk replays, "
+            f"{g['reads']} flag reads; equal to the plain loop "
+            f"({plain_ms:.1f} ms, {plain_ms / count * 1e3:.1f} us a grant, "
+            f"{plain_calls} ATen calls a step) and to K3 ({k3_ms:.2f} ms, "
+            f"{k3_ms / count * 1e3:.2f} us a grant)")
+    # the pooled fill on two shards against K3's one-launch fill
+    D, C, phi, allowed = fleet_fill_inputs(agents, fws, dev)
+    kw = dict(criterion="rpsdsf", policy="pooled", tie="low",
+              lookahead=False, max_steps=FLEET_FILL_STEPS, allowed=allowed)
+    reset_counts()
+    x3 = progressive_fill_torch(D, C, phi, None, **kw)
+    n = read_counts()
+    check(n["persistent_epoch"] == 1, f"mesh fill: K3 launched {n}")
+    reset_counts()
+    with graph_counts("MeshGraph") as g:
+        xm, ms = timed(lambda: progressive_fill_torch(
+            D, C, phi, None, devices=mesh.shard_devices(2, dev), **kw))
+    n = read_counts()
+    check(not any(n.values()), f"mesh fill: launched {n}")
+    check(torch.equal(x3, xm), "mesh fill rpsdsf K=2 differs from K3's")
+    grants = int(xm.sum())
+    ms -= g["capture_s"] * 1e3
+    log(f"mesh fill rpsdsf/pooled K=2 {D.shape[0]}x{C.shape[0]}: {grants} "
+        f"grants, {ms:.1f} ms without the capture ({ms / grants * 1e3:.1f} "
+        f"us a grant), {g['captures']} captures {g['capture_s']:.2f} s, "
+        f"{g['replays']} replays; equal to K3's fill")
+    if torch.cuda.device_count() >= 2:
+        a, kw, out, seq, *_ = firsts[("rpsdsf", "pooled")]
+        got, ms = timed(lambda: et.epoch_loop_mesh(
+            *a, **kw, devices=mesh.make_agent_mesh(2, "cuda")))
+        count = int(got[2])
+        check(list(zip(got[0][:count].tolist(), got[1][:count].tolist()))
+              == seq and torch.equal(got[3], out[3]), "mesh rpsdsf/pooled "
+              "on two cards differs from the plain loop")
+        log(f"mesh rpsdsf/pooled on two cards: {count} grants, {ms:.1f} ms "
+            f"(eager, {ms / count * 1e3:.1f} us a grant); equal")
+    else:
+        log("mesh on two distinct cards: not run on this machine "
+            f"({torch.cuda.device_count()} CUDA device)")
+    log(f"mesh phase {time.perf_counter() - t_phase:.1f} s; the mesh runs "
+        "launched no kernel")
 
 
 # -- phase 3: the simulator ------------------------------------------------
@@ -2120,22 +2294,26 @@ def saturated(x, D, C, allowed):
 
 
 @contextlib.contextmanager
-def loop_counts():
-    """-> a list that receives the grant count of every
+def loop_calls():
+    """-> a list that receives ``(args, kwargs, outputs)`` of every
     ``engine_torch.epoch_loop`` run inside the block."""
     from unittest import mock
 
     from repro_torch.core import engine_torch
 
-    counts, loop = [], engine_torch.epoch_loop
+    calls, loop = [], engine_torch.epoch_loop
 
     def spy(*a, **k):
         out = loop(*a, **k)
-        counts.append(int(out[2]))
+        calls.append((a, k, out))
         return out
 
     with mock.patch.object(engine_torch, "epoch_loop", spy):
-        yield counts
+        yield calls
+
+
+def grant_counts(calls):
+    return [int(out[2]) for _a, _k, out in calls]
 
 
 def k3_plain():
@@ -2236,8 +2414,9 @@ def fleet_fill(dev, agents, fws):
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with loop_counts() as count:
+        with loop_calls() as calls:
             x = fill()
+        count = grant_counts(calls)
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3
         n = k3.persistent_epoch.launches
@@ -2245,12 +2424,13 @@ def fleet_fill(dev, agents, fws):
         launches += n
         grid = k3.persistent_epoch.grid
         ms = cuda_ms(fill, 3, warmup=0)
-        with k3_plain(), loop_counts() as count_plain, graph_counts() as g:
+        with k3_plain(), loop_calls() as calls, graph_counts() as g:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             y = fill()
             torch.cuda.synchronize()
             plain_s = time.perf_counter() - t0
+        count_plain = grant_counts(calls)
         check(g["replays"] > 0, f"fleet fill {crit}: K3's plain version "
               "ran no graph")
         check(torch.equal(x, y) and count == count_plain,
@@ -2368,10 +2548,11 @@ def fill_phase(dev, agents, fws, seed):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="kernels,allocator,des,serve,gang,models,fill",
+                    default="kernels,allocator,des,serve,gang,models,fill,"
+                    "mesh",
                     help="comma list of kernels, allocator, des, serve, gang, "
-                    "models, fill, and chunks (a sweep of the epoch loop's "
-                    "chunk size; not a default phase)")
+                    "models, fill, mesh, and chunks (a sweep of the epoch "
+                    "loop's chunk size; not a default phase)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -2452,6 +2633,8 @@ def main(argv=None):
             f"{fill_launches}")
         check(fill_launches > 0, "the fill path never launched "
               "persistent_epoch")
+    if "mesh" in phases:
+        mesh_phase(dev, agents, fws, args.seed)
     meta = {
         "masked_argmin1d": dict(
             route="cuda",

@@ -44,9 +44,13 @@ reads one alive flag a chunk; each graph is captured once per
 of the reference's jit cache, and :data:`CAPTURE_COUNT` is the counterpart
 of its ``TRACE_COUNT``.  On the CPU the same step runs eagerly.
 
-Not ported yet: the multi-device mesh epoch (``devices > 1`` raises after
-clamping to the device count).  Buffer donation has no counterpart: a
-graph's buffers are its own, and a segment is copied in and out.
+The multi-device epoch (:func:`epoch_loop_mesh`, the reference's
+``shard_map`` over the agent axis) runs on an
+:class:`~repro_torch.launch.mesh.AgentMesh`: each shard keeps its column
+block of the epoch state and a per-row minima cache, and one process drives
+all shards through :class:`MeshLoop`, reducing partials with the mesh's
+``gmin``/``gsum``/``gany``.  Buffer donation has no counterpart: a graph's
+buffers are its own, and a segment is copied in and out.
 """
 from __future__ import annotations
 
@@ -63,6 +67,7 @@ from repro_torch.kernels import KernelError
 from repro_torch.kernels.epoch_persistent.ops import persistent_epoch
 from repro_torch.kernels.psdsf_score import ops as _tiles
 from repro_torch.kernels.psdsf_score.ops import next_pow2
+from repro_torch.launch import mesh as _mesh
 
 _BIG = 3.0e38
 _IBIG = 2**31 - 1
@@ -172,14 +177,15 @@ def _tiles_2d(mat, ok, out):
     return n, j
 
 
-def _dominant_col(D, cap_j, big):
-    """(N, 1) dominant shares against one server's residual ``cap_j``
-    (1, R): ``criteria.virtual_dominant``'s arithmetic with sentinel
-    ``big``."""
-    safe = torch.where(cap_j > 1e-12, cap_j, 1e-30)
-    frac = D / safe
-    frac = torch.where((cap_j <= 1e-12) & (D > 0.0), big, frac)
-    return frac.amax(1, keepdim=True)
+def _dominant_cols(D, cap, big):
+    """(k, N) dominant shares against each of ``k`` residuals ``cap`` (k,
+    R): ``criteria.virtual_dominant``'s arithmetic with sentinel ``big``,
+    a column a residual."""
+    safe = torch.where(cap > 1e-12, cap, 1e-30)[:, None, :]
+    frac = D[None] / safe
+    frac = torch.where((cap <= 1e-12)[:, None, :] & (D > 0.0)[None], big,
+                       frac)
+    return frac.amax(2)
 
 
 def _index(v, size):
@@ -348,7 +354,8 @@ class EpochLoop:
                 cap_j = (t["C"].index_select(0, j1)
                          - X.index_select(1, j1).T @ D)          # (1, R)
                 _put(t["cap"], 0, j1, cap_j, alive)
-                _put(dom, 1, j1, _dominant_col(D, cap_j, self.dom_big), alive)
+                _put(dom, 1, j1, _dominant_cols(D, cap_j, self.dom_big).T,
+                     alive)
                 _put(s, 1, j1, ((tot + la) / t["phi"])[:, None]
                      * dom.index_select(1, j1), alive)
             _put(s, 0, n1, (xt_n / phi_n)[:, None] * dom.index_select(0, n1),
@@ -662,6 +669,481 @@ def epoch_loop(X, D, TD, C, FREE, phi, wanted, allowed, perms, used,
                     else "plain", shards=shards)
 
 
+# -- the multi-device epoch (the reference's epoch_loop_mesh) -----------------
+
+def _cols(t, jl):
+    """(k, N) column ``jl[i]`` of each shard's (N, Js) block of ``t``."""
+    k, N, _ = t.shape
+    return t.gather(2, jl.view(k, 1, 1).expand(k, N, 1))[..., 0]
+
+
+def _set_cols(t, jl, v):
+    """Each shard's column ``jl[i]`` of ``t`` becomes ``v[i]``."""
+    k, N, _ = t.shape
+    t.scatter_(2, jl.view(k, 1, 1).expand(k, N, 1), v[..., None])
+
+
+def _row_scan(s, feas):
+    """Exact per-row masked block minima and the first column attaining
+    each, (k, N) each."""
+    masked = torch.where(feas, s, _BIG)
+    return masked.amin(2), masked.argmin(2).to(torch.int32)
+
+
+#: what every mesh group holds whole: the replicated state and constants
+MESH_SHARED = ("tot", "D", "TD", "phi", "wanted", "perms", "aux")
+
+
+def mesh_groups(tensors: dict, mesh, *, kind: str, policy: str) -> list:
+    """Split one segment's global tensors (a dict keyed by
+    :data:`LOOP_TENSORS`, after the global f32 score init of
+    :func:`epoch_state`) by column onto the mesh: one dict a group, its
+    shards' blocks stacked along a leading axis on the group's device, with
+    the replicated tensors (:data:`MESH_SHARED`) copied whole.  ``X``,
+    ``FREE``, ``feas``, ``used``, ``allowed`` and ``C`` are split, and
+    ``s`` and ``dom`` for PS-DSF/rPS-DSF and ``cap`` for rPS-DSF; otherwise
+    the group holds a replicated ``s`` and (1, 1, 1) dummies.  Adds each
+    block's feasibility
+    counts by row (``fcnt``) and column (``ccnt``) and, for pooled
+    PS-DSF/rPS-DSF, its per-row masked minima ``rmin`` and their columns
+    ``rarg``."""
+    X = tensors["X"]
+    N, J = X.shape
+    K = mesh.size
+    Js = J // K
+    ss = kind in ("psdsf", "rpsdsf")
+    split = {
+        "X": X.reshape(N, K, Js).transpose(0, 1),
+        "FREE": tensors["FREE"].reshape(K, Js, -1),
+        "feas": tensors["feas"].reshape(N, K, Js).transpose(0, 1),
+        "used": tensors["used"].reshape(K, Js),
+        "allowed": tensors["allowed"].reshape(N, K, Js).transpose(0, 1),
+        "C": tensors["C"].reshape(K, Js, -1),
+    }
+    if ss:
+        for name in ("dom", "s"):
+            split[name] = tensors[name].reshape(N, K, Js).transpose(0, 1)
+    if kind == "rpsdsf":
+        split["cap"] = tensors["cap"].reshape(K, Js, -1)
+    groups = []
+    for dev, a, b in mesh.groups:
+        g = {name: blk[a:b].to(dev).clone(
+            memory_format=torch.contiguous_format)
+            for name, blk in split.items()}
+        for name in MESH_SHARED + (() if ss else ("s",)):
+            g[name] = tensors[name].to(dev).clone()
+        g["perms"] = g["perms"].long()
+        for name in ("cap", "dom"):
+            g.setdefault(name, torch.zeros((1, 1, 1), dtype=torch.float32,
+                                           device=dev))
+        g["fcnt"] = g["feas"].sum(2, dtype=torch.int32)
+        g["ccnt"] = g["feas"].sum(1, dtype=torch.int32)
+        if policy == "pooled" and ss:
+            g["rmin"], g["rarg"] = _row_scan(g["s"], g["feas"])
+        else:
+            g["rmin"] = torch.zeros((b - a, N), dtype=torch.float32,
+                                    device=dev)
+            g["rarg"] = torch.zeros((b - a, N), dtype=torch.int32,
+                                    device=dev)
+        groups.append(g)
+    return groups
+
+
+class MeshLoop:
+    """The mesh epoch's loop over the mesh's groups (dicts from
+    :func:`mesh_groups`): the reference's ``shard_body`` ``cond`` and
+    ``body`` (``engine_jax.epoch_loop_mesh``) for all K shards, as
+    :meth:`step`, with the rules of :class:`EpochLoop`: every write
+    predicated on the loop being alive, every index a 1-element tensor, no
+    host sync.  The group tensors are updated in place.
+
+    Each group holds its own copy of the replicated loop state (``count``,
+    ``pidx``, ``pos``, ``alive``, the grant sequence ``nsjs``), as each
+    device does in the reference; a step computes it identically on every
+    group from the same reduced partials.  A grant touches one column of
+    one shard (its owner) and one row of every shard.
+
+    Per-row minima cache (pooled PS-DSF/rPS-DSF): the global select is one
+    ``gmin`` over the shards' (N,) row minima and one over the first
+    qualifying column of the winning row.  Epoch updates only raise masked
+    scores, so a grant at (n, j) leaves every cached row exact except row
+    n, which every shard re-scans, and, on the owner, rows whose cached
+    minimum sat in column j and strictly rose.  The reference re-scans the
+    owner's block only then (``lax.cond``); here the block is re-scanned
+    every step and the scan's rows taken by ``torch.where`` where that
+    holds: the same values, with no branch on the host."""
+
+    def __init__(self, groups: list, mesh, *, kind: str, policy: str,
+                 lookahead: bool, use_limit: bool, max_steps: int):
+        self.g, self.mesh = groups, mesh
+        _k, self.N, self.Js = groups[0]["X"].shape
+        self.K = mesh.size
+        self.J = self.K * self.Js
+        self.R = groups[0]["D"].shape[1]
+        self.kind, self.policy = kind, policy
+        self.la = 1.0 if lookahead else 0.0
+        self.use_limit, self.max_steps = use_limit, max_steps
+        self.ss = kind in ("psdsf", "rpsdsf")
+        i32 = torch.int32
+        self.st = []
+        for (dev, a, b), g in zip(mesh.groups, groups):
+            one = lambda dtype: torch.zeros(1, dtype=dtype, device=dev)  # noqa
+            ar = lambda n: torch.arange(n, dtype=i32, device=dev)  # noqa
+            self.st.append(dict(
+                count=one(i32), pidx=one(i32), pos=one(i32),
+                alive=one(torch.bool), j_real=one(i32), limit=one(i32),
+                eps=one(torch.float32),
+                nsjs=torch.full((2, max_steps), -1, dtype=i32, device=dev),
+                ax=ar(b - a) + a, offs=(ar(b - a) + a) * self.Js,
+                sidx=torch.arange(b - a, device=dev),
+                arangeN=ar(self.N), arangeJs=ar(self.Js), arangeJ=ar(self.J),
+                a=a, b=b))
+        self.flag = torch.zeros(1, dtype=torch.bool, device=mesh.lead)
+
+    def reset(self, pidx0, pos0, j_real, limit, eps, alive=True):
+        """Start a segment: no grants yet, the RRR cursor at (pidx0,
+        pos0)."""
+        for s in self.st:
+            s["count"].zero_()
+            s["nsjs"].fill_(-1)
+            for name, v in (("pidx", pidx0), ("pos", pos0),
+                            ("j_real", j_real), ("limit", limit),
+                            ("eps", eps), ("alive", alive)):
+                s[name].fill_(v)
+
+    def alive_now(self):
+        """(1,) bool on the lead device: the reference's ``cond``."""
+        s = self.st[0]
+        return s["alive"] & (s["count"] < self.max_steps)
+
+    # -- select: the reference's shard_body._select ------------------------
+
+    def _select_pooled_2d(self):
+        grmin = self.mesh.gmin([g["rmin"] for g in self.g])
+        sel, parts = [], []
+        for g, s, gm in zip(self.g, self.st, grmin):
+            m = gm.min().reshape(1)
+            thr = m + (1e-9 + 1e-6 * m.abs())    # _argmin_tie_low's
+            n1 = _index(torch.where(gm <= thr, s["arangeN"], _IBIG).min(),
+                        self.N)
+            row = torch.where(g["feas"].index_select(1, n1),
+                              g["s"].index_select(1, n1), _BIG)[:, 0]
+            parts.append(torch.where(row <= thr, s["offs"][:, None]
+                                     + s["arangeJs"], _IBIG).amin(1))
+            sel.append((n1, m < _BIG))
+        return [(n1, j, found, s["pidx"], s["pos"]) for (n1, found), j, s
+                in zip(sel, self.mesh.gmin(parts), self.st)]
+
+    def _select_pooled_1d(self):
+        cnt = self.mesh.gsum([g["fcnt"] for g in self.g])
+        sel, parts = [], []
+        for g, s, c in zip(self.g, self.st, cnt):
+            row_ok = c > 0
+            n1 = _index(_argmin_tie_low(g["s"], row_ok), self.N)
+            row = g["feas"].index_select(1, n1)[:, 0]
+            parts.append(torch.where(row, s["offs"][:, None]
+                                     + s["arangeJs"], _IBIG).amin(1))
+            sel.append((n1, row_ok.any().reshape(1)))
+        return [(n1, j, found, s["pidx"], s["pos"]) for (n1, found), j, s
+                in zip(sel, self.mesh.gmin(parts), self.st)]
+
+    def _ranks(self, g, s, row):
+        """This group's shards' (k, Js) ranks in permutation ``row`` of
+        the stack (a 1-element index, clamped to the stack)."""
+        perms = g["perms"]
+        perm = perms.index_select(0, row.clamp(max=perms.shape[0] - 1))[0]
+        rank = torch.zeros(self.J, dtype=torch.int32,
+                           device=perm.device).scatter_(0, perm,
+                                                        s["arangeJ"])
+        return rank.view(self.K, self.Js)[s["a"]:s["b"]]
+
+    def _select_rrr(self):
+        mesh, J, Js = self.mesh, self.J, self.Js
+        # the round's next feasible server from the running column counts
+        pre, parts = [], []
+        for g, s in zip(self.g, self.st):
+            rank = self._ranks(g, s, s["pidx"])
+            server_ok = g["ccnt"] > 0
+            ahead = server_ok & (rank >= s["pos"])
+            pre.append((server_ok, rank, ahead))
+            parts.append(ahead.any(1))
+        anys, wraps, parts = mesh.gany(parts), [], []
+        for g, s, (server_ok, rank, ahead), any_ahead in zip(
+                self.g, self.st, pre, anys):
+            wrap = ~any_ahead.reshape(1)
+            rank2 = self._ranks(g, s, s["pidx"] + 1)
+            eff_rank = torch.where(wrap, rank2, rank)
+            eff_ok = torch.where(wrap, server_ok, ahead)
+            # one fused (rank, server) key: ranks are a permutation
+            parts.append(torch.where(eff_ok, eff_rank * J + s["offs"][:, None]
+                                     + s["arangeJs"], _IBIG).amin(1))
+            wraps.append(wrap)
+        keys = [k.reshape(1) for k in mesh.gmin(parts)]
+        # the best framework on the owner's column, broadcast by a sum
+        # that exactly one owner contributes to
+        parts = []
+        for g, s, key in zip(self.g, self.st, keys):
+            j = key % J
+            ow = (j // Js) == s["ax"]
+            jl = (j - s["offs"]).clamp(0, Js - 1).long()
+            fcol = torch.where(ow[:, None], _cols(g["feas"], jl),
+                               False).float()
+            if self.ss:
+                colv = torch.where(ow[:, None], _cols(g["s"], jl), 0.0)
+                parts.append(torch.stack([colv, fcol], 1))
+            else:
+                parts.append(fcol)
+        out = []
+        for g, s, key, wrap, pay in zip(self.g, self.st, keys, wraps,
+                                        mesh.gsum(parts)):
+            if self.ss:
+                col, fcol = pay[0], pay[1] > 0.5
+            else:
+                col, fcol = g["s"], pay > 0.5
+            n1 = _index(_argmin_tie_low(col, fcol), self.N)
+            mrank = key // J
+            last = mrank == s["j_real"] - 1
+            pidx = s["pidx"] + wrap.to(torch.int32) + last.to(torch.int32)
+            pos = torch.where(last, 0, mrank + 1).to(torch.int32)
+            out.append((n1, key % J, key < _IBIG, pidx, pos))
+        return out
+
+    # -- the step: the reference's shard_body.body -------------------------
+
+    def step(self):
+        """One pass of the reference's ``body`` on every shard where
+        ``cond`` holds; where it does not, every tensor is left as it
+        was."""
+        live = [s["alive"] & (s["count"] < self.max_steps) for s in self.st]
+        if self.policy == "pooled":
+            sel = (self._select_pooled_2d() if self.ss
+                   else self._select_pooled_1d())
+        else:
+            sel = self._select_rrr()
+        for g, s, lv, (n1, j, found, pidx, pos) in zip(self.g, self.st,
+                                                       live, sel):
+            self._grant(g, s, n1, j.reshape(1).to(torch.int32),
+                        found.reshape(1) & lv, pidx, pos, lv)
+
+    def _grant(self, g, s, n1, j, found, pidx, pos, live):
+        N, Js, R = self.N, self.Js, self.R
+        f32, i32 = torch.float32, torch.int32
+        la = self.la
+        X, tot, FREE, feas, used = g["X"], g["tot"], g["FREE"], g["feas"], \
+            g["used"]
+        fcnt, ccnt, sc = g["fcnt"], g["ccnt"], g["s"]
+        # owner-predicated block updates: adding 0 elsewhere keeps the
+        # other shards' blocks bit for bit (the state is >= +0.0)
+        ow = ((j // Js) == s["ax"]) & found                      # (k,)
+        jl = (j - s["offs"]).clamp(0, Js - 1).long()             # (k,)
+        owf = ow.to(f32)
+        sj = s["sidx"] * Js + jl                                 # (k,)
+        X.view(-1).index_add_(0, s["sidx"] * (N * Js) + n1 * Js + jl, owf)
+        tot.index_add_(0, n1, found.to(f32))
+        FREE.view(-1, R).index_add_(0, sj, -g["TD"].index_select(0, n1)
+                                    * owf[:, None])
+        used.view(-1).index_add_(0, sj, ow.to(i32))
+        # feasibility: the owner's column j, then row n if n is satisfied
+        wants = tot < g["wanted"]
+        FREEj = FREE.view(-1, R).index_select(0, sj)             # (k, R)
+        colf = (wants & _cols(g["allowed"], jl)
+                & (g["TD"] <= (FREEj + s["eps"])[:, None, :]).all(2))
+        if self.use_limit:
+            colf = colf & (used.view(-1).index_select(0, sj)
+                           < s["limit"])[:, None]
+        old_col = _cols(feas, jl)
+        new_col = torch.where(ow[:, None], colf, old_col)
+        _set_cols(feas, jl, new_col)
+        dcol = old_col.to(i32) - new_col.to(i32)                 # removals
+        fcnt.sub_(dcol)
+        ccnt.view(-1).index_add_(0, sj, -dcol.sum(1, dtype=i32))
+        dead = found & ~wants.index_select(0, n1)
+        old_row = feas.index_select(1, n1)[:, 0]                 # (k, Js)
+        drow = torch.where(dead, old_row.to(i32), 0)
+        feas.index_copy_(1, n1, (old_row & ~dead)[:, None])
+        fcnt.index_add_(1, n1, -drow.sum(1, keepdim=True, dtype=i32))
+        ccnt.sub_(drow)
+        # score refresh: the owner's column slice and the granted row
+        phi = g["phi"]
+        phi_n = phi.index_select(0, n1)
+        xt_n = tot.index_select(0, n1) + la
+        stale = None
+        if self.policy == "pooled" and self.ss:
+            rmin, rarg = g["rmin"], g["rarg"]
+        if self.kind == "drf":
+            _put(sc, 0, n1, xt_n * g["aux"].index_select(0, n1) / phi_n,
+                 found)
+        elif self.kind == "tsf":
+            _put(sc, 0, n1, xt_n / g["aux"].index_select(0, n1), found)
+        else:
+            dom = g["dom"]
+            if self.kind == "rpsdsf":
+                D, cap = g["D"], g["cap"]
+                used_d = torch.cat([X[i].index_select(1, jl[i:i + 1]).T @ D
+                                    for i in range(X.shape[0])])  # (k, R)
+                capj = g["C"].view(-1, R).index_select(0, sj) - used_d
+                capj = torch.where(ow[:, None], capj,
+                                   cap.view(-1, R).index_select(0, sj))
+                cap.view(-1, R).index_copy_(0, sj, capj)
+                domc = torch.where(ow[:, None],
+                                   _dominant_cols(D, capj, criteria._BIG),
+                                   _cols(dom, jl))
+                _set_cols(dom, jl, domc)
+                col = torch.where(ow[:, None], ((tot + la) / phi)[None]
+                                  * domc, _cols(sc, jl))
+                _set_cols(sc, jl, col)
+            if self.policy == "pooled":
+                # the cache's stale rows, against the cached values
+                newc = torch.where(_cols(feas, jl), _cols(sc, jl), _BIG)
+                stale = ((rarg == jl[:, None].to(i32)) & (rmin < _BIG)
+                         & (s["arangeN"] != n1) & (newc > rmin))
+            _put(sc, 1, n1, (xt_n / phi_n) * dom.index_select(1, n1), found)
+        if stale is not None:
+            # every shard re-scans the granted row; the owner's stale rows
+            # take the block's fresh scan
+            rowm = torch.where(feas.index_select(1, n1),
+                               sc.index_select(1, n1), _BIG)[:, 0]
+            _put(rmin, 1, n1, rowm.amin(1, keepdim=True), found)
+            _put(rarg, 1, n1, rowm.argmin(1, keepdim=True).to(i32), found)
+            redo = (ow & stale.any(1))[:, None]
+            smin, sarg = _row_scan(sc, feas)
+            rmin.copy_(torch.where(redo, smin, rmin))
+            rarg.copy_(torch.where(redo, sarg, rarg))
+        _put(s["nsjs"], 1, s["count"].clamp(max=self.max_steps - 1).long(),
+             torch.cat([n1.to(i32), j])[:, None], found)
+        s["count"].add_(found.to(i32))
+        if self.policy == "rrr":
+            s["pidx"].copy_(torch.where(found, pidx, s["pidx"]))
+            s["pos"].copy_(torch.where(found, pos, s["pos"]))
+        s["alive"].copy_(torch.where(live, found, s["alive"]))
+
+    def run(self, steps: int):
+        """``steps`` steps, then the alive flag for the next one."""
+        for _ in range(steps):
+            self.step()
+        self.flag.copy_(self.alive_now())
+
+    def result(self):
+        """-> ``(ns, js, count, X, tot, FREE, used, pidx, pos)`` on the
+        lead device, the blocks joined along the agent axis."""
+        lead, s = self.mesh.lead, self.st[0]
+
+        def joined(name):
+            return torch.cat([g[name].to(lead) for g in self.g])
+
+        X = joined("X").transpose(0, 1).reshape(self.N, self.J)
+        return (s["nsjs"][0], s["nsjs"][1], s["count"].reshape(()), X,
+                self.g[0]["tot"], joined("FREE").reshape(self.J, self.R),
+                joined("used").reshape(self.J), s["pidx"].reshape(()),
+                s["pos"].reshape(()))
+
+
+class MeshGraph(CapturedGraph):
+    """:data:`CHUNK` steps of a :class:`MeshLoop` whose shards all sit on
+    one card, on static buffers, captured as one CUDA graph (the
+    counterpart of the reference's jitted mesh loop; the captures count in
+    :data:`CAPTURE_COUNT`)."""
+
+    def __init__(self, groups: list, mesh, loop_kw: dict):
+        global CAPTURE_COUNT
+        self.static = [{k: torch.zeros_like(v) for k, v in g.items()}
+                       for g in groups]
+        self.loop = MeshLoop(self.static, mesh, **loop_kw)
+        # the warm-up's steps are all dead
+        self.loop.reset(0, 0, 0, 0, 0.0, alive=False)
+        super().__init__(mesh.lead, lambda: self.loop.run(2),
+                         lambda: self.loop.run(CHUNK))
+        CAPTURE_COUNT += 1
+
+    def load(self, groups: list, pidx0, pos0, j_real, limit, eps):
+        """Copy a segment's group tensors into the buffers and start it."""
+        for st, g in zip(self.static, groups):
+            for k, v in g.items():
+                st[k].copy_(v)
+        self.loop.reset(pidx0, pos0, j_real, limit, eps)
+
+    def replay(self):
+        """One chunk of steps; no host sync."""
+        self.graph.replay()
+
+    def alive(self) -> bool:
+        """The alive flag after the last chunk: one host sync."""
+        return bool(self.loop.flag.item())
+
+    def unload(self):
+        """-> fresh copies of :meth:`MeshLoop.result`."""
+        return tuple(t.clone() for t in self.loop.result())
+
+
+def mesh_graph_key(groups: list, mesh, *, kind, policy, lookahead,
+                   use_limit, max_steps):
+    """What a captured chunk of the mesh loop bakes in: :func:`graph_key`'s
+    parts, with the mesh's shards and groups in place of the selects."""
+    g = groups[0]
+    _k, N, Js = g["X"].shape
+    return ("mesh", str(mesh.lead), N, mesh.size * Js, g["D"].shape[1],
+            g["perms"].shape[0],
+            tuple((k, str(v.dtype), tuple(v.shape)) for k, v in g.items()),
+            max_steps, kind, policy, bool(lookahead), bool(use_limit),
+            mesh.key(), CHUNK)
+
+
+def epoch_loop_mesh(X, D, TD, C, FREE, phi, wanted, allowed, perms, used,
+                    pidx0, pos0, j_real, limit, eps, *, kind: str,
+                    policy: str, lookahead: bool, use_limit: bool,
+                    max_steps: int, devices=1):
+    """Multi-device epoch segment: the agent (server) axis split over
+    ``devices``, an :class:`~repro_torch.launch.mesh.AgentMesh` or a count
+    of devices for :func:`~repro_torch.launch.mesh.make_agent_mesh` on
+    ``X``'s device type.  Same contract as :func:`epoch_loop` (padded
+    inputs, the same grant sequences), minus ``kernel``/``shards``: each
+    shard keeps its (N, J/K) block.  Returns ``(ns, js, count, X, tot,
+    FREE, used, pidx, pos)`` on the mesh's lead device; the inputs are not
+    modified.
+
+    The f32 score init runs on the global arrays on the lead device, in
+    the reference's order (a sum over the agent axis computed a shard at a
+    time would reorder it); then the state is split by column.  Each step
+    crosses the shards with (N,)-sized and scalar partials only (see
+    :class:`MeshLoop`).  When all shards sit on one card the loop runs as
+    captured :data:`CHUNK`-step graphs (:class:`MeshGraph`, cached per
+    :func:`mesh_graph_key`), one alive-flag read a chunk; across cards it
+    runs eagerly in chunks of :data:`CHUNK` steps, one flag read a chunk,
+    and on the CPU eagerly with a read a step."""
+    mesh = _mesh.as_mesh(devices, X.device)
+    N, J = X.shape
+    if J % mesh.size:
+        raise ValueError(f"padded J={J} not divisible by mesh size "
+                         f"{mesh.size}")
+    lead = mesh.lead
+    to = lambda a: a.to(lead) if torch.is_tensor(a) else a  # noqa: E731
+    args = epoch_state(*(to(a) for a in (X, D, TD, C, FREE, phi, wanted,
+                                         allowed, perms, used)),
+                       pidx0, pos0, j_real, limit, eps, kind=kind,
+                       lookahead=lookahead, use_limit=use_limit)
+    groups = mesh_groups(_loop_tensors(*args[:16]), mesh, kind=kind,
+                         policy=policy)
+    loop_kw = dict(kind=kind, policy=policy, lookahead=lookahead,
+                   use_limit=use_limit, max_steps=max_steps)
+    if lead.type == "cuda" and mesh.one_device:
+        g = cached_graph(mesh_graph_key(groups, mesh, **loop_kw),
+                         lambda: MeshGraph(groups, mesh, loop_kw),
+                         "mesh epoch")
+        with g.use():
+            g.load(groups, *args[16:])
+            try:
+                g.replay()
+                while g.alive():
+                    g.replay()
+            except torch.AcceleratorError as exc:    # a fault on the card
+                raise KernelError(f"mesh epoch faulted on the device: "
+                                  f"{exc}") from exc
+            return g.unload()
+    loop = MeshLoop(groups, mesh, **loop_kw)
+    loop.reset(*args[16:])
+    return drive(loop, CHUNK if lead.type == "cuda" else 1)
+
+
 def _bucket(n: int, lo: int = 8) -> int:
     """Next power of two >= max(n, lo) — the shape bucket (the same
     rounding rule the kernel wrappers use for tiles)."""
@@ -719,10 +1201,12 @@ class _EpochRun:
     replay restarts from the kept segment-start tensors."""
 
     def __init__(self, *, kind, policy, lookahead, use_limit, kernel, shards,
-                 J, limit, eps, draw, consts, perms, bound, max_steps_cap):
+                 J, limit, eps, draw, consts, perms, bound, max_steps_cap,
+                 devices=1):
         self.kind, self.policy = kind, policy
         self.lookahead, self.use_limit = lookahead, use_limit
         self.kernel, self.shards = kernel, shards
+        self.devices = devices      # >1: mesh dispatch (epoch_loop_mesh)
         self.J, self.limit, self.eps = J, limit, eps
         self.draw = draw            # rng-stream permutation drawer (RRR)
         self.consts = consts        # (dD, dTD, dC, dphi, dwanted, dallowed)
@@ -743,13 +1227,17 @@ class _EpochRun:
         if self.policy == "rrr":
             self._last_inputs = (X_cur, FREE_cur, used_cur)
         dD, dTD, dC, dphi, dwanted, dallowed = self.consts
-        self.pending = epoch_loop(
-            X_cur, dD, dTD, dC, FREE_cur, dphi, dwanted, dallowed,
-            torch.as_tensor(self.perms, device=X_cur.device), used_cur,
-            self.pidx, self.pos, self.J, self.limit, self.eps,
-            kind=self.kind, policy=self.policy, lookahead=self.lookahead,
-            use_limit=self.use_limit, kernel=self.kernel,
-            max_steps=self.max_steps, shards=self.shards)
+        args = (X_cur, dD, dTD, dC, FREE_cur, dphi, dwanted, dallowed,
+                torch.as_tensor(self.perms, device=X_cur.device), used_cur,
+                self.pidx, self.pos, self.J, self.limit, self.eps)
+        kw = dict(kind=self.kind, policy=self.policy,
+                  lookahead=self.lookahead, use_limit=self.use_limit,
+                  max_steps=self.max_steps)
+        if self.devices > 1:
+            self.pending = epoch_loop_mesh(*args, **kw, devices=self.devices)
+            return
+        self.pending = epoch_loop(*args, **kw, kernel=self.kernel,
+                                  shards=self.shards)
 
     def _finish(self) -> list[tuple[int, int]]:
         out: list[tuple[int, int]] = []
@@ -832,11 +1320,15 @@ def run_epoch_async(criterion, policy: str, *, X, D, C, FREE, phi, allowed,
     ``kernel`` is ``"persistent"`` (default), ``"tiles"`` or ``None`` (see
     the module docstring); ``shards > 1`` partitions the plain loop's
     selects (rounded down to a power of two dividing the padded shapes; the
-    persistent kernel owns the whole epoch and ignores it).  ``devices`` is
-    clamped to the device count; more than one raises (the mesh epoch is
-    not ported).  ``preperms`` supplies the RRR permutation prefix already
-    drawn from the stream (the epoch-cache layer); ``_perm_rows`` is a test
-    hook that forces the grow-and-replay path."""
+    persistent kernel owns the whole epoch and ignores it).  ``devices > 1``
+    dispatches :func:`epoch_loop_mesh` instead, the agent axis split over
+    that many devices of ``device``'s type (clamped to
+    :func:`repro_torch.launch.mesh.device_count`, floored to a power of two
+    and to the padded J; ``kernel``/``shards`` do not apply there: the
+    mesh keeps plain partials, as the reference's does).  ``preperms``
+    supplies the RRR permutation prefix already drawn from the stream (the
+    epoch-cache layer); ``_perm_rows`` is a test hook that forces the
+    grow-and-replay path."""
     crit = criteria.get_criterion(criterion)
     kind = crit.name
     if kind not in COVERED_CRITERIA or policy not in COVERED_POLICIES:
@@ -844,12 +1336,11 @@ def run_epoch_async(criterion, policy: str, *, X, D, C, FREE, phi, allowed,
     if kernel not in KERNELS:
         raise ValueError(f"unknown epoch kernel {kernel!r}")
     dev = resolve_device(device)
-    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
-    devices = max(1, min(int(devices), n_dev))
+    devices = max(1, min(int(devices), _mesh.device_count(dev)))
     devices = 1 << (devices.bit_length() - 1)    # floor to a power of two
     if devices > 1:
-        raise NotImplementedError("the multi-device epoch (the reference's "
-                                  "epoch_loop_mesh) is not ported yet")
+        shards = 1          # each mesh device IS one resident shard
+        kernel = None       # the mesh keeps plain partials (the reference's)
     if kernel == "persistent":
         shards = 1          # one resident instance owns the whole epoch
 
@@ -873,6 +1364,7 @@ def run_epoch_async(criterion, policy: str, *, X, D, C, FREE, phi, allowed,
     shards = max(1, int(shards))
     shards = 1 << (shards.bit_length() - 1)      # floor to a power of two
     shards = min(shards, Np, Jp)                 # pow2s: divides both
+    devices = min(devices, Jp)                   # pow2s: divides Jp
 
     Xp = _pad(_pad(X, Np, 0, 0.0), Jp, 1, 0.0)
     Dp = _pad(D, Np, 0, 0.0)
@@ -920,7 +1412,7 @@ def run_epoch_async(criterion, policy: str, *, X, D, C, FREE, phi, allowed,
         kind=kind, policy=policy, lookahead=lookahead, use_limit=use_limit,
         kernel=kernel, shards=shards, J=J, limit=limit, eps=eps,
         draw=_draw_perms, consts=consts, perms=perms, bound=bound,
-        max_steps_cap=max_steps_cap)
+        max_steps_cap=max_steps_cap, devices=devices)
     run.dispatch(torch.tensor(Xp, dtype=f32, device=dev),
                  torch.tensor(FREEp, dtype=f32, device=dev),
                  torch.tensor(usedp, device=dev))

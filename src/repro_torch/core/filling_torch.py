@@ -37,7 +37,10 @@ batch equals the same trial filled alone.  RRR results therefore agree
 with the reference and the numpy filler in distribution, not draw for
 draw; deterministic configurations agree bit for bit.
 
-Not ported: the device-mesh epoch (``devices > 1`` raises).
+With ``devices > 1`` the deterministic pooled fill runs on the mesh epoch
+(:func:`repro_torch.core.engine_torch.epoch_loop_mesh`, the reference's
+``epoch_loop_mesh``) in place of the persistent kernel, on the unpadded
+servers, whose count the mesh's shards must divide (as in the reference).
 """
 from __future__ import annotations
 
@@ -45,6 +48,7 @@ import torch
 
 from repro_torch.core import criteria, engine_torch
 from repro_torch.kernels import KernelError
+from repro_torch.launch.mesh import AgentMesh
 
 POL_RRR, POL_POOLED, POL_BESTFIT = 0, 1, 2
 _POL = {"rrr": POL_RRR, "pooled": POL_POOLED, "bestfit": POL_BESTFIT}
@@ -84,9 +88,11 @@ def progressive_fill_torch(D, C, phi, generator=None, *, criterion="drf",
 
     ``generator`` (a ``torch.Generator`` on that device) is needed only
     where the configuration draws random numbers.  ``shards`` is passed to
-    the deterministic pooled path's epoch loop; ``devices > 1`` (the mesh
-    epoch) is not ported.  The step loop ignores both, as the reference's
-    does."""
+    the deterministic pooled path's epoch loop; ``devices`` (a count of
+    devices of the tensors' type, or an
+    :class:`~repro_torch.launch.mesh.AgentMesh`) above one runs that path
+    on the mesh epoch instead.  The step loop ignores both, as the
+    reference's does."""
     if _POL[policy] == POL_POOLED and tie == "low":
         return _pooled_fill(D, C, phi, criterion=criterion,
                             lookahead=lookahead, max_steps=max_steps,
@@ -115,15 +121,14 @@ def fill_trials_torch(D, C, phi, trials: int, *, generator=None, **kw):
 
 def _pooled_fill(D, C, phi, *, criterion, lookahead, max_steps, shards,
                  devices, x0, allowed):
-    if devices > 1:
-        raise NotImplementedError(
-            "progressive_fill_torch(devices>1): the device-mesh epoch is not "
-            "ported (ROADMAP.md, Queue 1: the multi-device epoch)")
     kind = criteria.get_criterion(criterion).name
     dev = D.device
     f32 = torch.float32
     N, J = D.shape[0], C.shape[0]
-    Jp = -(-J // J_MULTIPLE) * J_MULTIPLE
+    mesh = (devices.size if isinstance(devices, AgentMesh)
+            else int(devices)) > 1
+    # the mesh takes the reference's unpadded servers (J must divide)
+    Jp = J if mesh else -(-J // J_MULTIPLE) * J_MULTIPLE
     D, phi = D.to(f32), phi.to(f32)
     Cp = torch.zeros((Jp, C.shape[1]), dtype=f32, device=dev)
     Cp[:J] = C.to(f32)
@@ -134,12 +139,19 @@ def _pooled_fill(D, C, phi, *, criterion, lookahead, max_steps, shards,
         Xf[:, :J] = x0.to(torch.int32).to(f32)
     FREE = criteria.residual_capacities(Xf, D, Cp, xp=torch)
     perms = torch.arange(Jp, dtype=torch.int32, device=dev)[None, :]
-    _ns, _js, _cnt, x_fin, *_rest = engine_torch.epoch_loop(
+    loop_args = (
         Xf, D, D, Cp, FREE, phi,
         torch.full((N,), 3.0e38, dtype=f32, device=dev),   # no wanted caps
         allowed_m, perms, torch.zeros(Jp, dtype=torch.int32, device=dev),
-        0, 0, J, 0, 1e-6, kind=kind, policy="pooled", lookahead=lookahead,
-        use_limit=False, max_steps=max_steps, shards=shards)
+        0, 0, J, 0, 1e-6)
+    kw = dict(kind=kind, policy="pooled", lookahead=lookahead,
+              use_limit=False, max_steps=max_steps)
+    if mesh:
+        _ns, _js, _cnt, x_fin, *_rest = engine_torch.epoch_loop_mesh(
+            *loop_args, **kw, devices=devices)
+    else:
+        _ns, _js, _cnt, x_fin, *_rest = engine_torch.epoch_loop(
+            *loop_args, **kw, shards=shards)
     return x_fin[:, :J].to(torch.int32)
 
 

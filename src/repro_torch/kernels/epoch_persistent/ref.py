@@ -91,7 +91,7 @@ def persistent_epoch_emulated(X, tot, FREE, cap, dom, s, feas, used, D, TD,
     kernel's arguments and results.  ``grid`` splits the cells as the grid
     shape does (:func:`grid_blocks`); ``on_grant(feas, rowcnt, colcnt,
     total)`` is called after every grant with the kept counts."""
-    from repro_torch.core.engine_torch import _argmin_tie_low, _dominant_col
+    from repro_torch.core.engine_torch import _argmin_tie_low, _dominant_cols
 
     N, J = X.shape
     i32 = torch.int32
@@ -143,7 +143,7 @@ def persistent_epoch_emulated(X, tot, FREE, cap, dom, s, feas, used, D, TD,
             if kind == "rpsdsf":
                 cap_j = C[j] - X[:, j] @ D
                 cap[j] = cap_j
-                dom[:, j] = _dominant_col(D, cap_j[None, :], BIG)[:, 0]
+                dom[:, j] = _dominant_cols(D, cap_j[None, :], BIG)[0]
                 s[:, j] = (tot + la) / phi * dom[:, j]
             s[n] = xt_n / phi[n] * dom[n]
         if on_grant is not None:

@@ -1194,3 +1194,99 @@ def test_a_decode_capture_that_fails_raises(dev, monkeypatch):
         serve.serve("qwen2_1_5b", smoke=True, batch=2, prompt_len=8, gen=6,
                     device="cuda")
     assert calls == [False, True] and serve.CAPTURE_COUNT == n
+
+
+def _mesh_args(dev, crit, N=64, J=304, seed=9):
+    """epoch_loop's raw arguments for an instance with J divisible by 8:
+    quantized demands, phi != 1, placement constraints, a per-agent limit
+    of 2."""
+    rng = np.random.default_rng(seed)
+    f32 = dict(dtype=torch.float32, device=dev)
+    D = torch.as_tensor(2.0 ** rng.integers(-2, 2, (N, 2)), **f32)
+    C = torch.as_tensor(rng.integers(4, 13, (J, 2)), **f32)
+    perms = torch.as_tensor(np.stack([rng.permutation(J) for _ in range(8)]),
+                            dtype=torch.int32, device=dev)
+    return (torch.zeros((N, J), **f32), D, D, C, C.clone(),
+            torch.as_tensor(np.array([0.5, 1.0, 2.0])[np.arange(N) % 3],
+                            **f32),
+            torch.as_tensor(rng.integers(1, 9, N), **f32),
+            torch.as_tensor(rng.random((N, J)) > 0.2, device=dev), perms,
+            torch.zeros(J, dtype=torch.int32, device=dev), 0, 0, J, 2, 1e-9)
+
+
+@pytest.mark.parametrize("K", [1, 2, 8])
+@pytest.mark.parametrize("crit", ["drf", "tsf", "psdsf", "rpsdsf"])
+@pytest.mark.parametrize("pol", ["pooled", "rrr"])
+def test_mesh_on_one_card_equals_plain_loop(dev, crit, pol, K):
+    """``epoch_loop_mesh`` on K shards of the card (its captured graphs)
+    equals the plain loop on the card and the same mesh on the CPU, on
+    every returned array; a second run captures nothing."""
+    from repro_torch.launch import mesh
+
+    kw = dict(kind=crit, policy=pol, lookahead=False, use_limit=True,
+              max_steps=1024)
+    args = _mesh_args(dev, crit)
+    want = et.epoch_loop(*args, **kw, kernel=None)
+    got = et.epoch_loop_mesh(*args, **kw,
+                             devices=mesh.shard_devices(K, dev))
+    assert int(got[2]) > et.CHUNK
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    cpu = et.epoch_loop_mesh(
+        *(a.cpu() if torch.is_tensor(a) else a for a in args), **kw,
+        devices=mesh.shard_devices(K, "cpu"))
+    for a, b in zip(got, cpu):
+        assert torch.equal(a.cpu(), b)
+    c0 = et.CAPTURE_COUNT
+    again = et.epoch_loop_mesh(*args, **kw,
+                               devices=mesh.shard_devices(K, dev))
+    assert et.CAPTURE_COUNT == c0
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+def test_mesh_captures_once_per_shape_and_shards(dev):
+    """The counterpart of the reference's mesh retrace test: a repeated
+    (shape, K) key captures at most once."""
+    from repro_torch.launch import mesh
+
+    kw = dict(kind="drf", policy="pooled", lookahead=False, use_limit=True,
+              max_steps=256)
+    et.epoch_loop_mesh(*_mesh_args(dev, "drf"), **kw,
+                       devices=mesh.shard_devices(2, dev))
+    c0 = et.CAPTURE_COUNT
+    et.epoch_loop_mesh(*_mesh_args(dev, "drf", seed=3), **kw,
+                       devices=mesh.shard_devices(2, dev))
+    assert et.CAPTURE_COUNT == c0
+    et.epoch_loop_mesh(*_mesh_args(dev, "drf", J=320), **kw,
+                       devices=mesh.shard_devices(2, dev))
+    assert et.CAPTURE_COUNT <= c0 + 1
+    et.epoch_loop_mesh(*_mesh_args(dev, "drf", J=320, seed=4), **kw,
+                       devices=mesh.shard_devices(2, dev))
+    assert et.CAPTURE_COUNT <= c0 + 1
+
+
+def test_devices_clamp_to_the_cards(dev, monkeypatch):
+    """``run_epoch(devices=8)`` on a machine with fewer cards takes at most
+    that many (one card: the single-device path) and gives the same
+    grants."""
+    from repro_torch.launch import mesh
+
+    calls, loop = [], et.epoch_loop_mesh
+
+    def spy(*a, **k):
+        calls.append(k["devices"])
+        return loop(*a, **k)
+
+    monkeypatch.setattr(et, "epoch_loop_mesh", spy)
+    rng = np.random.default_rng(1)
+    D = 2.0 ** rng.integers(-2, 2, (16, 2))
+    C = rng.integers(4, 13, (40, 2)).astype(float)
+    kw = dict(X=np.zeros((16, 40)), D=D, C=C, FREE=C.copy(), phi=np.ones(16),
+              allowed=np.ones((16, 40), bool), wanted=np.full(16, 4.0),
+              true_demands=D, device=dev)
+    one = et.run_epoch("rpsdsf", "pooled", **kw)
+    eight = et.run_epoch("rpsdsf", "pooled", **kw, devices=8)
+    assert one == eight and one
+    cards = mesh.device_count(dev)
+    assert calls == ([] if cards < 2 else [min(8, 1 << (cards.bit_length()
+                                                          - 1))])

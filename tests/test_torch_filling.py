@@ -248,6 +248,9 @@ def test_max_steps_stops_the_step_loop():
 
 
 def test_mesh_epoch_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The mesh fill is ported (``tests/test_torch_mesh.py``); on a CPU of
+    one logical device two devices are refused, as the reference's
+    ``make_agent_mesh`` refuses more devices than the process has."""
+    with pytest.raises(ValueError, match="agent mesh wants 2 devices"):
         _torch_fill(paper_example(), criterion="psdsf", policy="pooled",
                     devices=2)

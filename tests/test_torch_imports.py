@@ -48,7 +48,8 @@ def test_import_loads_neither_jax_nor_reference():
             "repro_torch.configs.paper_cluster",
             "repro_torch.launch.paper_tables",
             "repro_torch.launch.paper_figures",
-            "repro_torch.launch.fig9_adaptation"} <= set(mods)
+            "repro_torch.launch.fig9_adaptation",
+            "repro_torch.launch.mesh"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
