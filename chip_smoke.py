@@ -68,13 +68,17 @@ kernel from the sources in the checkout (nvcc into ``build/``).  Phases:
    equal to the same runs on the CPU;
 6. models: K5 (flash attention) against its plain version at the
    qwen2-1.5b prefill shape (4, 12, 2048, 128) x (4, 2, 2048, 128) bf16, at
-   granite-moe-3b's (4, 24, 2048, 64) x (4, 8, 2048, 64) bf16 (both timed
-   beside their bound and SDPA), in
+   granite-moe-3b's (4, 24, 2048, 64) x (4, 8, 2048, 64) bf16 and at
+   deepseek-v2's MLA prefill, q/k (4, 128, 2048, 192) and v (4, 128, 2048,
+   128) bf16 (all three timed beside their bound and SDPA, whose backend
+   is named), in
    f32, with a window below the key tile, non-causal with T != S, at a
-   ragged S, in f16 and with rows that see no key, each on the kernel the
+   ragged S, in f16 and with rows that see no key, and at MLA's (192, 128)
+   with a ragged S, a window and in f16 with GQA, each on the kernel the
    wrapper's rule picks (``flash_tc.cu``, the tensor cores, for bf16 / f16
-   at D >= 64; ``flash.cu``, the CUDA cores, for f32) and within that
-   kernel's stated tolerance; the tensor-core kernel timed beside the
+   at (q/k, v) head dims (64, 64), (128, 128), (256, 256) and (192, 128);
+   ``flash.cu``, the CUDA cores, for f32) and within that kernel's stated
+   tolerance; the tensor-core kernel timed beside the
    CUDA-core one at the same shape, the plain version and
    ``scaled_dot_product_attention`` (a yardstick only).  K6 (WKV6) at the
    rwkv6-3b prefill shape (4, 2048, 40, 64), at S = 2000 and under strong
@@ -85,16 +89,20 @@ kernel from the sources in the checkout (nvcc into ``build/``).  Phases:
    qwen2-1.5b (K5 exactly once a layer in the prefill, all on the
    tensor-core kernel: 28), granite-moe-3b-a800m (K5: 32; its 40-expert
    MoE on the batch-local capacity grid in the prefill, dropless in the
-   decode) and rwkv6-3b
+   decode), deepseek-v2-236b at full width cut to 4 of its 60 layers with
+   its parameters stored in bf16 (MLA attention, K5: 4, all at (192,
+   128); its 160-expert MoE on the global capacity grid; the decode's
+   compressed cache) and rwkv6-3b
    (K6: 32), each launch shadowed by the plain version on the same inputs
    (gated at the kernel's tolerance), against the same serve with the
    kernel swapped for its plain version, teacher-forced with the first
    run's tokens: the caches of the first two layers within a relative L2
    tolerance (for granite also in a prefill on the plain version with
    every layer's experts forced to the K5 run's, drops equal layer by
-   layer); the other layers, prefill and decode logits,
-   greedy-token agreement, granite's routing agreement by layer and its
-   capacity-drop share are printed, not gated.  Those two serves decode
+   layer; for deepseek too); the other layers, prefill and decode logits,
+   greedy-token agreement, the MoE models' routing agreement by layer and
+   their capacity-drop share, and each serve's peak memory are printed, not
+   gated.  Those two serves decode
    eagerly (``serve.decode_eager``: they record ``decode_step``); the
    timed serve decodes on the captured graph, one capture, one replay a
    step, and its tokens and each step's logits (copied after each replay)
@@ -139,8 +147,8 @@ K3 over the allocator's fleet epochs, K1/K2 over the tiles-loop replays
 (one a step of each replayed chunk, dead steps included: a replay adds its
 graph's launches to the counters, a capture adds none),
 K4 over the fleet serve on the per-grant backend, K5 (qwen2-1.5b and
-granite-moe-3b-a800m) and K6 (rwkv6-3b) over the prefills of their model
-serves, K3 over each pooled fill (once a fill,
+granite-moe-3b-a800m, deepseek-v2-236b) and K6 (rwkv6-3b) over the
+prefills of their model serves, K3 over each pooled fill (once a fill,
 the K3 row's ``fill_launches`` in the JSON); each must have launched.  The
 last lines are the kernels JSON, the ``nvidia-smi`` name and power limit,
 and the device JSON.
@@ -194,9 +202,12 @@ def ptxas_summary(text):
     """-> one line per kernel of an ``nvcc -Xptxas -v`` log: its template
     arguments, registers, spill stores and loads, and any ptxas warning."""
     def short(mangled):
-        args = re.search(r"I(\w+?)Li(\d+)E", mangled)
+        args = re.search(r"I(\w+?)((?:Li\d+E)+)", mangled)
         if args:
-            return f"{args.group(1).lstrip('0123456789')}, D={args.group(2)}"
+            dims = re.findall(r"Li(\d+)E", args.group(2))
+            dims = (f"D={dims[0]}" if len(set(dims)) == 1 else
+                    f"DQK={dims[0]}, DV={dims[1]}")
+            return f"{args.group(1).lstrip('0123456789')}, {dims}"
         for name in ("argmin2d_kernel", "argmin1d_kernel", "noop_kernel"):
             if name in mangled:
                 path = {"ILb1E": "<vec>", "ILb0E": "<scalar>"}
@@ -1595,6 +1606,9 @@ def gang_phase(dev, seed):
 BF16_OPS_PER_S = 989e12         # H100 SXM bf16 dense tensor cores
 QWEN_ATTN = (4, 12, 2, 2048, 2048, 128)     # B, H, K, S, T, D of one prefill
 GRANITE_ATTN = (4, 24, 8, 2048, 2048, 64)   # granite-moe-3b's prefill
+# deepseek-v2's MLA prefill: B, H, K, S, T, D of q and k, DV of v (128
+# no-RoPE + 64 RoPE dims of q and k, the RoPE key shared by every head)
+MLA_ATTN = (4, 128, 128, 2048, 2048, 192, 128)
 RWKV_WKV = (4, 2048, 40, 64)                # B, S, H, D of one prefill
 # K5's tolerances are stated once, by variant, in
 # repro_torch.kernels.flash_attention.ops.tolerance: f32 rtol 1e-5, atol 2e-5;
@@ -1625,42 +1639,49 @@ def _close(got, want, rtol, atol):
 
 
 def flash_phase(dev):
-    """K5 against its plain version at the qwen2-1.5b and granite-moe-3b
-    prefill shapes and on the edge cases, each on the kernel the wrapper's
-    rule picks and within that kernel's tolerance; then the timing block at
-    both prefill shapes.  -> the kernels row (qwen2-1.5b's shape, granite's
-    in ``granite_prefill``)."""
+    """K5 against its plain version at the qwen2-1.5b, granite-moe-3b and
+    deepseek-v2 (MLA: q/k 192, v 128) prefill shapes and on the edge cases,
+    each on the kernel the wrapper's rule picks and within that kernel's
+    tolerance; then the timing block at the three prefill shapes.  -> the
+    kernels row (qwen2-1.5b's shape, granite's in ``granite_prefill``,
+    deepseek-v2's in ``mla_prefill``)."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops as k5
 
     g = torch.Generator(dev).manual_seed(5)
+    bf16 = torch.bfloat16
     cases = [
-        ("qwen2-1.5b prefill", QWEN_ATTN, torch.bfloat16, True, 0),
-        ("granite-moe-3b prefill", GRANITE_ATTN, torch.bfloat16, True, 0),
+        ("qwen2-1.5b prefill", QWEN_ATTN, bf16, True, 0),
+        ("granite-moe-3b prefill", GRANITE_ATTN, bf16, True, 0),
+        ("deepseek-v2 MLA prefill", MLA_ATTN, bf16, True, 0),
         ("f32", (2, 12, 2, 512, 512, 128), torch.float32, True, 0),
         ("window 48 below the key tile, gemma3-style", (2, 8, 4, 1000,
                                                          1000, 256),
-         torch.bfloat16, True, 48),
-        ("non-causal, T != S", (2, 4, 2, 300, 700, 64), torch.bfloat16,
-         False, 0),
-        ("ragged S", (3, 12, 2, 1999, 1999, 128), torch.bfloat16, True, 0),
+         bf16, True, 48),
+        ("non-causal, T != S", (2, 4, 2, 300, 700, 64), bf16, False, 0),
+        ("ragged S", (3, 12, 2, 1999, 1999, 128), bf16, True, 0),
         ("f16", (2, 12, 2, 1024, 1024, 128), torch.float16, True, 0),
-        ("rows 19-47 with no valid key", (1, 2, 1, 48, 16, 64),
-         torch.bfloat16, False, 4),
+        ("rows 19-47 with no valid key", (1, 2, 1, 48, 16, 64), bf16, False,
+         4),
+        ("MLA ragged S", (2, 16, 16, 1999, 1999, 192, 128), bf16, True, 0),
+        ("MLA window 48", (2, 8, 8, 1000, 1000, 192, 128), bf16, True, 48),
+        ("MLA f16, GQA 4:1", (2, 16, 4, 1024, 1024, 192, 128),
+         torch.float16, True, 0),
     ]
     errs, inputs = {}, {}
-    for label, (B, H, K, S, T, D), dtype, causal, window in cases:
+    for label, shape, dtype, causal, window in cases:
+        B, H, K, S, T, D, DV = (*shape, shape[-1])[:7]
         q = torch.randn((B, S, H, D), generator=g, device=dev).to(dtype)
         k = torch.randn((B, T, K, D), generator=g, device=dev).to(dtype)
-        v = torch.randn((B, T, K, D), generator=g, device=dev).to(dtype)
-        variant = k5.variant(dtype, D)
+        v = torch.randn((B, T, K, DV), generator=g, device=dev).to(dtype)
+        variant = k5.variant(dtype, D, DV)
         n0 = k5.flash_attention.variant_launches[variant]
         got = k5.flash_attention(q, k, v, causal=causal, window=window)
         want = k5.flash_attention_ref(q, k, v, causal=causal, window=window)
         tol = k5.tolerance(variant, dtype, v)
         ok, err = _close(got, want, **tol)
-        log(f"K5 {label} {(B, H, K, S, T, D)} {dtype} on {variant}: max abs "
+        log(f"K5 {label} {shape} {dtype} on {variant}: max abs "
             f"err {err:.3g} (tolerance rtol {tol['rtol']:.3g} atol "
             f"{tol['atol']:.3g})")
         check(k5.flash_attention.variant_launches[variant] == n0 + 1,
@@ -1680,7 +1701,7 @@ def flash_phase(dev):
     simt = cuda_ms(lambda: k5.launch("flash", q, k, v, causal=True), 5)
     plain = cuda_ms(lambda: k5.flash_attention_ref(q, k, v, causal=True), 3)
     lib, how = sdpa_ms(q, k, v)
-    bound, bound_by = attention_bound(q, k)
+    bound, bound_by = attention_bound(q, k, v)
     flops = 2 * B * H * S * T * D
     # granite-moe-3b's prefill shape: D = 64, three query heads a kv head
     qg, kg, vg = inputs["granite-moe-3b prefill"]
@@ -1691,14 +1712,34 @@ def flash_phase(dev):
                                                         causal=True), 3),
         library_ms=sdpa_ms(qg, kg, vg)[0],
         max_abs_err=errs["granite-moe-3b prefill"])
-    granite["bound_ms"], granite["bound_by"] = attention_bound(qg, kg)
+    granite["bound_ms"], granite["bound_by"] = attention_bound(qg, kg, vg)
     log(f"K5 flash_attention {GRANITE_ATTN} bf16 causal: "
         f"{k5.variant(qg.dtype, qg.shape[-1])} {granite['ms']:.4f} ms "
         f"({granite['bound_ms'] / granite['ms']:.1%} of the bound "
         f"{granite['bound_ms']:.4f} ms, {granite['bound_by']}); plain "
         f"{granite['plain_ms']:.4f} ms; scaled_dot_product_attention "
         f"({how}) {granite['library_ms']:.4f} ms")
-    del inputs, qg, kg, vg
+    del qg, kg, vg
+    # deepseek-v2's MLA prefill: q/k 192, v 128, one kv head a query head
+    qm, km, vm = inputs.pop("deepseek-v2 MLA prefill")
+    mla = dict(
+        shape=[list(qm.shape), list(km.shape), list(vm.shape)],
+        variant=k5.variant(qm.dtype, qm.shape[-1], vm.shape[-1]),
+        ms=cuda_ms(lambda: k5.flash_attention(qm, km, vm, causal=True), 20),
+        plain_ms=cuda_ms(lambda: k5.flash_attention_ref(qm, km, vm,
+                                                        causal=True), 3),
+        max_abs_err=errs["deepseek-v2 MLA prefill"])
+    mla["library_ms"], mla_how = sdpa_ms(qm, km, vm)
+    mla["bound_ms"], mla["bound_by"] = attention_bound(qm, km, vm)
+    Bm, Hm, _, Sm, Tm, Dm, DVm = MLA_ATTN
+    mla_flops = Bm * Hm * Sm * Tm * (Dm + DVm)
+    log(f"K5 flash_attention {MLA_ATTN} bf16 causal: {mla['variant']} "
+        f"{mla['ms']:.4f} ms ({mla_flops / mla['ms'] / 1e9:.1f} TFLOP/s, "
+        f"{mla['bound_ms'] / mla['ms']:.1%} of the bound "
+        f"{mla['bound_ms']:.4f} ms, {mla['bound_by']}); plain "
+        f"{mla['plain_ms']:.4f} ms; scaled_dot_product_attention "
+        f"({mla_how}) {mla['library_ms']:.4f} ms")
+    del inputs, qm, km, vm
     # head dim 256 (gemma3-12b's heads), where the kernel compiles its
     # warpgroups' turns out
     B2, H2, K2, S2, D2 = 4, 16, 8, 2048, 256
@@ -1719,17 +1760,38 @@ def flash_phase(dev):
     return dict(variant=variant, ms=ms, plain_ms=plain, library_ms=lib,
                 max_abs_err=errs["qwen2-1.5b prefill"], bound_ms=bound,
                 bound_by=bound_by, cuda_core_ms=simt,
-                granite_prefill=granite)
+                granite_prefill=granite, mla_prefill=mla)
+
+
+def sdpa_backend(qt, kt, vt):
+    """The backend ``scaled_dot_product_attention`` dispatches these (B, H,
+    S, D) inputs to, causal, by torch's own choice, or why it is not
+    named."""
+    import torch
+
+    try:
+        from torch.nn.attention import SDPBackend
+
+        return SDPBackend(torch._fused_sdp_choice(
+            qt, kt, vt, is_causal=True)).name.lower()
+    except (AttributeError, RuntimeError, TypeError, ValueError) as exc:
+        # a private call: the backend is named where this torch answers it
+        return f"backend not named ({type(exc).__name__})"
 
 
 def sdpa_ms(q, k, v):
     """-> (ms, how) of ``scaled_dot_product_attention`` on K5's inputs
-    (q (B, S, H, D), k/v (B, T, K, D)), causal: the yardstick only, never
-    on the port's path."""
+    (q (B, S, H, D), k (B, T, K, D), v (B, T, K, DV)), causal: the
+    yardstick only, never on the port's path.  ``how`` names the backend
+    torch picks (for K < H, on k and v as K5 reads them, with
+    ``enable_gqa``)."""
     import torch.nn.functional as F
 
     H, K = q.shape[2], k.shape[2]
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    if K == H:
+        return (cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 20), sdpa_backend(qt, kt, vt))
     try:
         return cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), 20), "enable_gqa"
@@ -1737,18 +1799,21 @@ def sdpa_ms(q, k, v):
         kr, vr = (x.repeat_interleave(H // K, dim=1) for x in (kt, vt))
         return (cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kr, vr, is_causal=True), 20),
-            "k/v repeated (no enable_gqa in this torch)")
+            "k/v repeated (no enable_gqa in this torch), "
+            + sdpa_backend(qt, kr, vr))
 
 
-def attention_bound(q, k):
+def attention_bound(q, k, v):
     """-> (ms, what bounds it) of causal bf16 attention on these inputs:
-    q and the output, k and v each moved once; 2·B·H·S·T·D operations (half
-    of QK^T and PV) on the tensor cores."""
+    q, k, v and the output (B, S, H, DV) each moved once; B·H·S·T·(D + DV)
+    operations (half of QK^T's 2·S·T·D and of PV's 2·S·T·DV) on the tensor
+    cores."""
     B, S, H, D = q.shape
-    T = k.shape[1]
-    nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
+    T, DV = k.shape[1], v.shape[-1]
+    nbytes = (q.numel() + k.numel() + v.numel() + B * S * H * DV) \
+        * q.element_size()
     times = {"bytes": nbytes / HBM_BYTES_PER_S,
-             "operations": 2 * B * H * S * T * D / BF16_OPS_PER_S}
+             "operations": B * H * S * T * (D + DV) / BF16_OPS_PER_S}
     what = max(times, key=times.get)
     return times[what] * 1e3, what
 
@@ -1822,7 +1887,8 @@ def _rel_l2(a, b):
 
 
 def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
-    """The full-width serve of ``arch`` (batch 4, prompt 2048, 32 tokens):
+    """The full-width serve of ``arch`` (a registered name, its full config,
+    or a ModelConfig; batch 4, prompt 2048, 32 tokens):
     once on the kernel, counted, recorded, and with every launch shadowed by
     the plain version on the same inputs (gated at the kernel's tolerance);
     once with the kernel swapped for its plain version, teacher-forced with
@@ -1843,24 +1909,29 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
 
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
+    from repro_torch.nn.config import ModelConfig
 
     kw = dict(SERVE_KW, seed=seed, device=dev)
-    cfg = get_config(arch, smoke=kw["smoke"])
+    cfg = (arch if isinstance(arch, ModelConfig)
+           else get_config(arch, smoke=kw["smoke"]))
+    arch = cfg.name
     n_layers = cfg.n_layers
     prefill, decode = fam_mod.prefill, fam_mod.decode_step
     kernel, plain = (getattr(kernel_mod, kernel_name),
                      getattr(kernel_mod, kernel_name + "_ref"))
-    shadow_errs, tols = [], []
+    shadow_errs, tols, dims = [], [], set()
 
     def tolerance(*a):
         if kernel_name != "flash_attention":
             return WKV_TOL
         q, v = a[0], a[2]
-        return kernel_mod.tolerance(kernel_mod.variant(q.dtype, q.shape[-1]),
-                                    q.dtype, v)
+        return kernel_mod.tolerance(kernel_mod.variant(
+            q.dtype, q.shape[-1], v.shape[-1]), q.dtype, v)
 
     def shadowed(*a, **k):
         out = kernel(*a, **k)
+        if kernel_name == "flash_attention":    # (q/k, v) head dims
+            dims.add((a[0].shape[-1], a[2].shape[-1]))
         want = plain(*a, **k)
         pairs = (zip(out, want) if isinstance(out, tuple)
                  else [(out, want)])
@@ -1897,18 +1968,20 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
                                               serve.decode_eager))
         return stack
 
-    runs = {}
+    runs, peaks = {}, {}
     for label in ("kernel", "plain"):
         rec = {}
         forced = runs["kernel"][0]["tokens"] if label == "plain" else None
         reset_counts()
+        torch.cuda.reset_peak_memory_stats()
         with recorded(rec, forced), (
                 mock.patch.object(*seam, SimpleNamespace(
                     **{kernel_name: shadowed}))
                 if label == "kernel" else
                 mock.patch.object(kernel_mod, kernel_name, plain)):
-            out = serve.serve(arch, **kw)
+            out = serve.serve(cfg, **kw)
         runs[label] = (out, rec, read_counts())
+        peaks[label] = torch.cuda.max_memory_allocated()
         if label == "kernel":
             n_variant = dict(getattr(getattr(kernel_mod, kernel_name),
                                      "variant_launches", {}))
@@ -1916,11 +1989,15 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
     (out, rec, n), (out_p, rec_p, n_p) = runs["kernel"], runs["plain"]
     launches = out["launches"]
     if kernel_name == "flash_attention":
-        check(n_variant == {"flash_tc": n_layers, "flash": 0},
-              f"{arch}: K5 launches by variant {n_variant}, expected the "
-              f"tensor-core kernel once a layer ({n_layers})")
+        want_dims = ((cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim)
+                     if cfg.use_mla else (cfg.head_dim, cfg.head_dim))
+        check(n_variant == {"flash_tc": n_layers, "flash": 0}
+              and dims == {want_dims},
+              f"{arch}: K5 launches by variant {n_variant} at (q/k, v) head "
+              f"dims {dims}, expected the tensor-core kernel once a layer "
+              f"({n_layers}) at {want_dims}")
         log(f"serve {arch}: K5 launches by variant in the prefill "
-            f"{n_variant}")
+            f"{n_variant}, at (q/k, v) head dims {sorted(dims)}")
     check(launches["prefill"][kernel_name] == n_layers
           and n[kernel_name] == n_layers
           and not any(v for k, v in n.items() if k != kernel_name)
@@ -1984,7 +2061,7 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
 
     graph_decode = serve.decode
     with mock.patch.object(serve, "decode", graphed):
-        timed = serve.serve(arch, **kw)
+        timed = serve.serve(cfg, **kw)
     peak = torch.cuda.max_memory_allocated()
     graphed_steps = [x.float().cpu() for x in graphed_steps]
     same = (len(graphed_steps) == len(eager_steps) == kw["gen"] - 1
@@ -1998,7 +2075,7 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
           f"{out['tokens'].size}")
     torch.cuda.empty_cache()
     with mock.patch.object(serve, "decode", serve.decode_eager):
-        eager = serve.serve(arch, **kw)
+        eager = serve.serve(cfg, **kw)
     check(eager["captures"] == 0
           and (eager["tokens"] == timed["tokens"]).all(),
           f"{arch}: the eager timed serve's tokens differ from the graphed")
@@ -2009,8 +2086,12 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
         f"for {kw['batch']} x {kw['prompt_len']} tokens, decode "
         f"{timed['decode_s'] * 1e3:.2f} ms, {timed['tok_per_s']:.2f} "
         f"tokens/s ({timed['tok_per_s'] / kw['batch']:.2f} a sequence), "
-        f"parameters {timed['param_bytes'] / 1e9:.3f} GB (f32), "
-        f"max memory allocated {peak / 1e9:.3f} GB{drops}; "
+        f"parameters {timed['param_bytes'] / 1e9:.3f} GB "
+        f"({cfg.param_dtype}), max memory allocated {peak / 1e9:.3f} GB "
+        f"(the shadowed kernel serve {peaks['kernel'] / 1e9:.3f} GB, the "
+        f"plain-version serve {peaks['plain'] / 1e9:.3f} GB, of the card's "
+        f"{torch.cuda.get_device_properties(dev).total_memory / 1e9:.1f})"
+        f"{drops}; "
         f"plain-version serve prefill {out_p['prefill_s'] * 1e3:.2f} ms, "
         f"first kernel serve prefill {out['prefill_s'] * 1e3:.2f} ms")
     steps = kw["gen"] - 1
@@ -2024,14 +2105,14 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
         f"logits and tokens == the eager kernel run's bit for bit")
     torch.cuda.empty_cache()
     if cfg.is_moe:
-        routed_alike(dev, arch, fam_mod, kernel_mod, seed)
-    busy_shares(dev, arch, fam_mod,
+        routed_alike(dev, cfg, fam_mod, kernel_mod, seed)
+    busy_shares(dev, cfg, fam_mod,
                 "flash_tc" if kernel_name == "flash_attention" else "wkv6")
-    f32_divergence(dev, arch, fam_mod, kernel_mod, kernel_name, seed)
+    f32_divergence(dev, cfg, fam_mod, kernel_mod, kernel_name, seed)
     return n[kernel_name]
 
 
-def routed_alike(dev, arch, fam_mod, kernel_mod, seed):
+def routed_alike(dev, cfg, fam_mod, kernel_mod, seed):
     """A MoE model's prefill (the serve's prompts) on K5, then with K5
     swapped for its plain version and every layer's experts forced to the
     first run's (``layers._top_k``), so the two differ by K5 alone, as a
@@ -2042,11 +2123,10 @@ def routed_alike(dev, arch, fam_mod, kernel_mod, seed):
 
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.models.common import init_model
     from repro_torch.nn import layers
 
-    cfg = get_config(arch)
+    arch = cfg.name
     model = init_model(fam_mod, cfg, torch.Generator(dev).manual_seed(0))
     B, S = SERVE_KW["batch"], SERVE_KW["prompt_len"]
     prompts = torch.as_tensor(np.random.default_rng(seed).integers(
@@ -2109,7 +2189,7 @@ def decode_bytes(model, cfg, cache):
     return weights * esize + moved + B * cfg.padded_vocab * esize
 
 
-def busy_shares(dev, arch, fam_mod, kernel_key, steps=16):
+def busy_shares(dev, cfg, fam_mod, kernel_key, steps=16):
     """The device's busy share of one prefill (batch 4, prompt 2048), of
     ``steps`` eager decode steps after it and of ``steps`` replays of the
     decode step captured as a CUDA graph (``serve.DecodeStep``), each under
@@ -2118,11 +2198,10 @@ def busy_shares(dev, arch, fam_mod, kernel_key, steps=16):
     bound (:func:`decode_bytes`); printed."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models.common import init_model
 
-    cfg = get_config(arch)
+    arch = cfg.name
     model = init_model(fam_mod, cfg, torch.Generator(dev).manual_seed(0))
     B, S = SERVE_KW["batch"], SERVE_KW["prompt_len"]
     prompts = torch.randint(2, cfg.vocab_size, (B, S), device=dev,
@@ -2205,19 +2284,26 @@ def busy_shares(dev, arch, fam_mod, kernel_key, steps=16):
     torch.cuda.empty_cache()
 
 
-def f32_divergence(dev, arch, fam_mod, kernel_mod, kernel_name, seed):
+def f32_divergence(dev, cfg, fam_mod, kernel_mod, kernel_name, seed):
     """The serve's prefill again in f32 compute, on the kernel and on its
     plain version: printed, not gated.  A growth that stays in f32 comes
-    from the model amplifying any difference, not from bf16 rounding."""
+    from the model amplifying any difference, not from bf16 rounding.  Not
+    run for a model whose parameters are stored in bf16 (deepseek-v2 cut to
+    4 layers): their f32 casts would double its 34 GB."""
     import dataclasses
     from unittest import mock
 
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.models.common import init_model
 
-    cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+    arch = cfg.name
+    if cfg.pdtype() != torch.float32:
+        log(f"serve {arch} prefill in f32 compute: not run (parameters "
+            f"stored in {cfg.param_dtype}; their f32 casts would not fit "
+            f"beside them)")
+        return
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
     model = init_model(fam_mod, cfg, torch.Generator(dev).manual_seed(0))
     B, S = SERVE_KW["batch"], SERVE_KW["prompt_len"]
     prompts = torch.as_tensor(np.random.default_rng(seed).integers(
@@ -2237,9 +2323,23 @@ def f32_divergence(dev, arch, fam_mod, kernel_mod, kernel_name, seed):
     torch.cuda.empty_cache()
 
 
+def deepseek_config():
+    """deepseek-v2-236b at full width (d 5120, 128 heads, MLA q_lora 1536,
+    kv_lora 512, q/k 128 + 64, v 128, 160 experts top-6 + 2 shared, vocab
+    102400), cut to 4 of its 60 layers and its parameters stored in bf16,
+    the compute type (34 GB; a layer holds 3.97 B parameters)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("deepseek-v2-236b"), n_layers=4,
+                               param_dtype="bfloat16")
+
+
 def models_phase(dev, seed):
-    """-> (kernels rows, launches) of K5 and K6: K5's over the qwen2-1.5b
-    and granite-moe-3b-a800m serves' prefills, K6's over rwkv6-3b's."""
+    """-> (kernels rows, launches) of K5 and K6: K5's over the qwen2-1.5b,
+    granite-moe-3b-a800m and deepseek-v2-236b (4 layers) serves' prefills,
+    K6's over rwkv6-3b's."""
     from repro_torch.kernels.flash_attention import ops as k5
     from repro_torch.kernels.rwkv6 import ops as k6
     from repro_torch.models import lm, rwkv
@@ -2247,11 +2347,12 @@ def models_phase(dev, seed):
 
     rows = {"flash_attention": flash_phase(dev), "wkv6": wkv6_phase(dev)}
     k5_serves = {}
-    for arch in ("qwen2-1.5b", "granite-moe-3b-a800m"):
+    for arch in ("qwen2-1.5b", "granite-moe-3b-a800m", deepseek_config()):
         t0 = time.perf_counter()
-        k5_serves[arch] = serve_model(dev, arch, lm, k5, "flash_attention",
+        name = getattr(arch, "name", arch)
+        k5_serves[name] = serve_model(dev, arch, lm, k5, "flash_attention",
                                       (layers, "_k5"), seed)
-        log(f"serve {arch}: {time.perf_counter() - t0:.1f} s")
+        log(f"serve {name}: {time.perf_counter() - t0:.1f} s")
     log(f"K5 launches by serve: {k5_serves}")
     launches = {
         "flash_attention": sum(k5_serves.values()),
@@ -2618,8 +2719,9 @@ def main(argv=None):
         model_rows, model_launches = models_phase(dev, args.seed)
         rows.update(model_rows)
         launches.update(model_launches)
-        log(f"launches (K5 over the qwen2-1.5b and granite-moe-3b-a800m "
-            f"serves' prefills, K6 over the rwkv6-3b serve's prefill): "
+        log(f"launches (K5 over the qwen2-1.5b, granite-moe-3b-a800m and "
+            f"deepseek-v2-236b serves' prefills, K6 over the rwkv6-3b "
+            f"serve's prefill): "
             f"{model_launches}; models phase "
             f"{time.perf_counter() - t0:.1f} s")
         for name, n in model_launches.items():

@@ -9,15 +9,21 @@
 // reads kv head h / (H / K); k and v are never repeated in memory), any S
 // and T with the ragged tail masked here, a row with no valid key giving 0,
 // inputs read in the model layout (B, S, H, D) through their strides and
-// the output written (B, S, H, D) contiguous in q's type.  It takes bf16 and
-// f16 at D in {64, 128, 256}; f32 stays on flash.cu (no TF32 enters).
+// the output written (B, S, H, DV) contiguous in q's type.  It takes bf16
+// and f16 at (DQK, DV), the head dims of q/k and of v, in {(64, 64),
+// (128, 128), (256, 256)} and MLA's (192, 128) (deepseek-v2: 128 no-RoPE +
+// 64 RoPE dims of q and k, 128 of v); f32 stays on flash.cu (no TF32
+// enters).
 //
 // Bound on the H100.  At the qwen2-1.5b prefill shape, q (4, 2048, 12, 128)
 // against k, v (4, 2048, 2, 128) bf16, causal: 2*B*H*S*T*D = 51.5 GFLOP of
 // QK^T and PV (half of each square), 0.0521 ms at the 989 TFLOP/s bf16
 // tensor-core peak, against 58.7 MB of q, k, v and o (0.0175 ms at 3.35
 // TB/s): bound by operations, so the products must run on the tensor cores
-// and the loads and the softmax must hide behind them.
+// and the loads and the softmax must hide behind them.  At deepseek-v2's
+// MLA prefill, q and k (4, 2048, 128, 192) and v (4, 2048, 128, 128):
+// B*H*S*T*(DQK + DV) = 687.2 GFLOP, 0.695 ms, against 1.34 GB of q, k, v
+// and o (0.40 ms): bound by operations as well.
 //
 // Design.
 // - One CTA per (128-row query tile, b*h), heads fastest in blockIdx.x and
@@ -36,6 +42,9 @@
 //   peeled off the loop, so no wgmma sits on a divergent path, which would
 //   make ptxas serialize them.  At D = 256 (a 128-register O accumulator)
 //   the turns cost more in spills than they win and are compiled out.
+//   The accumulators are sized by DV and the QK^T's k-steps by DQK, so
+//   (192, 128) keeps D = 128's registers (S and O 64 f32 a thread each),
+//   its BK and its turns, with 12 k16 steps in QK^T instead of 8.
 // - QK^T: wgmma m64nBKk16, Q and K both from shared memory, K-major, f32
 //   accumulate.  bf16 x bf16 (and f16 x f16) products are exact in f32, so S
 //   differs from the plain version only in the order of the sums.
@@ -49,22 +58,24 @@
 //   operand from registers (the f32 accumulator fragment of m64nBK maps
 //   onto the 16-bit A fragment once pairs are packed); V is read from shared
 //   memory as an MN-major B operand through the transpose bit, so it is
-//   never transposed in memory.  One m64n64k16 per 64-wide chunk of D.  The
+//   never transposed in memory.  One m64n64k16 per 64-wide chunk of DV.  The
 //   f32 O accumulator stays in registers and is rescaled by alpha.  The
 //   rounding of P is the only error beyond the order of sums and ex2's
 //   2^-22: |out - ref| <= u * sum(p |v|) / l <= u * max|v|, u = 2^-8
 //   (bf16) or 2^-11 (f16), the tolerance that ops.py states.
-// - Sizes: BK = 128 keys at D <= 128, BK = 64 at D = 256 (there the 64 x 256
-//   f32 O accumulator is 128 registers a thread).  Shared memory, in bytes:
-//   Q 128*D*2 plus 2 stages of K and V, 2*2*BK*D*2, plus 1024 to align the
-//   swizzle atoms: D = 64: 16384 + 65536 + 1024 = 82944; D = 128: 32768 +
-//   131072 + 1024 = 164864; D = 256: 65536 + 131072 + 1024 = 197632; all
-//   within the 232448 a block may use.  (A third stage fits at D <= 128
-//   but measured no faster.)
+// - Sizes: BK = 128 keys at DV <= 128, BK = 64 at DV = 256 (there the 64 x
+//   256 f32 O accumulator is 128 registers a thread).  Shared memory, in
+//   bytes: Q 128*DQK*2 plus 2 stages of K, 2*BK*DQK*2, and of V, 2*BK*DV*2,
+//   plus 1024 to align the swizzle atoms: (64, 64): 16384 + 65536 + 1024 =
+//   82944; (128, 128): 32768 + 131072 + 1024 = 164864; (256, 256): 65536 +
+//   131072 + 1024 = 197632; (192, 128): 49152 + 98304 + 65536 + 1024 =
+//   214016; all within the 232448 a block may use.  (A third stage fits at
+//   D <= 128 but measured no faster.)
 // - Layout: every tile is kept as 64-element (128-byte) column chunks of
 //   [rows][64], written by TMA with the 128-byte swizzle that the wgmma
-//   descriptors name; a D = 128 row is two TMA boxes.  The tensor maps are
-//   4-D, (D, H, S, B) for q and (D, K, T, B) for k and v, built on the host
+//   descriptors name; a D = 128 row is two TMA boxes, a DQK = 192 row
+//   three.  The tensor maps are 4-D, (DQK, H, S, B) for q, (DQK, K, T, B)
+//   for k and (DV, K, T, B) for v, built on the host
 //   from the wrapper's strides with cuTensorMapEncodeTiled, looked up at run
 //   time through the CUDA runtime (no -lcuda); TMA zero-fills rows past S
 //   and T, and the store skips rows >= S.
@@ -91,13 +102,15 @@ constexpr int CHUNK = 64;         // elements of a 128-byte swizzled row
 constexpr int ROW_BYTES = 128;
 constexpr int CONSUMER_WARPS = 8;
 
-template <int D>
+template <int DQK, int DV>
 struct Cfg {
-  static constexpr int BK = D <= 128 ? 128 : 64;
-  static constexpr int NC = D / CHUNK;                // chunks of a row
-  static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;         // one K or V stage
-  static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + 1024;
+  static constexpr int BK = DV <= 128 ? 128 : 64;
+  static constexpr int NC_QK = DQK / CHUNK;           // chunks of a q/k row
+  static constexpr int NC_V = DV / CHUNK;             // chunks of a v/o row
+  static constexpr int Q_BYTES = BQ * DQK * 2;
+  static constexpr int K_BYTES = BK * DQK * 2;        // one K stage
+  static constexpr int V_BYTES = BK * DV * 2;         // one V stage
+  static constexpr int SMEM = Q_BYTES + STAGES * (K_BYTES + V_BYTES) + 1024;
 };
 
 // -- PTX wrappers -------------------------------------------------------------
@@ -326,13 +339,13 @@ __device__ __forceinline__ bool is_edge(int k0, int BK, int r_lo, int Tn,
          (window > 0 && r_lo + WG_ROWS - 1 - k0 >= window);
 }
 
-// S = Q K^T of one key tile: D / 16 k-steps, 16 elements (32 bytes) each
+// S = Q K^T of one key tile: DQK / 16 k-steps, 16 elements (32 bytes) each
 // along the 64-element chunks of Q and K.
-template <bool F16, int D, int BK>
+template <bool F16, int DQK, int BK>
 __device__ __forceinline__ void qk_tile(float (&sc)[BK / 2], uint32_t q_wg,
                                          uint32_t kd) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < DQK / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;
     mma_qk<F16, BK>(
         sc, desc_sw128(q_wg + (kk / 4) * BQ * ROW_BYTES + off, 16, 1024),
@@ -341,7 +354,7 @@ __device__ __forceinline__ void qk_tile(float (&sc)[BK / 2], uint32_t q_wg,
 }
 
 // O += P V of one key tile: one m64n64k16 per k-step and 64-wide chunk of
-// D; V's chunks are BK * 128 bytes apart (the leading byte offset of an
+// DV; V's chunks are BK * 128 bytes apart (the leading byte offset of an
 // MN-major operand), its 8-key groups 1024 (the stride byte offset).
 template <bool F16, int NC, int BK>
 __device__ __forceinline__ void pv_tile(float (&acc)[NC][32],
@@ -424,24 +437,24 @@ __device__ __forceinline__ void pack_p(const float (&sc)[BK / 2],
 
 // -- the kernel ---------------------------------------------------------------
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_tc_fwd(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tk,
              const __grid_constant__ CUtensorMap tv, T* __restrict__ o, int H,
              int K, int S, int Tn, int causal, int window, float scale_log2) {
-  using C = Cfg<D>;
-  constexpr int BK = C::BK, NC = C::NC;
+  using C = Cfg<DQK, DV>;
+  constexpr int BK = C::BK, NC_QK = C::NC_QK, NC_V = C::NC_V;
   constexpr bool F16 = std::is_same<T, __half>::value;
-  constexpr bool TURNS = D <= 128;
+  constexpr bool TURNS = DV <= 128;
   extern __shared__ uint8_t smem_raw[];
   // barriers: q full; per stage k full, k empty, v full, v empty
   __shared__ uint64_t bars[1 + 4 * STAGES];
 
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t q_s = base;                       // NC x [BQ][64]
-  const uint32_t k_s = base + C::Q_BYTES;          // stage s: NC x [BK][64]
-  const uint32_t v_s = k_s + STAGES * C::KV_BYTES;
+  const uint32_t q_s = base;                       // NC_QK x [BQ][64]
+  const uint32_t k_s = base + C::Q_BYTES;          // stage s: NC_QK x [BK][64]
+  const uint32_t v_s = k_s + STAGES * C::K_BYTES;  // stage s: NC_V x [BK][64]
   const uint32_t q_full = smem_u32(&bars[0]);
   const uint32_t k_full = q_full + 8, k_empty = k_full + 8 * STAGES;
   const uint32_t v_full = k_empty + 8 * STAGES, v_empty = v_full + 8 * STAGES;
@@ -474,31 +487,31 @@ flash_tc_fwd(const __grid_constant__ CUtensorMap tq,
     if (tid == 0) {
       mbar_expect_tx(q_full, C::Q_BYTES);
 #pragma unroll
-      for (int c = 0; c < NC; ++c)
+      for (int c = 0; c < NC_QK; ++c)
         tma_load_4d(q_s + c * BQ * ROW_BYTES, &tq, q_full, c * CHUNK, h, q0,
                     b);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % STAGES;
         const uint32_t ph = (it / STAGES) & 1;
         const int k0 = k_first + it * BK;
-        const uint32_t kd = k_s + s * C::KV_BYTES, vd = v_s + s * C::KV_BYTES;
+        const uint32_t kd = k_s + s * C::K_BYTES, vd = v_s + s * C::V_BYTES;
         mbar_wait(k_empty + 8 * s, ph ^ 1);
-        mbar_expect_tx(k_full + 8 * s, C::KV_BYTES);
+        mbar_expect_tx(k_full + 8 * s, C::K_BYTES);
 #pragma unroll
-        for (int c = 0; c < NC; ++c)
+        for (int c = 0; c < NC_QK; ++c)
           tma_load_4d(kd + c * BK * ROW_BYTES, &tk, k_full + 8 * s,
                       c * CHUNK, kh, k0, b);
         mbar_wait(v_empty + 8 * s, ph ^ 1);
-        mbar_expect_tx(v_full + 8 * s, C::KV_BYTES);
+        mbar_expect_tx(v_full + 8 * s, C::V_BYTES);
 #pragma unroll
-        for (int c = 0; c < NC; ++c)
+        for (int c = 0; c < NC_V; ++c)
           tma_load_4d(vd + c * BK * ROW_BYTES, &tv, v_full + 8 * s,
                       c * CHUNK, kh, k0, b);
       }
     }
   } else {
     // -- consumers: 64 query rows each --------------------------------------
-    // At D <= 128 the two warpgroups take turns on the tensor cores (named
+    // At DV <= 128 the two warpgroups take turns on the tensor cores (named
     // barriers 1 and 2, warpgroup 0 first): a turn starts tile it - 1's PV
     // and tile it's QK^T, and each warpgroup's softmax runs while the other
     // holds its turn.
@@ -510,9 +523,9 @@ flash_tc_fwd(const __grid_constant__ CUtensorMap tq,
     const int cq = 2 * (lane % 4);
     const uint32_t q_wg = q_s + cw * WG_ROWS * ROW_BYTES;
 
-    float acc[NC][32];
+    float acc[NC_V][32];
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
+    for (int c = 0; c < NC_V; ++c)
 #pragma unroll
       for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
     float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
@@ -529,7 +542,7 @@ flash_tc_fwd(const __grid_constant__ CUtensorMap tq,
       bar_sync<TURNS>(1 + cw);
       reg_fence(sc);
       wgmma_fence();
-      qk_tile<F16, D, BK>(sc, q_wg, k_s);
+      qk_tile<F16, DQK, BK>(sc, q_wg, k_s);
       wgmma_commit();
       bar_arrive<TURNS>(2 - cw);
       wgmma_wait_all();
@@ -548,16 +561,16 @@ flash_tc_fwd(const __grid_constant__ CUtensorMap tq,
         mbar_wait(v_full + 8 * sp, ((it - 1) / STAGES) & 1);
         bar_sync<TURNS>(1 + cw);
 #pragma unroll
-        for (int c = 0; c < NC; ++c) reg_fence(acc[c]);
+        for (int c = 0; c < NC_V; ++c) reg_fence(acc[c]);
         wgmma_fence();
-        pv_tile<F16, NC, BK>(acc, pa, v_s + sp * C::KV_BYTES);
+        pv_tile<F16, NC_V, BK>(acc, pa, v_s + sp * C::V_BYTES);
         wgmma_commit();
         wgmma_wait_all();
 #pragma unroll
-        for (int c = 0; c < NC; ++c) reg_fence(acc[c]);
+        for (int c = 0; c < NC_V; ++c) reg_fence(acc[c]);
         reg_fence(sc);
         wgmma_fence();
-        qk_tile<F16, D, BK>(sc, q_wg, k_s + s * C::KV_BYTES);
+        qk_tile<F16, DQK, BK>(sc, q_wg, k_s + s * C::K_BYTES);
         wgmma_commit();
         bar_arrive<TURNS>(2 - cw);
         __syncwarp();
@@ -570,7 +583,7 @@ flash_tc_fwd(const __grid_constant__ CUtensorMap tq,
                          is_edge(k0, BK, r_lo, Tn, causal, window), k0, ra,
                          cq, Tn, causal, window, scale_log2);
 #pragma unroll
-        for (int c = 0; c < NC; ++c)
+        for (int c = 0; c < NC_V; ++c)
 #pragma unroll
           for (int i = 0; i < 32; ++i) acc[c][i] *= alpha[(i >> 1) & 1];
         pack_p<T, BK>(sc, pa);
@@ -581,13 +594,13 @@ flash_tc_fwd(const __grid_constant__ CUtensorMap tq,
       mbar_wait(v_full + 8 * s, ((n_tiles - 1) / STAGES) & 1);
       bar_sync<TURNS>(1 + cw);
 #pragma unroll
-      for (int c = 0; c < NC; ++c) reg_fence(acc[c]);
+      for (int c = 0; c < NC_V; ++c) reg_fence(acc[c]);
       wgmma_fence();
-      pv_tile<F16, NC, BK>(acc, pa, v_s + s * C::KV_BYTES);
+      pv_tile<F16, NC_V, BK>(acc, pa, v_s + s * C::V_BYTES);
       wgmma_commit();
       wgmma_wait_all();
 #pragma unroll
-      for (int c = 0; c < NC; ++c) reg_fence(acc[c]);
+      for (int c = 0; c < NC_V; ++c) reg_fence(acc[c]);
       if (cw == 0) bar_arrive<TURNS>(2);
       __syncwarp();
       if (lane == 0) mbar_arrive(v_empty + 8 * s);
@@ -601,9 +614,9 @@ flash_tc_fwd(const __grid_constant__ CUtensorMap tq,
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       const int qp = ra + 8 * i;
       if (qp >= S) continue;
-      T* orow = o + ((static_cast<long long>(b) * S + qp) * H + h) * D;
+      T* orow = o + ((static_cast<long long>(b) * S + qp) * H + h) * DV;
 #pragma unroll
-      for (int c = 0; c < NC; ++c)
+      for (int c = 0; c < NC_V; ++c)
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const float a0 = l == 0.f ? 0.f : acc[c][4 * j + 2 * i] / l;
@@ -670,40 +683,43 @@ struct Strides {                 // in elements; the last dim is contiguous
   long long qb, qs, qh, kb, ks, kh, vb, vs, vh;
 };
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int K, int S, int Tn, Strides st, int causal, int window,
            float scale_log2, cudaStream_t stream) {
-  using C = Cfg<D>;
+  using C = Cfg<DQK, DV>;
   const CUtensorMapDataType type = std::is_same<T, __half>::value
                                        ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap tq, tk, tv;
-  int rc = make_map(&tq, type, q, D, H, S, B, st.qh, st.qs, st.qb, BQ);
-  if (rc == 0) rc = make_map(&tk, type, k, D, K, Tn, B, st.kh, st.ks, st.kb,
-                             C::BK);
-  if (rc == 0) rc = make_map(&tv, type, v, D, K, Tn, B, st.vh, st.vs, st.vb,
+  int rc = make_map(&tq, type, q, DQK, H, S, B, st.qh, st.qs, st.qb, BQ);
+  if (rc == 0) rc = make_map(&tk, type, k, DQK, K, Tn, B, st.kh, st.ks,
+                             st.kb, C::BK);
+  if (rc == 0) rc = make_map(&tv, type, v, DV, K, Tn, B, st.vh, st.vs, st.vb,
                              C::BK);
   if (rc != 0) return rc;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_tc_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_tc_fwd<T, DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::SMEM);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * H, (S + BQ - 1) / BQ);
-  flash_tc_fwd<T, D><<<grid, NTHREADS, C::SMEM, stream>>>(
+  flash_tc_fwd<T, DQK, DV><<<grid, NTHREADS, C::SMEM, stream>>>(
       tq, tk, tv, static_cast<T*>(o), H, K, S, Tn, causal, window,
       scale_log2);
   return (int)cudaGetLastError();
 }
 
+// The (DQK, DV) instances: equal head dims 64, 128, 256, and MLA's
+// (192, 128).
 template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
-               int H, int K, int S, int Tn, int D, Strides st, int causal,
-               int window, float scale_log2, cudaStream_t stream) {
-  switch (D) {
-    case 64: return launch<T, 64>(q, k, v, o, B, H, K, S, Tn, st, causal, window, scale_log2, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, K, S, Tn, st, causal, window, scale_log2, stream);
-    case 256: return launch<T, 256>(q, k, v, o, B, H, K, S, Tn, st, causal, window, scale_log2, stream);
+               int H, int K, int S, int Tn, int D, int DV, Strides st,
+               int causal, int window, float scale_log2, cudaStream_t stream) {
+  switch (D * 1000 + DV) {
+    case 64064: return launch<T, 64, 64>(q, k, v, o, B, H, K, S, Tn, st, causal, window, scale_log2, stream);
+    case 128128: return launch<T, 128, 128>(q, k, v, o, B, H, K, S, Tn, st, causal, window, scale_log2, stream);
+    case 256256: return launch<T, 256, 256>(q, k, v, o, B, H, K, S, Tn, st, causal, window, scale_log2, stream);
+    case 192128: return launch<T, 192, 128>(q, k, v, o, B, H, K, S, Tn, st, causal, window, scale_log2, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -712,24 +728,25 @@ int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
 
 extern "C" {
 
-// dtype: 1 bf16, 2 f16.  Strides in elements, q/k/v last dim contiguous,
-// every other stride and each base address a multiple of 16 bytes (TMA);
-// o is (B, S, H, D) contiguous.  scale_log2 = log2(e) / sqrt(D).  Returns 0,
-// a cudaError_t, or a code that flash_tc_error explains.
+// dtype: 1 bf16, 2 f16.  D is the head dim of q and k, DV that of v.
+// Strides in elements, q/k/v last dim contiguous, every other stride and
+// each base address a multiple of 16 bytes (TMA); o is (B, S, H, DV)
+// contiguous.  scale_log2 = log2(e) / sqrt(D).  Returns 0, a cudaError_t,
+// or a code that flash_tc_error explains.
 int flash_tc_launch(const void* q, const void* k, const void* v, void* o,
                     int dtype, int B, int H, int K, int S, int Tn, int D,
-                    long long qb, long long qs, long long qh, long long kb,
-                    long long ks, long long kh, long long vb, long long vs,
-                    long long vh, int causal, int window, float scale_log2,
-                    void* stream) {
+                    int DV, long long qb, long long qs, long long qh,
+                    long long kb, long long ks, long long kh, long long vb,
+                    long long vs, long long vh, int causal, int window,
+                    float scale_log2, void* stream) {
   if (B < 1 || H < 1 || K < 1 || H % K != 0 || S < 1 || Tn < 1 ||
       (S + BQ - 1) / BQ > 65535)
     return (int)cudaErrorInvalidValue;
   Strides st{qb, qs, qh, kb, ks, kh, vb, vs, vh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 1: return dispatch_d<__nv_bfloat16>(q, k, v, o, B, H, K, S, Tn, D, st, causal, window, scale_log2, s);
-    case 2: return dispatch_d<__half>(q, k, v, o, B, H, K, S, Tn, D, st, causal, window, scale_log2, s);
+    case 1: return dispatch_d<__nv_bfloat16>(q, k, v, o, B, H, K, S, Tn, D, DV, st, causal, window, scale_log2, s);
+    case 2: return dispatch_d<__half>(q, k, v, o, B, H, K, S, Tn, D, DV, st, causal, window, scale_log2, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

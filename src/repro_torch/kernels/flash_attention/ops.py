@@ -4,15 +4,18 @@ For tensors on the CPU :func:`flash_attention` runs the kernels' plain
 version (:mod:`.ref`); for CUDA tensors it launches one of two CUDA
 sources (built by nvcc on first use, see :mod:`repro_torch._build`) on
 PyTorch's current stream, or raises :class:`~repro_torch.kernels.KernelError`.
-Which one is a rule on the type and the head dim alone (:func:`variant`):
+Which one is a rule on the type and the head dims alone (:func:`variant`):
 
 - ``"flash_tc"`` (``csrc/flash_tc.cu``, wgmma on the tensor cores, tiles
-  fed by TMA): bf16 and f16 with D in (64, 128, 256), the head dims of
-  qwen2, qwen3, mistral-nemo and gemma3.  TMA reads q, k and v in place,
-  so their base addresses and strides must be multiples of 16 bytes
-  (:func:`tma_misalignment`); a call that breaks this raises.
+  fed by TMA): bf16 and f16 with (q/k, v) head dims (64, 64), (128, 128)
+  or (256, 256), the head dims of qwen2, qwen3, mistral-nemo and gemma3,
+  and (192, 128), deepseek-v2's MLA (v narrower than q and k).  TMA reads
+  q, k and v in place, so their base addresses and strides must be
+  multiples of 16 bytes (:func:`tma_misalignment`); a call that breaks
+  this raises.
 - ``"flash"`` (``csrc/flash.cu``, f32 FMAs on the CUDA cores): f32 at any
-  supported D (no TF32 enters), and bf16 / f16 at D in (16, 32).
+  supported D (no TF32 enters), and bf16 / f16 at D in (16, 32), with one
+  D for q, k and v.
 
 No call gives way from one kernel to the other, or to the plain version.
 ``flash_attention.launches`` counts every launch, and
@@ -38,7 +41,8 @@ ENTRY = {"flash_tc": "flash_tc", "flash": "flash_attention"}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (16, 32, 64, 128, 256)
 TC_DTYPES = (torch.bfloat16, torch.float16)
-TC_HEAD_DIMS = (64, 128, 256)
+#: the tensor-core kernel's (q/k, v) head dims
+TC_HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
 
 #: unit roundoff of the type P is rounded to before the tensor cores' PV
 UNIT_ROUNDOFF = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
@@ -46,9 +50,10 @@ UNIT_ROUNDOFF = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
-def variant(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel a CUDA call of this type and head dim launches."""
-    if dtype in TC_DTYPES and head_dim in TC_HEAD_DIMS:
+def variant(dtype: torch.dtype, dqk: int, dv: int | None = None) -> str:
+    """The kernel a CUDA call of this type and these head dims (q and k's
+    ``dqk``, v's ``dv``, by default ``dqk``) launches."""
+    if dtype in TC_DTYPES and (dqk, dqk if dv is None else dv) in TC_HEAD_DIMS:
         return "flash_tc"
     return "flash"
 
@@ -95,7 +100,8 @@ def library(variant_name: str = "flash_tc") -> ctypes.CDLL:
         lib = _build.load(SOURCES[variant_name])
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         launch = getattr(lib, ENTRY[variant_name] + "_launch")
-        launch.argtypes = ([ptr] * 4 + [i32] * 7 + [i64] * 9
+        dims = 8 if variant_name == "flash_tc" else 7    # flash_tc takes DV
+        launch.argtypes = ([ptr] * 4 + [i32] * dims + [i64] * 9
                            + [i32, i32, ctypes.c_float, ptr])
         launch.restype = i32
         error = getattr(lib, ENTRY[variant_name] + "_error")
@@ -106,15 +112,16 @@ def library(variant_name: str = "flash_tc") -> ctypes.CDLL:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: (B,S,H,D); k/v: (B,T,K,D) with H % K == 0 -> (B,S,H,D) in q's
-    type.  Positions are the indices: key t is visible to query s when
-    ``t <= s`` (if causal) and ``s - t < window`` (if window > 0).  Any S
-    and T; on CUDA, D in (16, 32, 64, 128, 256) and f32, bf16 or f16, on
-    the kernel that :func:`variant` names."""
+    """q: (B,S,H,D); k: (B,T,K,D) with H % K == 0; v: (B,T,K,DV) -> (B,S,H,DV)
+    in q's type, the scores scaled by ``1/sqrt(D)``.  Positions are the
+    indices: key t is visible to query s when ``t <= s`` (if causal) and
+    ``s - t < window`` (if window > 0).  Any S and T; on CUDA, f32, bf16 or
+    f16 with DV = D in (16, 32, 64, 128, 256), or bf16 / f16 at (D, DV) =
+    (192, 128), on the kernel that :func:`variant` names."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
-    return launch(variant(q.dtype, q.shape[-1]), q, k, v, causal=causal,
-                  window=window)
+    return launch(variant(q.dtype, q.shape[-1], v.shape[-1]), q, k, v,
+                  causal=causal, window=window)
 
 
 def launch(variant_name: str, q, k, v, *, causal: bool = True,
@@ -130,39 +137,47 @@ def launch(variant_name: str, q, k, v, *, causal: bool = True,
         raise KernelError(f"flash_attention: needs q, k, v of one type among "
                           f"f32, bf16, f16 (got {q.dtype}, {k.dtype}, "
                           f"{v.dtype})")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise KernelError(f"flash_attention: needs q (B,S,H,D) and k, v "
-                          f"(B,T,K,D) (got {tuple(q.shape)}, "
+    if (q.dim() != 4 or k.dim() != 4 or v.dim() != 4
+            or v.shape[:3] != k.shape[:3]):
+        raise KernelError(f"flash_attention: needs q (B,S,H,D), k (B,T,K,D) "
+                          f"and v (B,T,K,DV) (got {tuple(q.shape)}, "
                           f"{tuple(k.shape)}, {tuple(v.shape)})")
     B, S, H, D = q.shape
-    T, K = k.shape[1], k.shape[2]
-    if (k.shape[0] != B or k.shape[3] != D or H % K or D not in HEAD_DIMS
+    T, K, DV = k.shape[1], k.shape[2], v.shape[3]
+    if (k.shape[0] != B or k.shape[3] != D or H % K
             or B * H > 65535 or min(B, S, T) < 1):
         raise KernelError(f"flash_attention: unsupported shapes q "
                           f"{tuple(q.shape)}, k {tuple(k.shape)} (H % K == 0, "
-                          f"D in {HEAD_DIMS}, B*H <= 65535)")
+                          f"B*H <= 65535)")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise KernelError("flash_attention: the head dim must be contiguous")
     if variant_name == "flash_tc":
-        if q.dtype not in TC_DTYPES or D not in TC_HEAD_DIMS:
+        if q.dtype not in TC_DTYPES or (D, DV) not in TC_HEAD_DIMS:
             raise KernelError(f"flash_attention: flash_tc takes bf16 or f16 "
-                              f"at D in {TC_HEAD_DIMS} (got {q.dtype}, D={D})")
+                              f"at (D, DV) in {TC_HEAD_DIMS} (got {q.dtype}, "
+                              f"D={D}, DV={DV})")
         for name, t in (("q", q), ("k", k), ("v", v)):
             why = tma_misalignment(t)
             if why:
                 raise KernelError(f"flash_attention: TMA cannot read {name}: "
                                   f"{why}")
         scale = math.log2(math.e) / math.sqrt(D)
+        dims = (D, DV)
     else:
+        if D not in HEAD_DIMS or DV != D:
+            raise KernelError(f"flash_attention: flash takes D in {HEAD_DIMS} "
+                              f"with one D for q, k and v (got D={D}, "
+                              f"DV={DV})")
         scale = 1.0 / math.sqrt(D)
-    out = torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
+        dims = (D,)
+    out = torch.empty((B, S, H, DV), dtype=q.dtype, device=dev)
     lib = library(variant_name)
     entry = ENTRY[variant_name]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, entry + "_launch")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            DTYPES[q.dtype], B, H, K, S, T, D,
+            DTYPES[q.dtype], B, H, K, S, T, *dims,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),

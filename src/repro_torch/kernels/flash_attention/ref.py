@@ -29,7 +29,9 @@ def attention_mask(S: int, T: int, causal: bool, window: int, device):
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: (B,S,H,D); k/v: (B,T,K,D) with H % K == 0 -> (B,S,H,D)."""
+    """q: (B,S,H,D); k: (B,T,K,D) with H % K == 0; v: (B,T,K,DV) ->
+    (B,S,H,DV): the scores scaled by ``1/sqrt(D)``, q's and k's head dim (an
+    MLA head's v is narrower than its q and k)."""
     B, S, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
     if H % K:
@@ -42,4 +44,4 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
     out = torch.where(mask.any(dim=-1)[:, None, None, None], out, 0.0)
-    return out.reshape(B, S, H, D).to(q.dtype)
+    return out.reshape(B, S, H, v.shape[-1]).to(q.dtype)

@@ -44,6 +44,7 @@ from repro_torch.kernels import KernelError
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.rwkv6.ops import wkv6
 from repro_torch.models.common import get_family, init_model
+from repro_torch.nn.config import ModelConfig
 
 #: decode steps captured as CUDA graphs, one a serve call on the card: the
 #: counterpart of the reference's one trace of its jitted ``decode_step``
@@ -219,11 +220,14 @@ def decode(fam, model, cfg, cache, first, prompt_len: int, gen: int, *,
 decode_eager = functools.partial(decode, graph=False)
 
 
-def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
-          gen: int = 32, temperature: float = 0.0, seed: int = 0,
-          device="cuda"):
+def serve(arch: str | ModelConfig, smoke: bool = True, batch: int = 4,
+          prompt_len: int = 32, gen: int = 32, temperature: float = 0.0,
+          seed: int = 0, device="cuda"):
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then decode
     ``gen`` tokens (:func:`decode`: one graph replay a step on the card).
+    ``arch`` names a registered architecture (its smoke or full config, by
+    ``smoke``) or is a :class:`ModelConfig`, served as it is (a full-width
+    config cut in depth, say).
     Weights are drawn from ``torch.Generator`` seed 0 on the device,
     prompts from numpy seed ``seed``, temperature samples from a generator
     seeded ``seed``.  Returns the reference's dict plus the parameter
@@ -236,7 +240,8 @@ def serve(arch: str, smoke: bool = True, batch: int = 4, prompt_len: int = 32,
     model)."""
     dev = resolve_device(device)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    cfg = get_config(arch, smoke=smoke)
+    cfg = arch if isinstance(arch, ModelConfig) else get_config(arch,
+                                                                  smoke=smoke)
     fam = get_family(cfg)
     model = init_model(fam, cfg, torch.Generator(dev).manual_seed(0))
     media = make_media(cfg, batch, dev)

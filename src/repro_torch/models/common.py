@@ -100,7 +100,10 @@ def _fill(node: Params, tree, index=None):
         if tuple(src.shape) != tuple(target.shape):
             raise ValueError(f"{name}: shape {tuple(src.shape)} != "
                              f"{tuple(target.shape)}")
-        if src.device == target.device and src.dtype == target.dtype:
+        if target.device.type == "meta":      # built without memory
+            setattr(node, name, nn.Parameter(src.to(target.dtype),
+                                             requires_grad=False))
+        elif src.device == target.device and src.dtype == target.dtype:
             target.data = src                 # a view: no copy
         else:
             target.data.copy_(src)
@@ -111,7 +114,9 @@ def load_reference_params(model: Model, tree) -> Model:
     (``{"embed": ..., "layers": ...}`` with the layers stacked on a leading
     axis of length L), by path: numpy arrays (the reference's
     ``jax.tree.map(np.asarray, params)``) are copied in; tensors already of
-    the model's device and type are taken as views, not copied."""
+    the model's device and type are taken as views, not copied.  A model
+    built on the meta device takes the tree's tensors as they are, on
+    their own device."""
     _fill(model.embed, tree["embed"])
     for i, layer in enumerate(model.layers):
         _fill(layer, tree["layers"], i)
@@ -123,9 +128,11 @@ def load_reference_params(model: Model, tree) -> Model:
 
 def init_model(fam, cfg: ModelConfig, generator: torch.Generator) -> Model:
     """A model of ``fam`` with parameters drawn by :func:`init_params` from
-    ``generator`` (on its device, in ``cfg.pdtype()``)."""
+    ``generator`` (on its device, in ``cfg.pdtype()``).  The model is built
+    on the meta device and takes the drawn tensors as views, so the
+    parameters are held once (deepseek-v2's 4 layers fill 34 GB in bf16)."""
     tree = init_params(fam.template(cfg), generator, dtype=cfg.pdtype())
-    model = fam.build(cfg, device=generator.device)
+    model = fam.build(cfg, device="meta")
     return load_reference_params(model, tree)
 
 
@@ -143,22 +150,21 @@ def register_family(name: str):
 
 
 def not_ported(what: str) -> str:
-    """The message of a refused family or layer."""
+    """The message of a refused family."""
     return (f"{what} is not ported to repro_torch yet (see ROADMAP.md, "
             "Queue 1 item 6, the model substrate); the ported families are "
-            "the dense and MoE LMs without MLA, and RWKV6")
+            "the dense and MoE LMs (MLA attention included) and RWKV6; the "
+            "hybrid, enc-dec and VLM families are still refused")
 
 
 def get_family(cfg_or_name) -> Any:
     """The family module of a config (or family name).  The dense and MoE
-    LMs and RWKV6 are ported; MLA attention and the other families raise
-    NotImplementedError."""
+    LMs (with MHA / GQA or MLA attention) and RWKV6 are ported; the other
+    families raise NotImplementedError."""
     cfg = None if isinstance(cfg_or_name, str) else cfg_or_name
     name = cfg_or_name if cfg is None else cfg.family
     if name in NOT_PORTED:
         raise NotImplementedError(not_ported(f"the {name!r} family"))
-    if cfg is not None and cfg.use_mla:
-        raise NotImplementedError(not_ported("MLA attention"))
     import repro_torch.models.lm      # noqa: F401
     import repro_torch.models.rwkv    # noqa: F401
     return _REGISTRY[name]

@@ -1,13 +1,14 @@
 """Decoder-only LM, dense and MoE: qwen2-1.5b (QKV bias), qwen3-8b
 (qk-norm GQA), mistral-nemo-12b, gemma3-12b (5:1 local:global sliding
-window, logit softcap in ``unembed``), granite-moe-3b (40-expert MoE).  The
-MLA configs of the reference's ``lm`` (deepseek-v2) are not ported yet
-(:func:`repro_torch.models.common.get_family` refuses them).
+window, logit softcap in ``unembed``), granite-moe-3b (40-expert MoE),
+deepseek-v2-236b (MLA attention, 160-expert MoE with shared experts).
 
 The layers are a Python loop over ``model.layers`` (an ``nn.ModuleList``),
 where the reference scans a stacked tree; the per-layer attention kind
 (local or global) is ``cfg.is_global_layer(i)``.  Prefill attention runs on
-K5 (see :func:`repro_torch.nn.layers.attention_core`).  The MoE layer runs
+K5 (see :func:`repro_torch.nn.layers.attention_core` and, for MLA,
+:func:`repro_torch.nn.layers.mla_prefill`); an MLA model's cache is the
+compressed one, ``ckv`` and ``krope``.  The MoE layer runs
 the config's capacity grid in ``forward`` and ``prefill`` and the dropless
 form in ``decode_step``, as the reference's; ``routing``, a list, collects
 each MoE layer's :class:`repro_torch.nn.layers.Routing`.
@@ -25,12 +26,11 @@ from repro_torch.nn.param import stack_template
 
 
 def layer_template(cfg: ModelConfig):
-    if cfg.use_mla:
-        raise NotImplementedError(C.not_ported("MLA attention"))
     return {
         "ln1": L.rmsnorm_template(cfg.d_model),
         "ln2": L.rmsnorm_template(cfg.d_model),
-        "attn": L.attention_template(cfg),
+        "attn": (L.mla_template(cfg) if cfg.use_mla
+                 else L.attention_template(cfg)),
         "ffn": L.moe_template(cfg) if cfg.is_moe else L.mlp_template(cfg),
     }
 
@@ -65,8 +65,11 @@ def forward(model, cfg: ModelConfig, tokens, media=None, routing=None):
     x = C.embed_tokens(model.embed, cfg, tokens)
     for i, lp in enumerate(model.layers):
         h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        x = x + L.attention_apply(lp["attn"], cfg, h, positions,
-                                  cfg.is_global_layer(i))
+        if cfg.use_mla:
+            x = x + L.mla_apply(lp["attn"], cfg, h, positions)
+        else:
+            x = x + L.attention_apply(lp["attn"], cfg, h, positions,
+                                      cfg.is_global_layer(i))
         h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
         x = x + _ffn(lp["ffn"], cfg, h, routing=routing)
     return C.unembed(model.embed, cfg, x)
@@ -76,7 +79,15 @@ def forward(model, cfg: ModelConfig, tokens, media=None, routing=None):
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device=None):
-    """Zero K/V caches (L, B, T, K, D), the reference's layout."""
+    """Zero caches in the reference's layout: K/V (L, B, T, K, D), or for
+    MLA the compressed ``ckv`` (L, B, T, kv_lora_rank) and ``krope`` (L, B,
+    T, qk_rope_dim)."""
+    if cfg.use_mla:
+        lead = (cfg.n_layers, batch, max_seq)
+        return {"ckv": torch.zeros((*lead, cfg.kv_lora_rank), dtype=dtype,
+                                   device=device),
+                "krope": torch.zeros((*lead, cfg.qk_rope_dim), dtype=dtype,
+                                     device=device)}
     shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -92,9 +103,13 @@ def decode_step(model, cfg: ModelConfig, cache, tokens, pos, media=None):
     x = C.embed_tokens(model.embed, cfg, tokens)
     for i, lp in enumerate(model.layers):
         h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        h, _, _ = L.attention_decode(lp["attn"], cfg, h, cache["k"][i],
-                                     cache["v"][i], pos,
-                                     cfg.is_global_layer(i))
+        if cfg.use_mla:
+            h, _, _ = L.mla_decode(lp["attn"], cfg, h, cache["ckv"][i],
+                                   cache["krope"][i], pos)
+        else:
+            h, _, _ = L.attention_decode(lp["attn"], cfg, h, cache["k"][i],
+                                         cache["v"][i], pos,
+                                         cfg.is_global_layer(i))
         x = x + h
         h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
         x = x + _ffn(lp["ffn"], cfg, h, dropless=True)
@@ -103,8 +118,10 @@ def decode_step(model, cfg: ModelConfig, cache, tokens, pos, media=None):
 
 def prefill(model, cfg: ModelConfig, tokens, max_seq=None, media=None,
             routing=None):
-    """Full-sequence prefill -> (logits of the last position, the bf16 K/V
-    cache of ``max_seq`` positions, the first S filled)."""
+    """Full-sequence prefill -> (logits of the last position, the bf16
+    cache of ``max_seq`` positions, the first S filled).  MLA's cache rows
+    are the c_kv and k_rope its attention computed (the reference computes
+    them a second time, to the same bits)."""
     del media
     B, S = tokens.shape
     positions = _positions(tokens)
@@ -112,13 +129,19 @@ def prefill(model, cfg: ModelConfig, tokens, max_seq=None, media=None,
     x = C.embed_tokens(model.embed, cfg, tokens)
     for i, lp in enumerate(model.layers):
         h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        q, k, v = L._qkv(lp["attn"], cfg, h, positions)
-        out = L.attention_core(cfg, q, k, v, cfg.is_global_layer(i))
-        x = x + L._out_proj(lp["attn"], out)
+        if cfg.use_mla:
+            out, *rows = L.mla_prefill(lp["attn"], cfg, h, positions)
+            x = x + out
+            names = ("ckv", "krope")
+        else:
+            q, k, v = L._qkv(lp["attn"], cfg, h, positions)
+            out = L.attention_core(cfg, q, k, v, cfg.is_global_layer(i))
+            x = x + L._out_proj(lp["attn"], out)
+            rows, names = (k, v), ("k", "v")
         h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
         x = x + _ffn(lp["ffn"], cfg, h, routing=routing)
-        cache["k"][i, :, :S] = k
-        cache["v"][i, :, :S] = v
+        for name, row in zip(names, rows):
+            cache[name][i, :, :S] = row
     logits = C.unembed(model.embed, cfg, x[:, -1:])
     return logits, cache
 

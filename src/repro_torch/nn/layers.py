@@ -1,4 +1,5 @@
-"""Transformer layers of the LMs: norms, RoPE, attention, MLP, MoE.
+"""Transformer layers of the LMs: norms, RoPE, attention (MHA / GQA and
+deepseek-v2's MLA), MLP, MoE.
 
 Pure-function style, as in the reference: ``*_template(cfg)`` returns a
 ParamSpec tree; ``*_apply(params, x, ...)`` computes, with ``params`` a
@@ -11,7 +12,9 @@ every use to the same bits.
 Full-sequence self-attention (train / prefill, positions ``arange(S)``) goes
 through K5 (:mod:`repro_torch.kernels.flash_attention`): the kernel on CUDA
 tensors, its plain version on CPU tensors.  The one-token decode keeps the
-reference's plain masked softmax over the cache.
+reference's plain masked softmax over the cache.  MLA's prefill attention
+is K5 too, on 192-wide q/k heads and 128-wide v heads (deepseek-v2); its
+decode keeps the reference's absorbed query over the compressed cache.
 
 The MoE layer (:func:`moe_apply`) is plain PyTorch, as the reference's is
 XLA outside any Pallas kernel: batched matrix products over a capacity grid
@@ -200,6 +203,116 @@ def attention_decode(params, cfg: ModelConfig, x, cache_k, cache_v, pos,
 
 
 # ---------------------------------------------------------------------------
+# MLA (deepseek-v2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def mla_template(cfg: ModelConfig):
+    E, H = cfg.d_model, cfg.n_heads
+    qr, kr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    t = {
+        "wkv_a": spec((E, kr + dr), ("embed", None)),
+        "kv_norm": rmsnorm_template(kr),
+        "wkv_b": spec((kr, H, dn + dv), ("kv_lora", "heads", None)),
+        "wo": spec((H, dv, E), ("heads", None, "embed")),
+    }
+    if qr > 0:
+        t["wq_a"] = spec((E, qr), ("embed", "q_lora"))
+        t["q_norm"] = rmsnorm_template(qr)
+        t["wq_b"] = spec((qr, H, dn + dr), ("q_lora", "heads", None))
+    else:
+        t["wq"] = spec((E, H, dn + dr), ("embed", "heads", None))
+    return t
+
+
+def _mla_q(params, cfg, x):
+    """The query heads (B,S,H,dn+dr), through the q LoRA when there is one."""
+    dt = x.dtype
+    if cfg.q_lora_rank > 0:
+        cq = rmsnorm(params["q_norm"], x @ params.cast("wq_a", dt),
+                     cfg.norm_eps)
+        return _proj(cq, params.cast("wq_b", dt))
+    return _proj(x, params.cast("wq", dt))
+
+
+def _mla_kv(params, cfg, x, positions):
+    """The compressed key/value rows of x, what the cache keeps: c_kv
+    (B,S,kv_lora_rank), normed, and the shared RoPE key (B,S,dr), rotated."""
+    kr = cfg.kv_lora_rank
+    ckv = x @ params.cast("wkv_a", x.dtype)
+    c_kv = rmsnorm(params["kv_norm"], ckv[..., :kr], cfg.norm_eps)
+    k_rope = rope(ckv[..., kr:][:, :, None, :], positions,
+                  cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def mla_prefill(params, cfg: ModelConfig, x, positions):
+    """Full-sequence MLA (train / prefill) -> (out (B,S,E), c_kv, k_rope),
+    the last two the rows of the compressed cache.  q = [q_nope,
+    rope(q_rope)] and k = [k_nope, rope(k_rope) on every head], (B,S,H,dn+dr)
+    each, and v (B,S,H,dv) go through K5 in one call, scaled by
+    ``1/sqrt(dn + dr)`` (the reference's scale).  The reference sums two
+    products for the scores (no-RoPE and RoPE dims) and, past
+    ``attention_chunk_min_t``, streams key blocks; K5 takes the one
+    (dn + dr)-wide product for both, which differs in f32 only in the order
+    of the sums."""
+    dt = x.dtype
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    B, S = x.shape[:2]
+    q = _mla_q(params, cfg, x)
+    q = torch.cat([q[..., :dn], rope(q[..., dn:], positions, cfg.rope_theta)],
+                  dim=-1)
+    c_kv, k_rope = _mla_kv(params, cfg, x, positions)
+    kv = _proj(c_kv, params.cast("wkv_b", dt))          # (B,S,H,dn+dv)
+    H = kv.shape[2]
+    k = torch.cat([kv[..., :dn], k_rope[:, :, None, :].expand(B, S, H, dr)],
+                  dim=-1)
+    out = _k5.flash_attention(q, k, kv[..., dn:], causal=True)
+    return _out_proj(params, out), c_kv, k_rope
+
+
+def mla_apply(params, cfg: ModelConfig, x, positions):
+    """Full-sequence MLA (train / prefill); positions are ``arange(S)``."""
+    return mla_prefill(params, cfg, x, positions)[0]
+
+
+def mla_decode(params, cfg: ModelConfig, x, cache_ckv, cache_krope, pos):
+    """One-token MLA decode against the compressed cache (B,T,kv_lora_rank)
+    + (B,T,dr), with the reference's absorbed query: q_nope goes through
+    wkv_b's key half, so the scores and the weighted sum run in the
+    kv_lora space and the cache is never expanded to heads.  Writes the
+    token's rows into the caches in place at ``pos`` (a 1-element int64
+    tensor or an int, :func:`decode_position`) without reading it on the
+    host, and returns ``(out, cache_ckv, cache_krope)``."""
+    dt = x.dtype
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    B = x.shape[0]
+    pos = decode_position(pos, x.device)
+    positions = pos.view(1, 1).expand(B, 1)
+    q = _mla_q(params, cfg, x)
+    q_nope = q[..., :dn]
+    q_rope = rope(q[..., dn:], positions, cfg.rope_theta)
+    c_kv, k_rope = _mla_kv(params, cfg, x, positions)
+    cache_ckv.index_copy_(1, pos, c_kv.to(cache_ckv.dtype))
+    cache_krope.index_copy_(1, pos, k_rope.to(cache_krope.dtype))
+
+    wkv_b = params.cast("wkv_b", dt)                      # (kr, H, dn+dv)
+    q_abs = torch.einsum("bshd,rhd->bshr", q_nope, wkv_b[..., :dn])
+    ckv, krope = cache_ckv.to(dt), cache_krope.to(dt)
+    # the reference's scale is a numpy float64, which lifts the bf16 sum
+    # of the two products to f32 before it scales
+    scores = (torch.einsum("bshr,btr->bhst", q_abs, ckv)
+              + torch.einsum("bshd,btd->bhst", q_rope, krope)).float()
+    scores = scores * (1.0 / math.sqrt(dn + dr))
+    T = cache_ckv.shape[1]
+    mask = torch.arange(T, device=x.device) <= pos
+    w = torch.softmax(torch.where(mask, scores, NEG_INF), dim=-1).to(dt)
+    out_c = torch.einsum("bhst,btr->bshr", w, ckv)        # (B,1,H,kr)
+    out = torch.einsum("bshr,rhd->bshd", out_c, wkv_b[..., dn:])
+    return _out_proj(params, out), cache_ckv, cache_krope
+
+
+# ---------------------------------------------------------------------------
 # MLP (SwiGLU / GELU)
 # ---------------------------------------------------------------------------
 
@@ -325,9 +438,12 @@ def _moe_dropless(params, xt, top_p, top_i, X):
     runs every token, one batched product a weight whatever the routing,
     and each token takes the rows of its K experts.  The products a pair
     needs are the ones ``ragged_dot`` computes; the other X - K rows a token
-    cost X/K times the work, which the decode's few tokens afford (the
-    expert weights are read once either way) and which keeps the launch
-    count independent of the routing."""
+    cost X/K times the work, which keeps the launch count independent of
+    the routing.  It also reads every expert's weights, where
+    ``ragged_dot`` reads only those of the experts that hold a pair, at
+    most T·K of the X: at the decode's 4 tokens that is 32 of granite's 40
+    experts but 24 of deepseek-v2's 160, so there the step reads at least
+    160/24 = 6.7 times the expert bytes it needs (ROADMAP.md, Queue 1)."""
     T, E = xt.shape
     ye = _experts(params, xt[None], xt.dtype).reshape(X * T, E)
     cell = top_i * T + torch.arange(T, device=xt.device)[:, None]

@@ -1,7 +1,15 @@
 """The port's kernels on the card: each against its plain version on the
 same CUDA tensors, exact equality.  Marked ``cuda``; skipped where no card
 is present (run them on the card with
-``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``)."""
+``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``).
+
+``python tests/test_torch_cuda.py`` prints the digests of
+:func:`k5_equal_d_outputs` for the ``repro_torch`` on ``PYTHONPATH`` (run
+with an older checkout's ``src`` to record that checkout's outputs)."""
+import dataclasses
+import hashlib
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -594,6 +602,118 @@ def test_flash_attention_kernel_equals_plain(dev, B, H, K, S, T, D, causal,
                                **ops.tolerance(variant, dtype, v))
 
 
+# K5 at deepseek-v2's MLA head dims: q and k 192 wide, v 128 wide
+@pytest.mark.parametrize("B,H,K,S,T,causal,window", [
+    (1, 4, 4, 256, 256, True, 0),       # a kv head a query head, as MLA
+    (2, 4, 4, 200, 200, True, 48),      # window, ragged S
+    (1, 4, 2, 130, 130, True, 0),       # GQA, ragged tail
+    (1, 2, 1, 70, 130, False, 0),       # non-causal, T != S
+    (1, 2, 1, 48, 16, False, 4),        # rows with no valid key
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+def test_flash_tc_mla_equals_plain(dev, B, H, K, S, T, causal, window,
+                                   dtype):
+    """flash_tc.cu's (192, 128) instance == the plain version within
+    ``ops.tolerance``; the output is v's head dim."""
+    from repro_torch.kernels.flash_attention import ops
+
+    g = torch.Generator(dev).manual_seed(S * T + K)
+    q = torch.randn((B, S, H, 192), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, T, K, 192), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, T, K, 128), generator=g, device=dev).to(dtype)
+    assert ops.variant(dtype, 192, 128) == "flash_tc"
+    by0 = ops.flash_attention.variant_launches["flash_tc"]
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.variant_launches["flash_tc"] == by0 + 1
+    want = ops.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert got.shape == want.shape == (B, S, H, 128)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **ops.tolerance("flash_tc", dtype, v))
+    if not causal and window and S >= T + window:   # rows seeing no key
+        assert bool((got[:, T + window - 1:] == 0).all())
+
+
+def test_flash_tc_mla_reads_the_kv_projection(dev):
+    """MLA's call as the port makes it: q and k concatenated (k's RoPE part
+    shared by every head), v a view of the (B, S, H, 128 + 128) kv
+    projection, read in place."""
+    from repro_torch.kernels.flash_attention import ops
+
+    g = torch.Generator(dev).manual_seed(11)
+    B, S, H = 2, 300, 4
+    bf = torch.bfloat16
+    q = torch.randn((B, S, H, 192), generator=g, device=dev).to(bf)
+    kv = torch.randn((B, S, H, 256), generator=g, device=dev).to(bf)
+    k_rope = torch.randn((B, S, 1, 64), generator=g, device=dev).to(bf)
+    k = torch.cat([kv[..., :128], k_rope.expand(B, S, H, 64)], dim=-1)
+    v = kv[..., 128:]
+    assert not v.is_contiguous()
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = ops.flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **ops.tolerance("flash_tc", bf, v))
+
+
+@pytest.mark.parametrize("dtype,dqk,dv", [(torch.float32, 192, 128),
+                                          (torch.bfloat16, 192, 192),
+                                          (torch.bfloat16, 128, 64)])
+def test_unequal_head_dims_off_the_instances_raise(dev, dtype, dqk, dv):
+    """f32 at (192, 128) (flash.cu takes one D) and bf16 at a pair that no
+    flash_tc instance takes raise KernelError; nothing launches and nothing
+    falls back."""
+    from repro_torch.kernels import KernelError
+    from repro_torch.kernels.flash_attention import ops
+
+    q = torch.zeros((1, 64, 2, dqk), device=dev, dtype=dtype)
+    v = torch.zeros((1, 64, 2, dv), device=dev, dtype=dtype)
+    n0 = ops.flash_attention.launches
+    with pytest.raises(KernelError, match="one D"):
+        ops.flash_attention(q, q, v, causal=True)
+    assert ops.flash_attention.launches == n0
+
+
+#: the inputs of :func:`k5_equal_d_outputs`: B, H, K, S, T, causal, window
+K5_DIGEST_CASES = ((2, 4, 2, 300, 300, True, 0), (1, 4, 4, 260, 260, True, 48),
+                   (1, 2, 1, 96, 200, False, 0))
+#: :func:`k5_equal_d_outputs` of flash_tc.cu as it was before its template
+#: took (DQK, DV) pairs, one head dim for q, k and v (printed by this file
+#: run as a script on that checkout; NVIDIA H100 80GB HBM3)
+K5_EQUAL_D_DIGESTS = {
+    "64": "c02efe08d3cbcc3d37c8b3f92fee2345e6db29eb04049a5d23b1bed7f4165220",
+    "128": "a9f6a87da45fdd5b52e185deca7864eb2f085c864de068890f22e98a9a01af1c",
+    "256": "6fc6528d4115a60c0f70faaab578f4aaadb48de11c95fc27fe80355cbe9b0dce"}
+
+
+def k5_equal_d_outputs(dev):
+    """flash_tc.cu at its equal head dims (64, 128, 256), bf16 and f16, on
+    inputs drawn on the host from numpy seeds -> {D: sha256 of the
+    outputs' bytes}."""
+    from repro_torch.kernels.flash_attention import ops
+
+    digests = {}
+    for D in (64, 128, 256):
+        h = hashlib.sha256()
+        for dtype in (torch.bfloat16, torch.float16):
+            for B, H, K, S, T, causal, window in K5_DIGEST_CASES:
+                rng = np.random.default_rng(S + T + D + window)
+                q, k, v = (torch.as_tensor(rng.standard_normal(
+                    shape, np.float32)).to(dtype).to(dev) for shape in
+                    ((B, S, H, D), (B, T, K, D), (B, T, K, D)))
+                out = ops.flash_attention(q, k, v, causal=causal,
+                                          window=window)
+                h.update(out.cpu().view(torch.int16).numpy().tobytes())
+        digests[str(D)] = h.hexdigest()
+    return digests
+
+
+def test_flash_tc_equal_head_dims_give_the_old_bits(dev):
+    """The (64, 64), (128, 128) and (256, 256) instances of the (DQK, DV)
+    template give the outputs of the one-D kernel before it, bit for bit."""
+    assert k5_equal_d_outputs(dev) == K5_EQUAL_D_DIGESTS
+
+
 def test_flash_attention_kernel_reads_strides(dev):
     """q/k/v as views of a fused projection (non-contiguous heads)."""
     from repro_torch.kernels.flash_attention import ops
@@ -1106,7 +1226,109 @@ def test_a_capture_that_fails_raises(dev, monkeypatch):
 
 
 SERVED = ("qwen2_1_5b", "qwen3_8b", "gemma3_12b", "mistral_nemo_12b",
-          "granite_moe_3b", "rwkv6_3b")
+          "granite_moe_3b", "rwkv6_3b", "deepseek_v2_236b")
+
+
+def _mla_card_config(**kw):
+    """deepseek-smoke's narrow model (E 64, 4 heads, 2 layers, 8 experts)
+    with deepseek-v2's head dims: q/k 128 + 64, v 128, a K5 instance
+    (deepseek-smoke's 16 + 8 / 16 is none)."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("deepseek_v2_236b", smoke=True),
+                               head_dim=192, qk_nope_dim=128, qk_rope_dim=64,
+                               v_head_dim=128, **kw)
+
+
+def _served(arch):
+    """The smoke config a card test serves: deepseek's with K5's dims."""
+    from repro_torch.configs import get_config
+
+    if arch == "deepseek_v2_236b":
+        return _mla_card_config()
+    return get_config(arch, smoke=True)
+
+
+#: the MLA config's first layer on the card against the CPU, bf16 compute:
+#: relative L2 of its compressed cache, computed before any attention, so
+#: only the matrix products' bf16 roundings differ
+MLA_CARD_FIRST_LAYER_REL_L2 = 2 ** -7
+
+
+def _rel_l2(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def test_mla_model_on_card_equals_cpu(dev, monkeypatch):
+    """The MLA card config with the same bf16 weights, prefill then four
+    decode steps: on the card in bf16 compute (K5's (192, 128) instance,
+    once a layer; K5 takes no f32 at these dims) and on the CPU in bf16 and
+    in f32 compute (K5's plain version).  The card lies no further from the
+    CPU's f32 result than twice the CPU's bf16 result, plus 1e-2, on every
+    output (``tests/test_torch_models.py``'s rule for the port against the
+    reference in bf16); the first layer's compressed cache equals the CPU's
+    bf16 one within the relative L2 above; every K5 launch lies within
+    ``ops.tolerance`` of the plain version on its own inputs."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.serve import launch_counts
+    from repro_torch.models import lm
+    from repro_torch.models.common import load_reference_params
+    from repro_torch.nn import layers
+    from repro_torch.nn.param import init_params
+
+    cfg = _mla_card_config(param_dtype="bfloat16")
+    tree = init_params(lm.template(cfg), torch.Generator().manual_seed(0),
+                       dtype=torch.bfloat16)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40)), dtype=torch.int32)
+    shadow = []
+
+    class Shadow:
+        @staticmethod
+        def flash_attention(q, k, v, **kw):
+            out = ops.flash_attention(q, k, v, **kw)
+            if q.is_cuda:
+                want = ops.flash_attention_ref(q, k, v, **kw)
+                shadow.append(bool(torch.isclose(
+                    out.float(), want.float(),
+                    **ops.tolerance("flash_tc", q.dtype, v)).all()))
+            return out
+
+    out = {}
+    monkeypatch.setattr(layers, "_k5", Shadow)
+    for device, dtype in ((dev, "bfloat16"), ("cpu", "bfloat16"),
+                          ("cpu", "float32")):
+        run = dataclasses.replace(cfg, compute_dtype=dtype)
+        model = load_reference_params(lm.build(run, device=device), tree)
+        t = toks.to(device)
+        n0 = launch_counts()
+        by0 = ops.flash_attention.variant_launches["flash_tc"]
+        logits, cache = lm.prefill(model, run, t[:, :32], max_seq=40)
+        n1 = launch_counts()
+        by1 = ops.flash_attention.variant_launches["flash_tc"]
+        outputs = {"prefill": logits}
+        for i in range(32, 36):
+            outputs[f"decode{i}"], cache = lm.decode_step(
+                model, run, cache, t[:, i:i + 1], i)
+        outputs.update(cache)
+        out[str(device), dtype] = (
+            {k: x.float().cpu() for k, x in outputs.items()},
+            n1["flash_attention"] - n0["flash_attention"], by1 - by0)
+    card, cpu16, cpu32 = (out["cuda", "bfloat16"], out["cpu", "bfloat16"],
+                          out["cpu", "float32"])
+    assert card[1:] == (cfg.n_layers, cfg.n_layers)
+    assert cpu16[1:] == cpu32[1:] == (0, 0)
+    assert shadow == [True] * cfg.n_layers
+    for name, want in cpu32[0].items():
+        got = card[0][name]
+        assert torch.isfinite(got).all(), name
+        card_err = float((got - want).abs().max())
+        cpu_err = float((cpu16[0][name] - want).abs().max())
+        assert card_err <= 2 * cpu_err + 1e-2, (name, card_err, cpu_err)
+    for name in ("ckv", "krope"):
+        assert _rel_l2(card[0][name][0], cpu16[0][name][0]) \
+            <= MLA_CARD_FIRST_LAYER_REL_L2, name
 
 
 @pytest.mark.parametrize("temperature", [0.0, 0.8])
@@ -1116,11 +1338,10 @@ def test_graphed_decode_equals_eager(dev, arch, temperature):
     eagerly, from one prefill's cache, default bf16 compute: every step's
     logits, the tokens and the cache bit for bit, greedy and sampled from
     generators of one seed."""
-    from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models.common import get_family, init_model
 
-    cfg = get_config(arch, smoke=True)
+    cfg = _served(arch)
     fam = get_family(cfg)
     model = init_model(fam, cfg, torch.Generator(dev).manual_seed(0))
     P, gen = 24, 9
@@ -1161,11 +1382,11 @@ def test_graphed_serve_equals_eager_serve(dev, arch, temperature,
     kw = dict(smoke=True, batch=2, prompt_len=16, gen=7,
               temperature=temperature, seed=3, device="cuda")
     n = serve.CAPTURE_COUNT
-    got = serve.serve(arch, **kw)
+    got = serve.serve(_served(arch), **kw)
     assert got["captures"] == 1 and serve.CAPTURE_COUNT == n + 1
     assert not any(got["launches"]["decode"].values())
     monkeypatch.setattr(serve, "decode", serve.decode_eager)
-    want = serve.serve(arch, **kw)
+    want = serve.serve(_served(arch), **kw)
     assert want["captures"] == 0
     np.testing.assert_array_equal(got["tokens"], want["tokens"])
 
@@ -1290,3 +1511,7 @@ def test_devices_clamp_to_the_cards(dev, monkeypatch):
     cards = mesh.device_count(dev)
     assert calls == ([] if cards < 2 else [min(8, 1 << (cards.bit_length()
                                                           - 1))])
+
+
+if __name__ == "__main__":
+    print(json.dumps(k5_equal_d_outputs(torch.device("cuda"))))

@@ -18,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 from _torch_nosync import NoSync
-from test_torch_models import ARCHS, F32_TOL, _np, _pair, _tokens
+from test_torch_models import (ARCHS, BF16_CACHES, F32_TOL, _np, _pair,
+                               _tokens)
 
 import repro.launch.serve as ref_serve
 import repro_torch.launch.serve as port_serve
@@ -70,7 +71,7 @@ def test_tensor_position_equals_reference(arch):
         np.testing.assert_allclose(_np(got), _np(want), err_msg=f"step {t}",
                                    **F32_TOL)
     for name, want in rcache.items():
-        tol = (dict(atol=1e-4, rtol=2 ** -7) if name in ("k", "v")
+        tol = (dict(atol=1e-4, rtol=2 ** -7) if name in BF16_CACHES
                else F32_TOL)
         np.testing.assert_allclose(_np(pcache[name]), _np(want),
                                    err_msg=name, **tol)

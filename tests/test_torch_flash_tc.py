@@ -89,22 +89,23 @@ def test_cpu_call_runs_the_plain_version_on_either_rule():
 
 def emulate_tc(q, k, v, *, causal, window, round_p=True):
     """The arithmetic of ``flash_tc.cu`` in torch: key tiles of BK (128 at
-    D <= 128, 64 at D = 256), scores in f32, masked keys -inf, a running
-    max m (rows with no valid key yet keep -inf and use 0), p =
-    exp2(s c - m c) with c = log2(e) / sqrt(D), alpha = exp2(m_old c -
-    m c), P rounded to the input type before the PV product, f32 O and l.
-    -> the f32 output before its rounding to q's type."""
+    DV <= 128, 64 at DV = 256; DV is v's head dim, D q's and k's), scores
+    in f32, masked keys -inf, a running max m (rows with no valid key yet
+    keep -inf and use 0), p = exp2(s c - m c) with c = log2(e) / sqrt(D),
+    alpha = exp2(m_old c - m c), P rounded to the input type before the PV
+    product, f32 O and l.  -> the f32 output before its rounding to q's
+    type."""
     B, S, H, D = q.shape
-    T, K = k.shape[1], k.shape[2]
+    T, K, DV = k.shape[1], k.shape[2], v.shape[3]
     G = H // K
-    BK = 128 if D <= 128 else 64
+    BK = 128 if DV <= 128 else 64
     c = math.log2(math.e) / math.sqrt(D)
     qf = q.float().reshape(B, S, K, G, D).permute(0, 2, 3, 1, 4)
     kf, vf = (x.float().permute(0, 2, 1, 3) for x in (k, v))
     mask = attention_mask(S, T, causal, window, q.device)
     m = torch.full((B, K, G, S), -math.inf)
     l = torch.zeros((B, K, G, S))
-    acc = torch.zeros((B, K, G, S, D))
+    acc = torch.zeros((B, K, G, S, DV))
     for k0 in range(0, T, BK):
         s = torch.einsum("bkgsd,bktd->bkgst", qf, kf[:, :, k0:k0 + BK])
         s = torch.where(mask[:, k0:k0 + BK], s, -math.inf)
@@ -119,11 +120,11 @@ def emulate_tc(q, k, v, *, causal, window, round_p=True):
         m = mx
     out = torch.where(l[..., None] > 0, acc / l.clamp_min(1e-30)[..., None],
                       0.0)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, DV)
 
 
 def _weights_times_abs_v(q, k, v, causal, window):
-    """sum_t p_t |v_t| / l of the f32 closed form, (B, S, H, D), in f64."""
+    """sum_t p_t |v_t| / l of the f32 closed form, (B, S, H, DV), in f64."""
     B, S, H, D = q.shape
     K = k.shape[2]
     s = torch.einsum("bskgd,btkd->bkgst", q.double().reshape(B, S, K, -1, D),
@@ -131,7 +132,7 @@ def _weights_times_abs_v(q, k, v, causal, window):
     mask = attention_mask(S, k.shape[1], causal, window, q.device)
     p = torch.softmax(torch.where(mask, s, -math.inf), dim=-1).nan_to_num(0.0)
     w = torch.einsum("bkgst,btkd->bskgd", p, v.double().abs())
-    return w.reshape(B, S, H, D)
+    return w.reshape(B, S, H, v.shape[-1])
 
 
 EMU_CASES = [

@@ -234,35 +234,62 @@ def _variant(arch, **kw):
     return dataclasses.replace(get_config(arch, smoke=True), **kw)
 
 
+#: deepseek-smoke's MLA dims, for configs that switch MLA on
+MLA_DIMS = dict(use_mla=True, q_lora_rank=0, kv_lora_rank=16, qk_nope_dim=16,
+                qk_rope_dim=8, v_head_dim=16)
+
+
 @pytest.mark.parametrize("make,what", [
-    (lambda: "deepseek-v2-236b", "MLA"),
-    (lambda: _variant("granite_moe_3b", use_mla=True), "MLA"),
     (lambda: "hymba-1.5b", "'hybrid'"),
     (lambda: "whisper-large-v3", "'encdec'"),
     (lambda: "llama-3.2-vision-90b", "'vlm'"),
-    (lambda: _variant("qwen2_1_5b", n_experts=4, experts_per_token=2,
-                      use_mla=True), "MLA"),
-    (lambda: _variant("qwen2_1_5b", use_mla=True), "MLA"),
-], ids=["deepseek", "granite", "hymba", "whisper", "llama-vision",
-        "dense+moe", "dense+mla"])
+], ids=["hymba", "whisper", "llama-vision"])
 def test_unported_families_raise(make, what):
-    """Families and layers not ported yet raise NotImplementedError naming
-    ROADMAP.md, from the registry and from ``serve``.  MoE is ported, so a
-    MoE config is refused for its MLA attention alone (granite and a dense
-    config with experts, each with MLA switched on)."""
+    """Families not ported yet raise NotImplementedError naming ROADMAP.md,
+    from the registry and from ``serve``."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models.common import get_family
 
     cfg = make()
-    if isinstance(cfg, str):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            serve.serve(cfg, device="cpu")
-        cfg = get_config(cfg, smoke=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        serve.serve(cfg, device="cpu")
+    cfg = get_config(cfg, smoke=True)
     with pytest.raises(NotImplementedError, match=what):
         get_family(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         get_family(cfg)
+
+
+@pytest.mark.parametrize("make", [
+    lambda: "deepseek-v2-236b",
+    lambda: _variant("granite_moe_3b", **MLA_DIMS),
+    lambda: _variant("qwen2_1_5b", n_experts=4, experts_per_token=2,
+                     **MLA_DIMS),
+    lambda: _variant("qwen2_1_5b", **MLA_DIMS),
+], ids=["deepseek", "granite", "dense+moe", "dense+mla"])
+def test_mla_configs_build_and_serve(make):
+    """MLA attention is ported: deepseek-v2 (its full config and its smoke
+    config) and MLA switched on in a MoE config (granite), in a dense config
+    with experts and in a dense one resolve to the port's ``lm`` through
+    ``get_family``, and the smoke configs serve on the CPU: finite greedy
+    tokens, no kernel launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.models.common import get_family
+
+    cfg = make()
+    if isinstance(cfg, str):
+        assert get_family(get_config(cfg)) is lm
+        cfg = get_config(cfg, smoke=True)
+    assert get_family(cfg) is lm
+    assert "attn" in lm.layer_template(cfg)
+    out = serve.serve(cfg, device="cpu", batch=2, prompt_len=8, gen=4)
+    assert out["tokens"].shape == (2, 4)
+    assert ((out["tokens"] >= 0) & (out["tokens"] < cfg.vocab_size)).all()
+    assert not any(n for phase in out["launches"].values()
+                   for n in phase.values())
 
 
 def test_ported_families_resolve():

@@ -30,10 +30,13 @@ from repro_torch.configs import get_config
 from repro_torch.models.common import get_family, load_reference_params
 
 ARCHS = ("qwen2_1_5b", "qwen3_8b", "gemma3_12b", "mistral_nemo_12b",
-         "rwkv6_3b", "granite_moe_3b")
+         "rwkv6_3b", "granite_moe_3b", "deepseek_v2_236b")
 B, S = 2, 16
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
-DECODE_ATOL = {"granite_moe_3b": 6e-2}     # see test_decode_matches_forward
+DECODE_ATOL = {"granite_moe_3b": 6e-2,     # see test_decode_matches_forward
+               "deepseek_v2_236b": 6e-2}
+#: the bf16 caches: K/V, or MLA's compressed ``ckv`` and ``krope``
+BF16_CACHES = ("k", "v", "ckv", "krope")
 
 
 def _np(x):
@@ -107,8 +110,8 @@ def test_f32_equals_reference(arch, runs):
     assert set(ref) == set(port)
     for name in ref:
         assert port[name].shape == ref[name].shape, name
-        bf16_cache = name.startswith(("cache.k", "cache.v", "decoded.k",
-                                      "decoded.v"))
+        bf16_cache = (name.startswith(("cache.", "decoded."))
+                      and name.split(".", 1)[1] in BF16_CACHES)
         tol = dict(atol=1e-4, rtol=2 ** -7) if bf16_cache else F32_TOL
         np.testing.assert_allclose(port[name], ref[name], err_msg=name, **tol)
 
@@ -139,7 +142,9 @@ def test_decode_matches_forward(arch):
     attention rounded as the decode's, its gap is 0 (the MoE's dropless
     decode and capacity grid give the same bits), so all of it is K5's
     probabilities (tests/test_torch_moe.py holds that form at the
-    reference's 2e-2)."""
+    reference's 2e-2).  deepseek-smoke gets the reference's own 6e-2 for
+    it (tests/test_archs_smoke.py): its decode reorders the no-RoPE
+    products (the absorbed query)."""
     cfg = get_config(arch, smoke=True)
     fam = get_family(cfg)
     params = ref_init(ref_family(ref_config(arch, smoke=True)).template(

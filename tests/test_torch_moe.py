@@ -276,15 +276,22 @@ def test_prefill_then_decode_consistent():
                                atol=REF_DECODE_ATOL)
 
 
-def test_get_family_takes_moe_and_refuses_mla():
+def test_get_family_takes_moe_and_mla():
+    """The MoE LMs resolve to the port's ``lm``, deepseek-v2 (MLA attention
+    and MoE) too, and its template's attention is MLA's; deepseek-smoke
+    serves on the CPU."""
+    import repro_torch.launch.serve as port_serve
+
     assert get_family(get_config("granite_moe_3b")) is lm
     assert get_family(get_config("granite_moe_3b", smoke=True)) is lm
     for smoke in (False, True):
         cfg = get_config("deepseek_v2_236b", smoke=smoke)
-        with pytest.raises(NotImplementedError, match="MLA.*ROADMAP"):
-            get_family(cfg)
-        with pytest.raises(NotImplementedError, match="MLA"):
-            lm.template(cfg)
+        assert get_family(cfg) is lm
+        assert set(lm.layer_template(cfg)["attn"]) == set(
+            L.mla_template(cfg))
+    out = port_serve.serve("deepseek_v2_236b", device="cpu", batch=2,
+                           prompt_len=8, gen=3)
+    assert out["tokens"].shape == (2, 3) and out["drop_share"] == 0.0
 
 
 def test_full_granite_fits_the_card():
