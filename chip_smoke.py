@@ -68,10 +68,12 @@ kernel from the sources in the checkout (nvcc into ``build/``).  Phases:
    equal to the same runs on the CPU;
 6. models: K5 (flash attention) against its plain version at the
    qwen2-1.5b prefill shape (4, 12, 2048, 128) x (4, 2, 2048, 128) bf16, at
-   granite-moe-3b's (4, 24, 2048, 64) x (4, 8, 2048, 64) bf16 and at
+   granite-moe-3b's (4, 24, 2048, 64) x (4, 8, 2048, 64) bf16, at
    deepseek-v2's MLA prefill, q/k (4, 128, 2048, 192) and v (4, 128, 2048,
-   128) bf16 (all three timed beside their bound and SDPA, whose backend
-   is named), in
+   128) bf16, and at hymba-1.5b's (4, 25, 2048, 64) x (4, 5, 2048, 64)
+   bf16 with its window of 1024 and with none (each timed beside its
+   bound and SDPA, whose backend is named; the windowed one beside SDPA
+   with a boolean window mask), in
    f32, with a window below the key tile, non-causal with T != S, at a
    ragged S, in f16 and with rows that see no key, and at MLA's (192, 128)
    with a ragged S, a window and in f16 with GQA, each on the kernel the
@@ -92,7 +94,12 @@ kernel from the sources in the checkout (nvcc into ``build/``).  Phases:
    decode), deepseek-v2-236b at full width cut to 4 of its 60 layers with
    its parameters stored in bf16 (MLA attention, K5: 4, all at (192,
    128); its 160-expert MoE on the global capacity grid; the decode's
-   compressed cache) and rwkv6-3b
+   compressed cache), hymba-1.5b at full width and depth (32 layers of
+   parallel attention and Mamba heads; K5: 32, 29 of them with the window
+   of 1024 and the three global layers with none, counted by window and
+   gated; the Mamba head's scan in plain PyTorch, its share of the
+   prefill's device time printed; the cache's ``h`` and ``conv`` gated
+   with ``k`` and ``v``) and rwkv6-3b
    (K6: 32), each launch shadowed by the plain version on the same inputs
    (gated at the kernel's tolerance), against the same serve with the
    kernel swapped for its plain version, teacher-forced with the first
@@ -156,6 +163,7 @@ and the device JSON.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import gc
 import json
@@ -332,15 +340,20 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def device_times(fn, counts=None):
+def device_times(fn, counts=None, ranges=None):
     """Run fn() under torch.profiler (CUDA activity) -> ({kernel name:
     device us}, None), or (None, reason) when the profiler does not start
     or records no device time here.  fn runs either way.  ``counts``, a
-    dict, receives each kernel's number of recorded launches."""
+    dict, receives each kernel's number of recorded launches; ``ranges``, a
+    dict keyed by ``record_function`` names, receives the device us each
+    range spans on the stream (the CPU activity is then recorded too)."""
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CUDA]
+    if ranges is not None:
+        activities.append(ProfilerActivity.CPU)
     try:        # a measurement, not a check: a profiler fault is reported
-        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof = profile(activities=activities)
         prof.start()
     except Exception as exc:
         prof, why = None, f"profiler did not start: {exc!r}"
@@ -351,17 +364,56 @@ def device_times(fn, counts=None):
             prof.stop()
     if prof is None:
         return None, why
+    from torch.autograd import DeviceType
+
+    # with the CPU activity an operator's row holds its kernels' time too,
+    # and a range has a device row of its own spanning its kernels: the
+    # kernels' own rows alone are counted
     events = [e for e in prof.key_averages()
-              if getattr(e, "self_device_time_total", 0) > 0]
+              if getattr(e, "self_device_time_total", 0) > 0
+              and (ranges is None
+                   or (getattr(e, "device_type", None) == DeviceType.CUDA
+                       and e.key not in ranges))]
     times = {e.key: e.self_device_time_total for e in events}
     if counts is not None:
         counts.update((e.key, e.count) for e in events)
+    if ranges is not None:
+        # a range's device row spans its kernels on the stream; its CPU
+        # row's total of its operators' kernels is the fallback
+        for e in prof.key_averages():
+            if e.key not in ranges:
+                continue
+            if getattr(e, "device_type", None) == DeviceType.CUDA:
+                ranges[e.key] = e.self_device_time_total
+            elif not ranges[e.key]:
+                ranges[e.key] = (getattr(e, "device_time_total", None)
+                                 or getattr(e, "cuda_time_total", 0))
     if not times:
         return None, "the profiler recorded no device time"
     return times, None
 
 
 K4_KERNELS = ("psdsf_pick_kernel",)
+
+
+def outer_range(name, fn):
+    """``fn`` with its outermost calls (not the recursive ones) inside a
+    ``torch.profiler`` range ``name``: :func:`device_times`' ``ranges``
+    reads the device time of the kernels they launch."""
+    import torch
+
+    depth = [0]
+
+    def wrapped(*a, **k):
+        if depth[0]:
+            return fn(*a, **k)
+        depth[0] += 1
+        try:
+            with torch.profiler.record_function(name):
+                return fn(*a, **k)
+        finally:
+            depth[0] -= 1
+    return wrapped
 
 
 def enqueue_us(fn, calls=1000):
@@ -1609,6 +1661,10 @@ GRANITE_ATTN = (4, 24, 8, 2048, 2048, 64)   # granite-moe-3b's prefill
 # deepseek-v2's MLA prefill: B, H, K, S, T, D of q and k, DV of v (128
 # no-RoPE + 64 RoPE dims of q and k, the RoPE key shared by every head)
 MLA_ATTN = (4, 128, 128, 2048, 2048, 192, 128)
+# hymba-1.5b's prefill, a GQA group of 5; 29 of its 32 layers attend
+# through a window of HYMBA_WINDOW keys, the other three globally
+HYMBA_ATTN = (4, 25, 5, 2048, 2048, 64)
+HYMBA_WINDOW = 1024
 RWKV_WKV = (4, 2048, 40, 64)                # B, S, H, D of one prefill
 # K5's tolerances are stated once, by variant, in
 # repro_torch.kernels.flash_attention.ops.tolerance: f32 rtol 1e-5, atol 2e-5;
@@ -1639,12 +1695,13 @@ def _close(got, want, rtol, atol):
 
 
 def flash_phase(dev):
-    """K5 against its plain version at the qwen2-1.5b, granite-moe-3b and
-    deepseek-v2 (MLA: q/k 192, v 128) prefill shapes and on the edge cases,
-    each on the kernel the wrapper's rule picks and within that kernel's
-    tolerance; then the timing block at the three prefill shapes.  -> the
-    kernels row (qwen2-1.5b's shape, granite's in ``granite_prefill``,
-    deepseek-v2's in ``mla_prefill``)."""
+    """K5 against its plain version at the qwen2-1.5b, granite-moe-3b,
+    deepseek-v2 (MLA: q/k 192, v 128) and hymba-1.5b (window 1024 and
+    none) prefill shapes and on the edge cases, each on the kernel the
+    wrapper's rule picks and within that kernel's tolerance; then the
+    timing block at the five prefill shapes.  -> the kernels row
+    (qwen2-1.5b's shape, granite's in ``granite_prefill``, deepseek-v2's in
+    ``mla_prefill``, hymba's in ``hymba_prefill``, by window)."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops as k5
@@ -1655,6 +1712,9 @@ def flash_phase(dev):
         ("qwen2-1.5b prefill", QWEN_ATTN, bf16, True, 0),
         ("granite-moe-3b prefill", GRANITE_ATTN, bf16, True, 0),
         ("deepseek-v2 MLA prefill", MLA_ATTN, bf16, True, 0),
+        ("hymba-1.5b windowed prefill", HYMBA_ATTN, bf16, True,
+         HYMBA_WINDOW),
+        ("hymba-1.5b global prefill", HYMBA_ATTN, bf16, True, 0),
         ("f32", (2, 12, 2, 512, 512, 128), torch.float32, True, 0),
         ("window 48 below the key tile, gemma3-style", (2, 8, 4, 1000,
                                                          1000, 256),
@@ -1739,7 +1799,12 @@ def flash_phase(dev):
         f"{mla['bound_ms']:.4f} ms, {mla['bound_by']}); plain "
         f"{mla['plain_ms']:.4f} ms; scaled_dot_product_attention "
         f"({mla_how}) {mla['library_ms']:.4f} ms")
-    del inputs, qm, km, vm
+    del qm, km, vm
+    hymba = {}
+    for kind, window in (("windowed", HYMBA_WINDOW), ("global", 0)):
+        hymba[kind] = hymba_timing(inputs.pop(f"hymba-1.5b {kind} prefill"),
+                                   window, errs[f"hymba-1.5b {kind} prefill"])
+    del inputs
     # head dim 256 (gemma3-12b's heads), where the kernel compiles its
     # warpgroups' turns out
     B2, H2, K2, S2, D2 = 4, 16, 8, 2048, 256
@@ -1760,60 +1825,104 @@ def flash_phase(dev):
     return dict(variant=variant, ms=ms, plain_ms=plain, library_ms=lib,
                 max_abs_err=errs["qwen2-1.5b prefill"], bound_ms=bound,
                 bound_by=bound_by, cuda_core_ms=simt,
-                granite_prefill=granite, mla_prefill=mla)
+                granite_prefill=granite, mla_prefill=mla,
+                hymba_prefill=hymba)
 
 
-def sdpa_backend(qt, kt, vt):
+def hymba_timing(qkv, window, err):
+    """K5 at hymba-1.5b's prefill shape with ``window`` (0: a global layer)
+    beside its bound, its plain version and SDPA: ``is_causal`` with
+    ``enable_gqa`` for a global layer, a boolean (S, T) window mask for a
+    windowed one.  -> the row, printed."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as k5
+
+    q, k, v = qkv
+    S, T = q.shape[1], k.shape[1]
+    mask = None
+    if window:
+        s, t = (torch.arange(n, device=q.device) for n in (S, T))
+        d = s[:, None] - t[None, :]
+        mask = (d >= 0) & (d < window)
+    row = dict(
+        shape=[list(q.shape), list(k.shape)], window=window,
+        ms=cuda_ms(lambda: k5.flash_attention(q, k, v, causal=True,
+                                              window=window), 20),
+        plain_ms=cuda_ms(lambda: k5.flash_attention_ref(
+            q, k, v, causal=True, window=window), 3),
+        max_abs_err=err)
+    row["library_ms"], how = sdpa_ms(q, k, v, mask)
+    row["bound_ms"], row["bound_by"] = attention_bound(q, k, v, window)
+    log(f"K5 flash_attention {HYMBA_ATTN} bf16 causal, window {window}: "
+        f"{k5.variant(q.dtype, q.shape[-1])} {row['ms']:.4f} ms "
+        f"({row['bound_ms'] / row['ms']:.1%} of the bound "
+        f"{row['bound_ms']:.4f} ms, {row['bound_by']}); plain "
+        f"{row['plain_ms']:.4f} ms; scaled_dot_product_attention ({how}) "
+        f"{row['library_ms']:.4f} ms")
+    return row
+
+
+def sdpa_backend(qt, kt, vt, mask=None, gqa=False):
     """The backend ``scaled_dot_product_attention`` dispatches these (B, H,
-    S, D) inputs to, causal, by torch's own choice, or why it is not
-    named."""
+    S, D) inputs to, causal or under ``mask``, by torch's own choice, or
+    why it is not named."""
     import torch
 
     try:
         from torch.nn.attention import SDPBackend
 
+        kw = dict(enable_gqa=True) if gqa else {}
         return SDPBackend(torch._fused_sdp_choice(
-            qt, kt, vt, is_causal=True)).name.lower()
+            qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+            **kw)).name.lower()
     except (AttributeError, RuntimeError, TypeError, ValueError) as exc:
         # a private call: the backend is named where this torch answers it
         return f"backend not named ({type(exc).__name__})"
 
 
-def sdpa_ms(q, k, v):
+def sdpa_ms(q, k, v, mask=None):
     """-> (ms, how) of ``scaled_dot_product_attention`` on K5's inputs
-    (q (B, S, H, D), k (B, T, K, D), v (B, T, K, DV)), causal: the
-    yardstick only, never on the port's path.  ``how`` names the backend
-    torch picks (for K < H, on k and v as K5 reads them, with
-    ``enable_gqa``)."""
+    (q (B, S, H, D), k (B, T, K, D), v (B, T, K, DV)), causal, or under the
+    boolean (S, T) ``mask`` where one is given: the yardstick only, never
+    on the port's path.  ``how`` names the backend torch picks (for K < H,
+    on k and v as K5 reads them, with ``enable_gqa``)."""
     import torch.nn.functional as F
 
     H, K = q.shape[2], k.shape[2]
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    kw = dict(is_causal=True) if mask is None else dict(attn_mask=mask)
     if K == H:
         return (cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), 20), sdpa_backend(qt, kt, vt))
+            qt, kt, vt, **kw), 20), sdpa_backend(qt, kt, vt, mask))
     try:
-        return cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 20), "enable_gqa"
+        return (cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True, **kw), 20),
+            "enable_gqa, " + sdpa_backend(qt, kt, vt, mask, gqa=True))
     except TypeError:
         kr, vr = (x.repeat_interleave(H // K, dim=1) for x in (kt, vt))
         return (cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kr, vr, is_causal=True), 20),
+            qt, kr, vr, **kw), 20),
             "k/v repeated (no enable_gqa in this torch), "
-            + sdpa_backend(qt, kr, vr))
+            + sdpa_backend(qt, kr, vr, mask))
 
 
-def attention_bound(q, k, v):
+def attention_bound(q, k, v, window=0):
     """-> (ms, what bounds it) of causal bf16 attention on these inputs:
     q, k, v and the output (B, S, H, DV) each moved once; B·H·S·T·(D + DV)
     operations (half of QK^T's 2·S·T·D and of PV's 2·S·T·DV) on the tensor
-    cores."""
+    cores, or with a ``window`` 2·B·H·(D + DV) a (q, k) pair it leaves
+    (``s - t`` in [0, window), S = T)."""
     B, S, H, D = q.shape
     T, DV = k.shape[1], v.shape[-1]
     nbytes = (q.numel() + k.numel() + v.numel() + B * S * H * DV) \
         * q.element_size()
+    ops = B * H * S * T * (D + DV)
+    if window:
+        pairs = sum(min(s + 1, window) for s in range(S))
+        ops = 2 * B * H * pairs * (D + DV)
     times = {"bytes": nbytes / HBM_BYTES_PER_S,
-             "operations": B * H * S * T * (D + DV) / BF16_OPS_PER_S}
+             "operations": ops / BF16_OPS_PER_S}
     what = max(times, key=times.get)
     return times[what] * 1e3, what
 
@@ -1919,7 +2028,7 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
     prefill, decode = fam_mod.prefill, fam_mod.decode_step
     kernel, plain = (getattr(kernel_mod, kernel_name),
                      getattr(kernel_mod, kernel_name + "_ref"))
-    shadow_errs, tols, dims = [], [], set()
+    shadow_errs, tols, dims, windows = [], [], set(), collections.Counter()
 
     def tolerance(*a):
         if kernel_name != "flash_attention":
@@ -1932,6 +2041,7 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
         out = kernel(*a, **k)
         if kernel_name == "flash_attention":    # (q/k, v) head dims
             dims.add((a[0].shape[-1], a[2].shape[-1]))
+            windows[k.get("window", 0)] += 1
         want = plain(*a, **k)
         pairs = (zip(out, want) if isinstance(out, tuple)
                  else [(out, want)])
@@ -1998,6 +2108,17 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
               f"({n_layers}) at {want_dims}")
         log(f"serve {arch}: K5 launches by variant in the prefill "
             f"{n_variant}, at (q/k, v) head dims {sorted(dims)}")
+        # a local layer attends through the config's window, a global one
+        # (and every layer of a model without a window) through none
+        want_windows = collections.Counter(
+            0 if cfg.is_global_layer(i) else cfg.window
+            for i in range(n_layers))
+        check(windows == want_windows,
+              f"{arch}: K5 launches by window {dict(windows)}, expected "
+              f"{dict(want_windows)}")
+        log(f"serve {arch}: K5 launches by window in the prefill "
+            + ", ".join(f"window {w}: {c}"
+                        for w, c in sorted(windows.items(), reverse=True)))
     check(launches["prefill"][kernel_name] == n_layers
           and n[kernel_name] == n_layers
           and not any(v for k, v in n.items() if k != kernel_name)
@@ -2167,14 +2288,20 @@ def routed_alike(dev, cfg, fam_mod, kernel_mod, seed):
     torch.cuda.empty_cache()
 
 
+#: the decode state a step reads and writes back whole, by family: RWKV6's
+#: WKV state and shift tokens, hymba's SSM ``h`` and conv tail
+STATE_REWRITTEN = {"ssm": ("wkv", "tm_last", "cm_last"),
+                   "hybrid": ("h", "conv")}
+
+
 def decode_bytes(model, cfg, cache):
     """The bytes one decode step must move: every weight it reads, once, in
-    the compute type (the bf16 casts; the 1-D scales and decays, read in
-    f32 or cast, are counted at the compute type's size too: under 1 MB),
-    less an untied embedding table's rows past the batch's and RWKV
-    channel-mix ``wr`` off its diagonal (the step reads only those); the
-    K/V cache read whole, or the WKV state and the shift tokens read and
-    written; the logits written."""
+    the compute type (the bf16 casts; the 1-D scales and decays and
+    hymba's ``A_log``, read in f32 or cast, are counted at the compute
+    type's size too: under 2 MB), less an untied embedding table's rows
+    past the batch's and RWKV channel-mix ``wr`` off its diagonal (the step
+    reads only those); the K/V cache read whole; the recurrent state
+    (:data:`STATE_REWRITTEN`) read and written; the logits written."""
     import torch
 
     esize = torch.empty((), dtype=cfg.cdtype()).element_size()
@@ -2184,8 +2311,9 @@ def decode_bytes(model, cfg, cache):
         weights -= (cfg.padded_vocab - B) * cfg.d_model
     if cfg.family == "ssm":
         weights -= cfg.n_layers * (cfg.d_model ** 2 - cfg.d_model)
-    state = sum(c.numel() * c.element_size() for c in cache.values())
-    moved = state if cfg.family != "ssm" else 2 * state
+    rewritten = STATE_REWRITTEN.get(cfg.family, ())
+    moved = sum(c.numel() * c.element_size() * (2 if name in rewritten else 1)
+                for name, c in cache.items())
     return weights * esize + moved + B * cfg.padded_vocab * esize
 
 
@@ -2195,11 +2323,16 @@ def busy_shares(dev, cfg, fam_mod, kernel_key, steps=16):
     decode step captured as a CUDA graph (``serve.DecodeStep``), each under
     torch.profiler, with the device time of the kernels whose names hold
     ``kernel_key`` and the kernels a decode step; and the step's byte
-    bound (:func:`decode_bytes`); printed."""
+    bound (:func:`decode_bytes`); printed.  For the hybrid family also the
+    Mamba heads' and their scan's share of the prefill's device time, from
+    profiler ranges around their calls (:func:`outer_range`)."""
+    from unittest import mock
+
     import torch
 
     from repro_torch.launch import serve
     from repro_torch.models.common import init_model
+    from repro_torch.nn import ssm
 
     arch = cfg.name
     model = init_model(fam_mod, cfg, torch.Generator(dev).manual_seed(0))
@@ -2230,11 +2363,20 @@ def busy_shares(dev, cfg, fam_mod, kernel_key, steps=16):
                 f"{wall[key] / steps * 1e3:.3f} ms step, "
                 f"{sum(launched.values()) / steps:.0f} kernels a step")
 
+    hybrid = cfg.family == "hybrid"
+    ranges = {"mamba_head": 0, "mamba_scan": 0} if hybrid else None
     with torch.no_grad():
         prefill()                                           # warm
         del out["prefill"]
         torch.cuda.empty_cache()
-        times_p, why_p = device_times(timed("prefill", prefill))
+        with contextlib.ExitStack() as stack:
+            if hybrid:
+                for name, attr in (("mamba_head", "mamba_apply"),
+                                   ("mamba_scan", "associative_scan")):
+                    stack.enter_context(mock.patch.object(
+                        ssm, attr, outer_range(name, getattr(ssm, attr))))
+            times_p, why_p = device_times(timed("prefill", prefill),
+                                          ranges=ranges)
         logits, cache = out.pop("prefill")
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         fam_mod.decode_step(model, cfg, cache, tok, S)      # warm
@@ -2269,6 +2411,12 @@ def busy_shares(dev, cfg, fam_mod, kernel_key, steps=16):
                  f"{kernel_key} {kern * 1e3:.3f} ms ({kern / busy:.1%}); "
                  f"the five longest kernels: " + "; ".join(
                      f"{name[:60]} {us / 1e3:.3f} ms" for name, us in top))
+        if hybrid:
+            why_p += "; " + ", ".join(
+                f"{name} {ranges[name] / 1e3:.3f} ms "
+                f"({ranges[name] / 1e6 / busy:.1%} of the device time)"
+                if ranges[name] else f"{name} not measured (the profiler "
+                "gave its range no device time)" for name in ranges)
     why_d = decode_line("decode", times_d, why_d, launched)
     why_g = decode_line("graph", times_g, why_g, launched_g)
     if times_g:
@@ -2338,19 +2486,20 @@ def deepseek_config():
 
 def models_phase(dev, seed):
     """-> (kernels rows, launches) of K5 and K6: K5's over the qwen2-1.5b,
-    granite-moe-3b-a800m and deepseek-v2-236b (4 layers) serves' prefills,
-    K6's over rwkv6-3b's."""
+    granite-moe-3b-a800m, deepseek-v2-236b (4 layers) and hymba-1.5b
+    serves' prefills, K6's over rwkv6-3b's."""
     from repro_torch.kernels.flash_attention import ops as k5
     from repro_torch.kernels.rwkv6 import ops as k6
-    from repro_torch.models import lm, rwkv
+    from repro_torch.models import hymba, lm, rwkv
     from repro_torch.nn import layers, ssm
 
     rows = {"flash_attention": flash_phase(dev), "wkv6": wkv6_phase(dev)}
     k5_serves = {}
-    for arch in ("qwen2-1.5b", "granite-moe-3b-a800m", deepseek_config()):
+    for arch, fam in (("qwen2-1.5b", lm), ("granite-moe-3b-a800m", lm),
+                      (deepseek_config(), lm), ("hymba-1.5b", hymba)):
         t0 = time.perf_counter()
         name = getattr(arch, "name", arch)
-        k5_serves[name] = serve_model(dev, arch, lm, k5, "flash_attention",
+        k5_serves[name] = serve_model(dev, arch, fam, k5, "flash_attention",
                                       (layers, "_k5"), seed)
         log(f"serve {name}: {time.perf_counter() - t0:.1f} s")
     log(f"K5 launches by serve: {k5_serves}")
@@ -2719,9 +2868,9 @@ def main(argv=None):
         model_rows, model_launches = models_phase(dev, args.seed)
         rows.update(model_rows)
         launches.update(model_launches)
-        log(f"launches (K5 over the qwen2-1.5b, granite-moe-3b-a800m and "
-            f"deepseek-v2-236b serves' prefills, K6 over the rwkv6-3b "
-            f"serve's prefill): "
+        log(f"launches (K5 over the qwen2-1.5b, granite-moe-3b-a800m, "
+            f"deepseek-v2-236b and hymba-1.5b serves' prefills, K6 over the "
+            f"rwkv6-3b serve's prefill): "
             f"{model_launches}; models phase "
             f"{time.perf_counter() - t0:.1f} s")
         for name, n in model_launches.items():

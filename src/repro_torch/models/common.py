@@ -139,7 +139,7 @@ def init_model(fam, cfg: ModelConfig, generator: torch.Generator) -> Model:
 # -- registry ----------------------------------------------------------------
 
 _REGISTRY: dict[str, Any] = {}
-NOT_PORTED = ("hybrid", "encdec", "vlm")
+NOT_PORTED = ("encdec", "vlm")
 
 
 def register_family(name: str):
@@ -153,18 +153,21 @@ def not_ported(what: str) -> str:
     """The message of a refused family."""
     return (f"{what} is not ported to repro_torch yet (see ROADMAP.md, "
             "Queue 1 item 6, the model substrate); the ported families are "
-            "the dense and MoE LMs (MLA attention included) and RWKV6; the "
-            "hybrid, enc-dec and VLM families are still refused")
+            "the dense and MoE LMs (MLA attention included), RWKV6 and the "
+            "hybrid (hymba: attention and Mamba heads); the enc-dec and VLM "
+            "families are still refused")
 
 
 def get_family(cfg_or_name) -> Any:
     """The family module of a config (or family name).  The dense and MoE
-    LMs (with MHA / GQA or MLA attention) and RWKV6 are ported; the other
-    families raise NotImplementedError."""
+    LMs (with MHA / GQA or MLA attention), RWKV6 and the hybrid family
+    (hymba) are ported; the enc-dec and VLM families raise
+    NotImplementedError."""
     cfg = None if isinstance(cfg_or_name, str) else cfg_or_name
     name = cfg_or_name if cfg is None else cfg.family
     if name in NOT_PORTED:
         raise NotImplementedError(not_ported(f"the {name!r} family"))
+    import repro_torch.models.hymba   # noqa: F401
     import repro_torch.models.lm      # noqa: F401
     import repro_torch.models.rwkv    # noqa: F401
     return _REGISTRY[name]

@@ -8,8 +8,14 @@ The full-sequence time-mix (``chunked=True``: train / prefill) runs the
 chunk-parallel recurrence through K6 (:mod:`repro_torch.kernels.rwkv6`):
 the kernel on CUDA tensors, its plain version on CPU tensors.  The decode
 step (``chunked=False``) runs the exact recurrence :func:`wkv6_scan` in
-plain PyTorch, as the reference does.  The reference's Mamba head is not
-ported yet (ROADMAP.md).
+plain PyTorch, as the reference does.
+
+The Mamba head (hymba's parallel SSM branch, :func:`mamba_apply`) is a
+selective SSM whose linear recurrence ``h_t = decay_t * h_{t-1} + drive_t``
+runs through :func:`associative_scan`, JAX's odd/even recursion in plain
+PyTorch: the reference's is ``jax.lax.associative_scan``, XLA code and no
+Pallas kernel, so the port combines in the same tree with no kernel of its
+own.
 """
 from __future__ import annotations
 
@@ -133,3 +139,132 @@ def rwkv6_channel_apply(params, cfg: ModelConfig, x, last=None):
     # the reference's einsum("bse,ee->bse", xr, wr) reads the diagonal of wr
     r = torch.sigmoid(xr * torch.diagonal(params.cast("wr", dt)))
     return r * v, x[:, -1:]
+
+
+# ---------------------------------------------------------------------------
+# Mamba-style selective SSM (hymba's parallel-SSM head)
+# ---------------------------------------------------------------------------
+
+CONV_K = 4
+
+
+def mamba_template(cfg: ModelConfig):
+    E, N = cfg.d_model, cfg.ssm_state
+    return {
+        "in_x": spec((E, E), ("embed", "mlp")),
+        "in_z": spec((E, E), ("embed", "mlp")),
+        "conv": spec((CONV_K, E), ("conv", "mlp"), scale=0.5),
+        "wB": spec((E, N), ("mlp", "ssm"), scale=0.02),
+        "wC": spec((E, N), ("mlp", "ssm"), scale=0.02),
+        "wdt": spec((E, 1), ("mlp", None), scale=0.02),
+        "dt_bias": spec((E,), ("mlp",), init="zeros"),
+        "A_log": spec((E, N), ("mlp", "ssm"), init="zeros"),
+        "D": spec((E,), ("mlp",), init="ones"),
+        "out": spec((E, E), ("mlp", "embed")),
+    }
+
+
+def _interleave(even, odd, dim):
+    """even[0], odd[0], even[1], ... along ``dim``; ``even`` is as long as
+    ``odd`` or one longer."""
+    shape = list(even.shape)
+    shape[dim] += odd.shape[dim]
+    out = even.new_empty(shape)
+    lead = (slice(None),) * dim
+    out[lead + (slice(0, None, 2),)] = even
+    out[lead + (slice(1, None, 2),)] = odd
+    return out
+
+
+def associative_scan(fn, elems, dim: int = 0):
+    """The inclusive scan of ``fn`` over ``dim`` of the tuple of tensors
+    ``elems``, by ``jax.lax.associative_scan``'s odd/even recursion: ``fn``
+    combines adjacent pairs, the scan of that half-length sequence gives the
+    odd outputs, ``fn`` of each odd output with the next even element gives
+    the even outputs, element 0 goes first and the two interleave.  So
+    every output is combined in the reference's tree and order.  About
+    ``2 log2(S)`` calls of ``fn`` on halving lengths; no loop over S."""
+    elems = tuple(elems)
+    dim %= elems[0].dim()
+    n = elems[0].shape[dim]
+    if n < 2:
+        return elems
+
+    def part(x, start, stop=None, step=1):
+        idx = [slice(None)] * x.dim()
+        idx[dim] = slice(start, stop, step)
+        return x[tuple(idx)]
+
+    reduced = fn(tuple(part(e, 0, n - 1, 2) for e in elems),
+                 tuple(part(e, 1, None, 2) for e in elems))
+    odd = associative_scan(fn, reduced, dim)
+    del reduced
+    rest = tuple(part(e, 2, None, 2) for e in elems)
+    if n % 2 == 0:
+        even = fn(tuple(part(o, 0, -1) for o in odd), rest)
+    else:
+        even = fn(odd, rest)
+    even = tuple(torch.cat([part(e, 0, 1), r], dim=dim)
+                 for e, r in zip(elems, even))
+    return tuple(_interleave(e, o, dim) for e, o in zip(even, odd))
+
+
+def scan_combine(a, b):
+    """The linear recurrence's combine, the reference's operands in its
+    order: (decay, drive) then (decay, drive)."""
+    return (a[0] * b[0], b[0] * a[1] + b[1])
+
+
+def softplus(x):
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``, max(x, 0) + log1p(exp(-|x|)),
+    with no switch to ``x`` past a threshold (``F.softplus``'s)."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _depthwise_conv(x, w, tail=None):
+    """Causal depthwise conv, kernel CONV_K. x: (B,S,E); tail: (B,K-1,E)."""
+    if tail is None:
+        tail = x.new_zeros((x.shape[0], CONV_K - 1, x.shape[2]))
+    xp = torch.cat([tail, x], dim=1)
+    S = x.shape[1]
+    out = sum(xp[:, i:i + S] * w[i] for i in range(CONV_K))
+    return out, xp[:, -(CONV_K - 1):]
+
+
+def mamba_apply(params, cfg: ModelConfig, x, state=None):
+    """Selective SSM. x: (B,S,E); ``state`` is (h (B,E,N) f32, the conv
+    tail (B,CONV_K-1,E) in x's type) or None.  Returns (out, (h_end,
+    conv_tail)).  The reference's cast points: the projections in the
+    compute type, the step size, decay, drive and scan in f32."""
+    dt_ = x.dtype
+    f32 = torch.float32
+    xb = x @ params.cast("in_x", dt_)
+    z = x @ params.cast("in_z", dt_)
+    h_tail = None if state is None else state[1]
+    xc, tail = _depthwise_conv(xb, params.cast("conv", dt_), h_tail)
+    xc = F.silu(xc)
+
+    Bm = (xc @ params.cast("wB", dt_)).to(f32)
+    Cm = (xc @ params.cast("wC", dt_)).to(f32)
+    delta = softplus((xc * params.cast("wdt", dt_)[:, 0]).to(f32)
+                     + params["dt_bias"].to(f32))   # (B,S,E) step size
+    A = -torch.exp(params["A_log"].to(f32))                   # (E,N)
+
+    decay = torch.exp(delta[..., None] * A)                   # (B,S,E,N)
+    drive = (delta * xc.to(f32))[..., None] * Bm[:, :, None, :]
+    del delta
+    if state is not None:
+        decay = torch.cat([torch.ones_like(decay[:, :1]), decay], dim=1)
+        drive = torch.cat([state[0].to(f32)[:, None], drive], dim=1)
+    _, hs = associative_scan(scan_combine, (decay, drive), dim=1)
+    del decay, drive
+    if state is not None:
+        hs = hs[:, 1:]
+    B, S, E, N = hs.shape
+    # einsum("bsen,bsn->bse") as one batched product
+    y = torch.bmm(hs.reshape(B * S, E, N),
+                  Cm.reshape(B * S, N, 1)).reshape(B, S, E)
+    y = y + params["D"].to(f32) * xc.to(f32)
+    y = y.to(dt_) * F.silu(z)
+    out = y @ params.cast("out", dt_)
+    return out, (hs[:, -1], tail)

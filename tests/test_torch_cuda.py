@@ -602,6 +602,29 @@ def test_flash_attention_kernel_equals_plain(dev, B, H, K, S, T, D, causal,
                                **ops.tolerance(variant, dtype, v))
 
 
+@pytest.mark.parametrize("window", [1024, 0], ids=["windowed", "global"])
+def test_flash_tc_hymba_prefill_equals_plain(dev, window):
+    """K5 at hymba-1.5b's prefill shape, (4, 25, 2048, 64) x (4, 5, 2048,
+    64) bf16 causal (a GQA group of 5): on its 29 local layers with the
+    window of 1024 keys, where the 16 query tiles' windows start at
+    different key tiles, and on its 3 global layers with none; the
+    tensor-core kernel, within its tolerance of the plain version."""
+    from repro_torch.kernels.flash_attention import ops
+
+    g = torch.Generator(dev).manual_seed(24 + window)
+    q = torch.randn((4, 2048, 25, 64), generator=g, device=dev).to(
+        torch.bfloat16)
+    k, v = (torch.randn((4, 2048, 5, 64), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    by0 = ops.flash_attention.variant_launches["flash_tc"]
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.variant_launches["flash_tc"] == by0 + 1
+    want = ops.flash_attention_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **ops.tolerance("flash_tc", q.dtype, v))
+
+
 # K5 at deepseek-v2's MLA head dims: q and k 192 wide, v 128 wide
 @pytest.mark.parametrize("B,H,K,S,T,causal,window", [
     (1, 4, 4, 256, 256, True, 0),       # a kv head a query head, as MLA
@@ -814,7 +837,7 @@ def test_wkv6_kernel_reads_unaligned_inputs(dev):
 
 
 @pytest.mark.parametrize("arch", ["qwen2_1_5b", "gemma3_12b", "rwkv6_3b",
-                                  "granite_moe_3b"])
+                                  "granite_moe_3b", "hymba_1_5b"])
 def test_model_on_card_equals_cpu(dev, arch):
     """The same weights on the card (K5/K6) and on the CPU (their plain
     versions), f32 compute: prefill logits and cache, then decode steps."""
@@ -855,10 +878,57 @@ def test_model_on_card_equals_cpu(dev, arch):
         # round a value to the neighbouring bf16 number (rtol), and a value
         # near zero carries that earlier difference, up to about 1e-3 at
         # these magnitudes (atol)
-        tol = (dict(rtol=2 ** -7, atol=1e-3) if name in ("k", "v")
+        tol = (dict(rtol=2 ** -7, atol=1e-3) if name in ("k", "v", "conv")
                else dict(rtol=1e-4, atol=1e-4))
         torch.testing.assert_close(out["cuda"][1][name], out["cpu"][1][name],
                                    **tol)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_mamba_apply_on_card_equals_cpu(dev, with_state):
+    """hymba's Mamba head (the associative scan) on the card and on the
+    CPU at a small width (E 256, N 16, S 300), the same weights: in f32
+    compute the output, ``h`` and the conv tail within 1e-4; in bf16 the
+    card no further from the CPU's f32 result than twice the CPU's bf16,
+    plus 1e-2."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import _fill
+    from repro_torch.nn import ssm
+    from repro_torch.nn.param import Params, init_params
+
+    base = dataclasses.replace(get_config("hymba_1_5b", smoke=True),
+                               d_model=256, ssm_state=16)
+    tree = init_params(ssm.mamba_template(base),
+                       torch.Generator().manual_seed(2))
+    tree["A_log"] = torch.rand(tree["A_log"].shape,
+                               generator=torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(4)
+    x = torch.as_tensor(rng.standard_normal((2, 300, 256)),
+                        dtype=torch.float32)
+    state = ((torch.as_tensor(rng.standard_normal((2, 256, 16)),
+                              dtype=torch.float32),
+              torch.as_tensor(rng.standard_normal((2, ssm.CONV_K - 1, 256)),
+                              dtype=torch.float32))
+             if with_state else None)
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(base, compute_dtype=dtype)
+            node = Params(ssm.mamba_template(cfg), device=device)
+            _fill(node, tree)
+            st = None if state is None else (
+                state[0].to(device), state[1].to(device, cfg.cdtype()))
+            y, (h, tail) = ssm.mamba_apply(node, cfg,
+                                           x.to(device, cfg.cdtype()), st)
+            out[device.type, dtype] = [a.float().cpu() for a in (y, h, tail)]
+    for a, b in zip(out["cuda", "float32"], out["cpu", "float32"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    for card, cpu16, cpu32 in zip(out["cuda", "bfloat16"],
+                                  out["cpu", "bfloat16"],
+                                  out["cpu", "float32"]):
+        assert torch.isfinite(card).all()
+        assert (float((card - cpu32).abs().max())
+                <= 2 * float((cpu16 - cpu32).abs().max()) + 1e-2)
 
 
 def _moe_layer(impl, dtype, cf):
@@ -1226,7 +1296,7 @@ def test_a_capture_that_fails_raises(dev, monkeypatch):
 
 
 SERVED = ("qwen2_1_5b", "qwen3_8b", "gemma3_12b", "mistral_nemo_12b",
-          "granite_moe_3b", "rwkv6_3b", "deepseek_v2_236b")
+          "granite_moe_3b", "rwkv6_3b", "deepseek_v2_236b", "hymba_1_5b")
 
 
 def _mla_card_config(**kw):

@@ -228,8 +228,9 @@ def test_decode_step_never_syncs(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_warm_up_leaves_the_served_cache(arch):
     """The warm-up step before a capture runs on a clone: the served cache
-    (RWKV6's state, which a step advances in place, included) stays as the
-    prefill left it bit for bit, while the step did run."""
+    (RWKV6's state and hymba's ``h`` and conv tail, which a step advances
+    in place, included) stays as the prefill left it bit for bit, while
+    the step did run."""
     cfg, fam, model, toks = _port(arch)
     with torch.no_grad():
         _lg, cache = fam.prefill(model, cfg, toks[:, :HALF], max_seq=S)

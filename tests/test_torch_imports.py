@@ -35,7 +35,8 @@ def test_import_loads_neither_jax_nor_reference():
             "repro_torch.launch.cluster_sim",
             "repro_torch.cluster.gang", "repro_torch.launch.serve",
             "repro_torch.models.common", "repro_torch.models.lm",
-            "repro_torch.models.rwkv", "repro_torch.nn.config",
+            "repro_torch.models.rwkv", "repro_torch.models.hymba",
+            "repro_torch.nn.config",
             "repro_torch.nn.param", "repro_torch.nn.layers",
             "repro_torch.nn.ssm", "repro_torch.configs",
             "repro_torch.configs.qwen2_1_5b", "repro_torch.configs.rwkv6_3b",
@@ -240,21 +241,33 @@ MLA_DIMS = dict(use_mla=True, q_lora_rank=0, kv_lora_rank=16, qk_nope_dim=16,
 
 
 @pytest.mark.parametrize("make,what", [
-    (lambda: "hymba-1.5b", "'hybrid'"),
+    (lambda: "hymba-1.5b", None),
     (lambda: "whisper-large-v3", "'encdec'"),
     (lambda: "llama-3.2-vision-90b", "'vlm'"),
 ], ids=["hymba", "whisper", "llama-vision"])
 def test_unported_families_raise(make, what):
-    """Families not ported yet raise NotImplementedError naming ROADMAP.md,
-    from the registry and from ``serve``."""
+    """Families not ported yet (enc-dec, VLM) raise NotImplementedError
+    naming ROADMAP.md, from the registry and from ``serve``.  The hybrid
+    family is ported: hymba resolves to the port's ``hymba`` module and its
+    smoke config serves on the CPU, no kernel launched."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
+    from repro_torch.models import hymba
     from repro_torch.models.common import get_family
 
-    cfg = make()
+    name = make()
+    cfg = get_config(name, smoke=True)
+    if what is None:
+        assert get_family(get_config(name)) is hymba
+        assert get_family(cfg) is hymba
+        out = serve.serve(name, device="cpu", batch=2, prompt_len=8, gen=4)
+        assert out["tokens"].shape == (2, 4)
+        assert ((out["tokens"] >= 0) & (out["tokens"] < cfg.vocab_size)).all()
+        assert not any(n for phase in out["launches"].values()
+                       for n in phase.values())
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.serve(cfg, device="cpu")
-    cfg = get_config(cfg, smoke=True)
+        serve.serve(name, device="cpu")
     with pytest.raises(NotImplementedError, match=what):
         get_family(cfg)
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
@@ -294,9 +307,10 @@ def test_mla_configs_build_and_serve(make):
 
 def test_ported_families_resolve():
     from repro_torch.configs import get_config
-    from repro_torch.models import lm, rwkv
+    from repro_torch.models import hymba, lm, rwkv
     from repro_torch.models.common import get_family
 
+    assert get_family(get_config("hymba-1.5b")) is hymba
     for arch in ("qwen2-1.5b", "qwen3-8b", "gemma3-12b", "mistral-nemo-12b",
                  "granite-moe-3b-a800m"):
         assert get_family(get_config(arch)) is lm

@@ -30,13 +30,14 @@ from repro_torch.configs import get_config
 from repro_torch.models.common import get_family, load_reference_params
 
 ARCHS = ("qwen2_1_5b", "qwen3_8b", "gemma3_12b", "mistral_nemo_12b",
-         "rwkv6_3b", "granite_moe_3b", "deepseek_v2_236b")
+         "rwkv6_3b", "granite_moe_3b", "deepseek_v2_236b", "hymba_1_5b")
 B, S = 2, 16
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 DECODE_ATOL = {"granite_moe_3b": 6e-2,     # see test_decode_matches_forward
                "deepseek_v2_236b": 6e-2}
-#: the bf16 caches: K/V, or MLA's compressed ``ckv`` and ``krope``
-BF16_CACHES = ("k", "v", "ckv", "krope")
+#: the bf16 caches: K/V, MLA's compressed ``ckv`` and ``krope``, hymba's
+#: conv tail
+BF16_CACHES = ("k", "v", "ckv", "krope", "conv")
 
 
 def _np(x):
@@ -144,7 +145,11 @@ def test_decode_matches_forward(arch):
     probabilities (tests/test_torch_moe.py holds that form at the
     reference's 2e-2).  deepseek-smoke gets the reference's own 6e-2 for
     it (tests/test_archs_smoke.py): its decode reorders the no-RoPE
-    products (the absorbed query)."""
+    products (the absorbed query).  hymba-smoke measures 0.029 here, past
+    the reference's 2e-2, and 0 with the forward's attention rounded as the
+    decode's (its Mamba head's scan and the decode's one combine give the
+    same bits): all of the gap is K5's f32 probabilities, so it takes the
+    5e-2 of the other K5 models."""
     cfg = get_config(arch, smoke=True)
     fam = get_family(cfg)
     params = ref_init(ref_family(ref_config(arch, smoke=True)).template(
