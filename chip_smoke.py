@@ -70,10 +70,12 @@ kernel from the sources in the checkout (nvcc into ``build/``).  Phases:
    qwen2-1.5b prefill shape (4, 12, 2048, 128) x (4, 2, 2048, 128) bf16, at
    granite-moe-3b's (4, 24, 2048, 64) x (4, 8, 2048, 64) bf16, at
    deepseek-v2's MLA prefill, q/k (4, 128, 2048, 192) and v (4, 128, 2048,
-   128) bf16, and at hymba-1.5b's (4, 25, 2048, 64) x (4, 5, 2048, 64)
-   bf16 with its window of 1024 and with none (each timed beside its
-   bound and SDPA, whose backend is named; the windowed one beside SDPA
-   with a boolean window mask), in
+   128) bf16, at hymba-1.5b's (4, 25, 2048, 64) x (4, 5, 2048, 64)
+   bf16 with its window of 1024 and with none, and at whisper-large-v3's
+   encoder, (4, 1500, 20, 64) against itself, and cross-attention, q (4,
+   224, 20, 64) against k/v (4, 1500, 20, 64), bf16 non-causal (each timed
+   beside its bound and SDPA, whose backend is named; the windowed one
+   beside SDPA with a boolean window mask), in
    f32, with a window below the key tile, non-causal with T != S, at a
    ragged S, in f16 and with rows that see no key, and at MLA's (192, 128)
    with a ragged S, a window and in f16 with GQA, each on the kernel the
@@ -87,7 +89,8 @@ kernel from the sources in the checkout (nvcc into ``build/``).  Phases:
    decay, output and final state, within the tolerance printed beside it,
    timed beside its plain version.  Then the
    model serve path, ``repro_torch.launch.serve.serve`` at full width
-   (batch 4, prompt 2048, 32 tokens, weights from a seeded generator) for
+   (batch 4, prompt 2048, 32 tokens, weights from a seeded generator;
+   whisper at its own shape, ``SERVE_SHAPES``) for
    qwen2-1.5b (K5 exactly once a layer in the prefill, all on the
    tensor-core kernel: 28), granite-moe-3b-a800m (K5: 32; its 40-expert
    MoE on the batch-local capacity grid in the prefill, dropless in the
@@ -99,15 +102,24 @@ kernel from the sources in the checkout (nvcc into ``build/``).  Phases:
    of 1024 and the three global layers with none, counted by window and
    gated; the Mamba head's scan in plain PyTorch, its share of the
    prefill's device time printed; the cache's ``h`` and ``conv`` gated
-   with ``k`` and ``v``) and rwkv6-3b
+   with ``k`` and ``v``), whisper-large-v3 at full width and depth (32
+   encoder and 32 decoder layers, batch 4, 1500 frames of the stub
+   frontend, prompt 224, 224 tokens; K5: 96, all at (64, 64): 32
+   non-causal at 1500 x 1500 in the encoder, 32 causal at 224 x 224 and
+   32 non-causal at 224 x 1500 in the decoder, counted by (causal, S, T)
+   and gated; the encoder's share of the prefill's device time printed;
+   the decode cross-attends the cached ``xk``/``xv``) and rwkv6-3b
    (K6: 32), each launch shadowed by the plain version on the same inputs
    (gated at the kernel's tolerance), against the same serve with the
    kernel swapped for its plain version, teacher-forced with the first
-   run's tokens: the caches of the first two layers within a relative L2
-   tolerance (for granite also in a prefill on the plain version with
-   every layer's experts forced to the K5 run's, drops equal layer by
-   layer; for deepseek too); the other layers, prefill and decode logits,
-   greedy-token agreement, the MoE models' routing agreement by layer and
+   run's tokens (whisper's also with the first run's encoder output): the
+   caches of the first two layers (whisper's ``k``, ``v``, ``xk``, ``xv``,
+   and its first encoder layer's output, one attention deep as the other
+   models' layer-1 caches) within a relative L2 tolerance (for granite
+   also in a prefill on the plain version with every layer's experts
+   forced to the K5 run's, drops equal layer by layer; for deepseek
+   too); the other layers, prefill and decode logits, greedy-token
+   agreement, the MoE models' routing agreement by layer and
    their capacity-drop share, and each serve's peak memory are printed, not
    gated.  Those two serves decode
    eagerly (``serve.decode_eager``: they record ``decode_step``); the
@@ -153,9 +165,10 @@ Launches are counted per path, from zero just before it to just after it:
 K3 over the allocator's fleet epochs, K1/K2 over the tiles-loop replays
 (one a step of each replayed chunk, dead steps included: a replay adds its
 graph's launches to the counters, a capture adds none),
-K4 over the fleet serve on the per-grant backend, K5 (qwen2-1.5b and
-granite-moe-3b-a800m, deepseek-v2-236b) and K6 (rwkv6-3b) over the
-prefills of their model serves, K3 over each pooled fill (once a fill,
+K4 over the fleet serve on the per-grant backend, K5 (qwen2-1.5b,
+granite-moe-3b-a800m, deepseek-v2-236b, hymba-1.5b and whisper-large-v3)
+and K6 (rwkv6-3b) over the prefills of their model serves, K3 over each
+pooled fill (once a fill,
 the K3 row's ``fill_launches`` in the JSON); each must have launched.  The
 last lines are the kernels JSON, the ``nvidia-smi`` name and power limit,
 and the device JSON.
@@ -1665,6 +1678,11 @@ MLA_ATTN = (4, 128, 128, 2048, 2048, 192, 128)
 # through a window of HYMBA_WINDOW keys, the other three globally
 HYMBA_ATTN = (4, 25, 5, 2048, 2048, 64)
 HYMBA_WINDOW = 1024
+# whisper-large-v3's prefill, MHA (K = H): the encoder attends both ways
+# over its 1500 frames, the decoder's cross-attention puts the 224 prompt
+# tokens against them; both non-causal
+WHISPER_ENC_ATTN = (4, 20, 20, 1500, 1500, 64)
+WHISPER_CROSS_ATTN = (4, 20, 20, 224, 1500, 64)
 RWKV_WKV = (4, 2048, 40, 64)                # B, S, H, D of one prefill
 # K5's tolerances are stated once, by variant, in
 # repro_torch.kernels.flash_attention.ops.tolerance: f32 rtol 1e-5, atol 2e-5;
@@ -1682,7 +1700,36 @@ WKV_TOL_STRONG = dict(rtol=1e-3, atol=2e-3)   # outputs reach ~1e2
 # own inputs (the shadow check).
 SERVE_FIRST_LAYERS_REL_L2 = 2 ** -7
 SERVE_KW = dict(smoke=False, batch=4, prompt_len=2048, gen=32)
+# a model's own serve shape where it differs from SERVE_KW's: whisper's
+# decoder context is 448 tokens, served as its long-form transcription
+# runs it (openai/whisper: up to n_text_ctx // 2 - 1 tokens of the previous
+# window's text as the prompt, n_text_ctx // 2 tokens sampled)
+SERVE_SHAPES = {"whisper-large-v3": dict(prompt_len=224, gen=224)}
 DECODE_LIMIT_PER_SEQ = 20     # PERF.md section 2: tokens/s a sequence
+
+
+def serve_kw(cfg):
+    """The serve shape of ``cfg``: SERVE_KW with the model's own
+    overrides."""
+    return dict(SERVE_KW, **SERVE_SHAPES.get(cfg.name, {}))
+
+
+def k5_calls(cfg, prompt_len):
+    """-> the K5 launches a prefill of ``prompt_len`` tokens makes, by
+    (causal, S, T, window): one a layer of an LM (a local layer through
+    the config's window, a global one and every layer of a model without
+    a window through none); for the enc-dec family one an encoder layer
+    (non-causal, M x M frames) and two a decoder layer (causal over the
+    prompt, and non-causal from the prompt to the M frames)."""
+    P = prompt_len
+    if cfg.family == "encdec":
+        M = cfg.n_media_tokens
+        return collections.Counter({(False, M, M, 0): cfg.n_encoder_layers,
+                                    (True, P, P, 0): cfg.n_layers,
+                                    (False, P, M, 0): cfg.n_layers})
+    return collections.Counter(
+        (True, P, P, 0 if cfg.is_global_layer(i) else cfg.window)
+        for i in range(cfg.n_layers))
 
 
 def _close(got, want, rtol, atol):
@@ -1696,12 +1743,14 @@ def _close(got, want, rtol, atol):
 
 def flash_phase(dev):
     """K5 against its plain version at the qwen2-1.5b, granite-moe-3b,
-    deepseek-v2 (MLA: q/k 192, v 128) and hymba-1.5b (window 1024 and
-    none) prefill shapes and on the edge cases, each on the kernel the
-    wrapper's rule picks and within that kernel's tolerance; then the
-    timing block at the five prefill shapes.  -> the kernels row
-    (qwen2-1.5b's shape, granite's in ``granite_prefill``, deepseek-v2's in
-    ``mla_prefill``, hymba's in ``hymba_prefill``, by window)."""
+    deepseek-v2 (MLA: q/k 192, v 128), hymba-1.5b (window 1024 and none)
+    and whisper-large-v3 (encoder and cross-attention, non-causal) prefill
+    shapes and on the edge cases, each on the kernel the wrapper's rule
+    picks and within that kernel's tolerance; then the timing block at the
+    seven prefill shapes.  -> the kernels row (qwen2-1.5b's shape,
+    granite's in ``granite_prefill``, deepseek-v2's in ``mla_prefill``,
+    hymba's in ``hymba_prefill``, by window, whisper's in
+    ``whisper_prefill``, by attention)."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops as k5
@@ -1715,6 +1764,10 @@ def flash_phase(dev):
         ("hymba-1.5b windowed prefill", HYMBA_ATTN, bf16, True,
          HYMBA_WINDOW),
         ("hymba-1.5b global prefill", HYMBA_ATTN, bf16, True, 0),
+        ("whisper-large-v3 encoder prefill", WHISPER_ENC_ATTN, bf16, False,
+         0),
+        ("whisper-large-v3 cross prefill", WHISPER_CROSS_ATTN, bf16, False,
+         0),
         ("f32", (2, 12, 2, 512, 512, 128), torch.float32, True, 0),
         ("window 48 below the key tile, gemma3-style", (2, 8, 4, 1000,
                                                          1000, 256),
@@ -1804,6 +1857,11 @@ def flash_phase(dev):
     for kind, window in (("windowed", HYMBA_WINDOW), ("global", 0)):
         hymba[kind] = hymba_timing(inputs.pop(f"hymba-1.5b {kind} prefill"),
                                    window, errs[f"hymba-1.5b {kind} prefill"])
+    whisper = {}
+    for kind in ("encoder", "cross"):
+        label = f"whisper-large-v3 {kind} prefill"
+        whisper[kind] = noncausal_timing(label, inputs.pop(label),
+                                         errs[label])
     del inputs
     # head dim 256 (gemma3-12b's heads), where the kernel compiles its
     # warpgroups' turns out
@@ -1826,7 +1884,7 @@ def flash_phase(dev):
                 max_abs_err=errs["qwen2-1.5b prefill"], bound_ms=bound,
                 bound_by=bound_by, cuda_core_ms=simt,
                 granite_prefill=granite, mla_prefill=mla,
-                hymba_prefill=hymba)
+                hymba_prefill=hymba, whisper_prefill=whisper)
 
 
 def hymba_timing(qkv, window, err):
@@ -1863,10 +1921,37 @@ def hymba_timing(qkv, window, err):
     return row
 
 
-def sdpa_backend(qt, kt, vt, mask=None, gqa=False):
+def noncausal_timing(label, qkv, err):
+    """K5 at a non-causal prefill shape (whisper's encoder and
+    cross-attention) beside its bound, its plain version and SDPA
+    (non-causal).  -> the row, printed."""
+    from repro_torch.kernels.flash_attention import ops as k5
+
+    q, k, v = qkv
+    row = dict(
+        shape=[list(q.shape), list(k.shape)], causal=False,
+        ms=cuda_ms(lambda: k5.flash_attention(q, k, v, causal=False), 20),
+        plain_ms=cuda_ms(lambda: k5.flash_attention_ref(q, k, v,
+                                                        causal=False), 3),
+        max_abs_err=err)
+    row["library_ms"], how = sdpa_ms(q, k, v, causal=False)
+    row["bound_ms"], row["bound_by"] = attention_bound(q, k, v, causal=False)
+    B, S, H, D = q.shape
+    flops = 2 * B * H * S * k.shape[1] * (D + v.shape[-1])
+    log(f"K5 flash_attention {label} {tuple(q.shape)} x {tuple(k.shape)} "
+        f"bf16 non-causal: {k5.variant(q.dtype, D)} {row['ms']:.4f} ms "
+        f"({flops / row['ms'] / 1e9:.1f} TFLOP/s, "
+        f"{row['bound_ms'] / row['ms']:.1%} of the bound "
+        f"{row['bound_ms']:.4f} ms, {row['bound_by']}); plain "
+        f"{row['plain_ms']:.4f} ms; scaled_dot_product_attention ({how}) "
+        f"{row['library_ms']:.4f} ms")
+    return row
+
+
+def sdpa_backend(qt, kt, vt, mask=None, gqa=False, causal=True):
     """The backend ``scaled_dot_product_attention`` dispatches these (B, H,
-    S, D) inputs to, causal or under ``mask``, by torch's own choice, or
-    why it is not named."""
+    S, D) inputs to, causal (or not) or under ``mask``, by torch's own
+    choice, or why it is not named."""
     import torch
 
     try:
@@ -1874,50 +1959,53 @@ def sdpa_backend(qt, kt, vt, mask=None, gqa=False):
 
         kw = dict(enable_gqa=True) if gqa else {}
         return SDPBackend(torch._fused_sdp_choice(
-            qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+            qt, kt, vt, attn_mask=mask, is_causal=mask is None and causal,
             **kw)).name.lower()
     except (AttributeError, RuntimeError, TypeError, ValueError) as exc:
         # a private call: the backend is named where this torch answers it
         return f"backend not named ({type(exc).__name__})"
 
 
-def sdpa_ms(q, k, v, mask=None):
+def sdpa_ms(q, k, v, mask=None, causal=True):
     """-> (ms, how) of ``scaled_dot_product_attention`` on K5's inputs
-    (q (B, S, H, D), k (B, T, K, D), v (B, T, K, DV)), causal, or under the
-    boolean (S, T) ``mask`` where one is given: the yardstick only, never
-    on the port's path.  ``how`` names the backend torch picks (for K < H,
-    on k and v as K5 reads them, with ``enable_gqa``)."""
+    (q (B, S, H, D), k (B, T, K, D), v (B, T, K, DV)), causal (or not), or
+    under the boolean (S, T) ``mask`` where one is given: the yardstick
+    only, never on the port's path.  ``how`` names the backend torch picks
+    (for K < H, on k and v as K5 reads them, with ``enable_gqa``)."""
     import torch.nn.functional as F
 
     H, K = q.shape[2], k.shape[2]
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    kw = dict(is_causal=True) if mask is None else dict(attn_mask=mask)
+    kw = dict(is_causal=causal) if mask is None else dict(attn_mask=mask)
     if K == H:
         return (cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, **kw), 20), sdpa_backend(qt, kt, vt, mask))
+            qt, kt, vt, **kw), 20), sdpa_backend(qt, kt, vt, mask,
+                                                 causal=causal))
     try:
         return (cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, enable_gqa=True, **kw), 20),
-            "enable_gqa, " + sdpa_backend(qt, kt, vt, mask, gqa=True))
+            "enable_gqa, " + sdpa_backend(qt, kt, vt, mask, gqa=True,
+                                          causal=causal))
     except TypeError:
         kr, vr = (x.repeat_interleave(H // K, dim=1) for x in (kt, vt))
         return (cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kr, vr, **kw), 20),
             "k/v repeated (no enable_gqa in this torch), "
-            + sdpa_backend(qt, kr, vr, mask))
+            + sdpa_backend(qt, kr, vr, mask, causal=causal))
 
 
-def attention_bound(q, k, v, window=0):
-    """-> (ms, what bounds it) of causal bf16 attention on these inputs:
-    q, k, v and the output (B, S, H, DV) each moved once; B·H·S·T·(D + DV)
+def attention_bound(q, k, v, window=0, causal=True):
+    """-> (ms, what bounds it) of bf16 attention on these inputs: q, k, v
+    and the output (B, S, H, DV) each moved once; causal, B·H·S·T·(D + DV)
     operations (half of QK^T's 2·S·T·D and of PV's 2·S·T·DV) on the tensor
     cores, or with a ``window`` 2·B·H·(D + DV) a (q, k) pair it leaves
-    (``s - t`` in [0, window), S = T)."""
+    (``s - t`` in [0, window), S = T); non-causal, all of
+    2·B·H·S·T·(D + DV)."""
     B, S, H, D = q.shape
     T, DV = k.shape[1], v.shape[-1]
     nbytes = (q.numel() + k.numel() + v.numel() + B * S * H * DV) \
         * q.element_size()
-    ops = B * H * S * T * (D + DV)
+    ops = B * H * S * T * (D + DV) * (1 if causal else 2)
     if window:
         pairs = sum(min(s + 1, window) for s in range(S))
         ops = 2 * B * H * pairs * (D + DV)
@@ -1997,20 +2085,23 @@ def _rel_l2(a, b):
 
 def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
     """The full-width serve of ``arch`` (a registered name, its full config,
-    or a ModelConfig; batch 4, prompt 2048, 32 tokens):
+    or a ModelConfig; :func:`serve_kw`'s shape: batch 4, prompt 2048, 32
+    tokens, whisper's prompt 224 and 224 tokens):
     once on the kernel, counted, recorded, and with every launch shadowed by
     the plain version on the same inputs (gated at the kernel's tolerance);
     once with the kernel swapped for its plain version, teacher-forced with
-    the first run's tokens; once more on the kernel, timed.  -> the
+    the first run's tokens (an enc-dec model also with the first run's
+    encoder output); once more on the kernel, timed.  -> the
     kernel's launches on the first run.  ``seam`` is the (module, name) of
     the alias through which the model reaches ``kernel_mod``: the shadow
     replaces the alias, so the wrapper itself stays in place and counts.
 
-    The caches of the first two layers must agree between the first two
-    runs.  A MoE model's routing can flip where a router logit differs by
-    an ulp: its routing agreement by layer and its capacity-drop share are
-    printed, not gated, and :func:`routed_alike` gates the first two layers
-    again with the experts forced alike."""
+    The caches of the first two layers (and an enc-dec model's first
+    encoder layer's output) must agree between the first two runs.  A MoE
+    model's routing can flip where a router logit differs by an ulp: its
+    routing agreement by layer and its capacity-drop share are printed,
+    not gated, and :func:`routed_alike` gates the first two layers again
+    with the experts forced alike."""
     from types import SimpleNamespace
     from unittest import mock
 
@@ -2020,15 +2111,22 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
     from repro_torch.launch import serve
     from repro_torch.nn.config import ModelConfig
 
-    kw = dict(SERVE_KW, seed=seed, device=dev)
     cfg = (arch if isinstance(arch, ModelConfig)
-           else get_config(arch, smoke=kw["smoke"]))
+           else get_config(arch, smoke=SERVE_KW["smoke"]))
+    kw = dict(serve_kw(cfg), seed=seed, device=dev)
     arch = cfg.name
-    n_layers = cfg.n_layers
+    if kernel_name == "flash_attention":
+        want_calls = k5_calls(cfg, kw["prompt_len"])
+        n_launch = sum(want_calls.values())
+    else:
+        n_launch = cfg.n_layers           # K6: once a layer
+    encdec = cfg.family == "encdec"
     prefill, decode = fam_mod.prefill, fam_mod.decode_step
+    encode = fam_mod.encode if encdec else None
     kernel, plain = (getattr(kernel_mod, kernel_name),
                      getattr(kernel_mod, kernel_name + "_ref"))
-    shadow_errs, tols, dims, windows = [], [], set(), collections.Counter()
+    shadow_errs, tols, dims = [], [], set()
+    calls = collections.Counter()     # K5's by (causal, S, T, window)
 
     def tolerance(*a):
         if kernel_name != "flash_attention":
@@ -2041,7 +2139,8 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
         out = kernel(*a, **k)
         if kernel_name == "flash_attention":    # (q/k, v) head dims
             dims.add((a[0].shape[-1], a[2].shape[-1]))
-            windows[k.get("window", 0)] += 1
+            calls[k.get("causal", True), a[0].shape[1], a[1].shape[1],
+                  k.get("window", 0)] += 1
         want = plain(*a, **k)
         pairs = (zip(out, want) if isinstance(out, tuple)
                  else [(out, want)])
@@ -2049,7 +2148,16 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
         shadow_errs.append([_close(x, y, **tols[-1]) for x, y in pairs])
         return out
 
-    def recorded(rec, forced=None):
+    def recorded(rec, forced=None, enc_out=None):
+        def rec_encode(*a, **k):
+            trace = []
+            out = encode(*a, trace=trace, **k)
+            rec["encoder"] = [x.float().cpu() for x in trace]
+            rec["enc_out"] = out.float().cpu()
+            if enc_out is not None:     # the first run's, in its type
+                out = enc_out.to(out.device, out.dtype)
+            return out
+
         def rec_prefill(*a, **k):
             logits, cache = prefill(*a, **k)
             rec["prefill"] = logits.float().cpu()
@@ -2070,6 +2178,9 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
         stack = contextlib.ExitStack()
         stack.enter_context(mock.patch.object(fam_mod, "prefill",
                                               rec_prefill))
+        if encdec:
+            stack.enter_context(mock.patch.object(fam_mod, "encode",
+                                                  rec_encode))
         stack.enter_context(mock.patch.object(fam_mod, "decode_step",
                                               rec_decode))
         # a graph calls decode_step only while it is captured: the
@@ -2080,11 +2191,13 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
 
     runs, peaks = {}, {}
     for label in ("kernel", "plain"):
-        rec = {}
-        forced = runs["kernel"][0]["tokens"] if label == "plain" else None
+        rec, forced, enc_out = {}, None, None
+        if label == "plain":
+            forced = runs["kernel"][0]["tokens"]
+            enc_out = runs["kernel"][1].get("enc_out")
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
-        with recorded(rec, forced), (
+        with recorded(rec, forced, enc_out), (
                 mock.patch.object(*seam, SimpleNamespace(
                     **{kernel_name: shadowed}))
                 if label == "kernel" else
@@ -2101,30 +2214,32 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
     if kernel_name == "flash_attention":
         want_dims = ((cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim)
                      if cfg.use_mla else (cfg.head_dim, cfg.head_dim))
-        check(n_variant == {"flash_tc": n_layers, "flash": 0}
+        check(n_variant == {"flash_tc": n_launch, "flash": 0}
               and dims == {want_dims},
               f"{arch}: K5 launches by variant {n_variant} at (q/k, v) head "
-              f"dims {dims}, expected the tensor-core kernel once a layer "
-              f"({n_layers}) at {want_dims}")
+              f"dims {dims}, expected the tensor-core kernel {n_launch} "
+              f"times at {want_dims}")
         log(f"serve {arch}: K5 launches by variant in the prefill "
             f"{n_variant}, at (q/k, v) head dims {sorted(dims)}")
-        # a local layer attends through the config's window, a global one
-        # (and every layer of a model without a window) through none
-        want_windows = collections.Counter(
-            0 if cfg.is_global_layer(i) else cfg.window
-            for i in range(n_layers))
-        check(windows == want_windows,
-              f"{arch}: K5 launches by window {dict(windows)}, expected "
-              f"{dict(want_windows)}")
-        log(f"serve {arch}: K5 launches by window in the prefill "
-            + ", ".join(f"window {w}: {c}"
-                        for w, c in sorted(windows.items(), reverse=True)))
-    check(launches["prefill"][kernel_name] == n_layers
-          and n[kernel_name] == n_layers
+        check(calls == want_calls,
+              f"{arch}: K5 launches by (causal, S, T, window) {dict(calls)}, "
+              f"expected {dict(want_calls)}")
+        by = {"window": collections.Counter(), "causal": collections.Counter(),
+              "(S, T)": collections.Counter()}
+        for (causal, S, T, window), c in calls.items():
+            by["window"][window] += c
+            by["causal"][causal] += c
+            by["(S, T)"][S, T] += c
+        log(f"serve {arch}: K5 launches in the prefill " + "; ".join(
+            f"by {key} " + ", ".join(f"{k}: {c}" for k, c in sorted(
+                counts.items(), reverse=True))
+            for key, counts in by.items()))
+    check(launches["prefill"][kernel_name] == n_launch
+          and n[kernel_name] == n_launch
           and not any(v for k, v in n.items() if k != kernel_name)
           and not any(launches["decode"].values()),
           f"{arch}: launches {launches} (counters {n}), expected "
-          f"{kernel_name} = {n_layers} in the prefill and none in the decode")
+          f"{kernel_name} = {n_launch} in the prefill and none in the decode")
     check(not any(n_p.values()), f"{arch}: the plain-version serve launched "
           f"{n_p}")
     worst = max(err for layer in shadow_errs for _ok, err in layer)
@@ -2133,20 +2248,28 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
         f"err {worst:.3g} (tolerance rtol {tols[0]['rtol']:.3g}, atol "
         f"{min(t['atol'] for t in tols):.3g}-"
         f"{max(t['atol'] for t in tols):.3g})")
-    check(len(shadow_errs) == n_layers and all(
+    check(len(shadow_errs) == n_launch and all(
         ok for layer in shadow_errs for ok, _err in layer),
         f"{arch}: {kernel_name} differs from its plain version inside the "
         f"serve: {shadow_errs}")
     per_layer = {name: [_rel_l2(a, b) for a, b in zip(rec["cache"][name],
                                                       rec_p["cache"][name])]
                  for name in rec["cache"]}
+    if encdec:      # each encoder layer's output, of both serves' encodes
+        per_layer["encoder"] = [_rel_l2(a, b) for a, b in zip(
+            rec["encoder"], rec_p["encoder"])]
+        check(len(rec["encoder"]) == len(rec_p["encoder"])
+              == cfg.n_encoder_layers,
+              f"{arch}: encoder layers recorded {len(rec['encoder'])}/"
+              f"{len(rec_p['encoder'])}")
     errs = {"prefill logits": _rel_l2(rec["prefill"], rec_p["prefill"]),
             "decode logits (worst step)": max(
                 _rel_l2(a, b) for a, b in zip(rec["steps"], rec_p["steps"]))}
     check(len(rec["steps"]) == len(rec_p["steps"]) == kw["gen"] - 1,
           f"{arch}: decode steps {len(rec['steps'])}/{len(rec_p['steps'])}")
     finite = all(bool(torch.isfinite(x).all()) for x in
-                 [rec["prefill"], *rec["steps"], *rec["cache"].values()])
+                 [rec["prefill"], *rec["steps"], *rec["cache"].values(),
+                  *rec.get("encoder", ())])
     log(f"serve {arch} on the kernel vs on its plain version (teacher-"
         f"forced), relative L2: " + ", ".join(f"{k} {v:.3g}"
                                               for k, v in errs.items())
@@ -2165,11 +2288,28 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
             f"capacity drops in the prefill {out['drop_share']:.4%} of the "
             f"(token, slot) pairs (plain-version run "
             f"{out_p['drop_share']:.4%})")
-    first = max(v for vals in per_layer.values() for v in vals[:2])
+    if encdec:
+        log(f"serve {arch}: the encoder's layer 0 output (gated) and layer "
+            f"1 output (not gated) of the kernel serve vs the plain-version "
+            f"serve's, relative L2 {per_layer['encoder'][0]:.3g} and "
+            f"{per_layer['encoder'][1]:.3g}; the final encoder output "
+            f"(after enc_norm) {_rel_l2(rec['enc_out'], rec_p['enc_out']):.3g}"
+            f" (not gated: each layer's attention takes the last one's "
+            f"difference, and under the reference's init a difference grows "
+            f"about 10x a layer, whatever the kernel; layer 0's output lies "
+            f"one attention deep, as an LM's layer-1 cache does; the "
+            f"plain-version serve's decoder reads the kernel serve's encoder "
+            f"output, so its xk and xv take their bits)")
+    # gated as deep as an LM's layer-1 cache, one attention: the first
+    # two layers' caches, and the first encoder layer's output (the second
+    # lies two attentions deep, and grows ~10x from the first, printed)
+    first = max(v for name, vals in per_layer.items()
+                for v in vals[:1 if name == "encoder" else 2])
     check(finite and first <= SERVE_FIRST_LAYERS_REL_L2,
-          f"{arch}: the caches of the first two layers differ between the "
-          f"serve on {kernel_name} and on its plain version by {first} "
-          f"(tolerance {SERVE_FIRST_LAYERS_REL_L2})")
+          f"{arch}: the caches of the first two layers"
+          + (" or the first encoder layer's output" if encdec else "")
+          + f" differ between the serve on {kernel_name} and on its plain "
+          f"version by {first} (tolerance {SERVE_FIRST_LAYERS_REL_L2})")
     eager_steps = rec["steps"]
     del rec, rec_p, runs
     torch.cuda.empty_cache()
@@ -2204,7 +2344,9 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
              f", capacity drops {timed['drop_share']:.4%}")
     log(f"serve {arch} (timed run, decode on the graph): prefill "
         f"{timed['prefill_s'] * 1e3:.2f} ms "
-        f"for {kw['batch']} x {kw['prompt_len']} tokens, decode "
+        f"for {kw['batch']} x {kw['prompt_len']} tokens"
+        + (f" and {cfg.n_media_tokens} frames" if encdec else "")
+        + f", decode "
         f"{timed['decode_s'] * 1e3:.2f} ms, {timed['tok_per_s']:.2f} "
         f"tokens/s ({timed['tok_per_s'] / kw['batch']:.2f} a sequence), "
         f"parameters {timed['param_bytes'] / 1e9:.3f} GB "
@@ -2249,7 +2391,7 @@ def routed_alike(dev, cfg, fam_mod, kernel_mod, seed):
 
     arch = cfg.name
     model = init_model(fam_mod, cfg, torch.Generator(dev).manual_seed(0))
-    B, S = SERVE_KW["batch"], SERVE_KW["prompt_len"]
+    B, S = serve_kw(cfg)["batch"], serve_kw(cfg)["prompt_len"]
     prompts = torch.as_tensor(np.random.default_rng(seed).integers(
         2, cfg.vocab_size, size=(B, S)), dtype=torch.int32, device=dev)
     runs = {}
@@ -2294,19 +2436,33 @@ STATE_REWRITTEN = {"ssm": ("wkv", "tm_last", "cm_last"),
                    "hybrid": ("h", "conv")}
 
 
+def step_weights(model, cfg):
+    """The parameters a decode step reads: all of them, but for the
+    enc-dec family the embedding and the decoder without its
+    cross-attention's ``wk``/``wv`` (the step reads the cached ``xk``/``xv``
+    instead; the encoder and ``enc_norm`` run at the prefill only)."""
+    if cfg.family != "encdec":
+        return sum(p.numel() for p in model.parameters())
+    return (sum(p.numel() for p in model.embed.parameters())
+            + sum(p.numel() for layer in model.decoder
+                  for name, p in layer.named_parameters()
+                  if name not in ("xattn.wk", "xattn.wv")))
+
+
 def decode_bytes(model, cfg, cache):
-    """The bytes one decode step must move: every weight it reads, once, in
-    the compute type (the bf16 casts; the 1-D scales and decays and
-    hymba's ``A_log``, read in f32 or cast, are counted at the compute
-    type's size too: under 2 MB), less an untied embedding table's rows
-    past the batch's and RWKV channel-mix ``wr`` off its diagonal (the step
-    reads only those); the K/V cache read whole; the recurrent state
+    """The bytes one decode step must move: every weight it reads
+    (:func:`step_weights`), once, in the compute type (the bf16 casts; the
+    1-D scales and decays and hymba's ``A_log``, read in f32 or cast, are
+    counted at the compute type's size too: under 2 MB), less an untied
+    embedding table's rows past the batch's and RWKV channel-mix ``wr``
+    off its diagonal (the step reads only those); the K/V cache (whisper's
+    cross K/V too) read whole; the recurrent state
     (:data:`STATE_REWRITTEN`) read and written; the logits written."""
     import torch
 
     esize = torch.empty((), dtype=cfg.cdtype()).element_size()
     B = next(iter(cache.values())).shape[1]
-    weights = sum(p.numel() for p in model.parameters())
+    weights = step_weights(model, cfg)
     if not cfg.tie_embeddings:
         weights -= (cfg.padded_vocab - B) * cfg.d_model
     if cfg.family == "ssm":
@@ -2318,14 +2474,17 @@ def decode_bytes(model, cfg, cache):
 
 
 def busy_shares(dev, cfg, fam_mod, kernel_key, steps=16):
-    """The device's busy share of one prefill (batch 4, prompt 2048), of
-    ``steps`` eager decode steps after it and of ``steps`` replays of the
-    decode step captured as a CUDA graph (``serve.DecodeStep``), each under
-    torch.profiler, with the device time of the kernels whose names hold
-    ``kernel_key`` and the kernels a decode step; and the step's byte
-    bound (:func:`decode_bytes`); printed.  For the hybrid family also the
-    Mamba heads' and their scan's share of the prefill's device time, from
-    profiler ranges around their calls (:func:`outer_range`)."""
+    """The device's busy share of one prefill (:func:`serve_kw`'s batch
+    and prompt, an enc-dec model's media too), of ``steps`` eager decode
+    steps after it and of ``steps`` replays of the decode step captured as
+    a CUDA graph (``serve.DecodeStep``), each under torch.profiler, with
+    the device time of the kernels whose names hold ``kernel_key`` and the
+    kernels a decode step; and the step's byte bound
+    (:func:`decode_bytes`); printed.  For the hybrid family also the Mamba
+    heads' and their scan's share of the prefill's device time, from
+    profiler ranges around their calls (:func:`outer_range`); for the
+    enc-dec family the encoder's, from its kernels profiled alone (its
+    prefill is host-bound, so a range would span idle gaps)."""
     from unittest import mock
 
     import torch
@@ -2336,9 +2495,10 @@ def busy_shares(dev, cfg, fam_mod, kernel_key, steps=16):
 
     arch = cfg.name
     model = init_model(fam_mod, cfg, torch.Generator(dev).manual_seed(0))
-    B, S = SERVE_KW["batch"], SERVE_KW["prompt_len"]
+    B, S = serve_kw(cfg)["batch"], serve_kw(cfg)["prompt_len"]
     prompts = torch.randint(2, cfg.vocab_size, (B, S), device=dev,
                             generator=torch.Generator(dev).manual_seed(1))
+    media = serve.make_media(cfg, B, dev)
     wall, out = {}, {}
 
     def timed(key, fn):
@@ -2350,9 +2510,13 @@ def busy_shares(dev, cfg, fam_mod, kernel_key, steps=16):
             wall[key] = time.perf_counter() - t0
         return run
 
+    # the served cache's length at least (whisper's 448), so the byte
+    # bound counts the cache a served step reads
+    max_seq = max(S + 2 * steps + 2, S + serve_kw(cfg)["gen"])
+
     def prefill():
         out["prefill"] = fam_mod.prefill(model, cfg, prompts,
-                                         max_seq=S + 2 * steps + 2)
+                                         max_seq=max_seq, media=media)
 
     def decode_line(key, times, why, launched):
         if not times:
@@ -2363,20 +2527,25 @@ def busy_shares(dev, cfg, fam_mod, kernel_key, steps=16):
                 f"{wall[key] / steps * 1e3:.3f} ms step, "
                 f"{sum(launched.values()) / steps:.0f} kernels a step")
 
-    hybrid = cfg.family == "hybrid"
-    ranges = {"mamba_head": 0, "mamba_scan": 0} if hybrid else None
+    # profiler ranges (name: the function they wrap) by family
+    wrapped = {"hybrid": {"mamba_head": (ssm, "mamba_apply"),
+                          "mamba_scan": (ssm, "associative_scan")}}.get(
+                              cfg.family, {})
+    ranges = dict.fromkeys(wrapped, 0) or None
     with torch.no_grad():
         prefill()                                           # warm
         del out["prefill"]
         torch.cuda.empty_cache()
         with contextlib.ExitStack() as stack:
-            if hybrid:
-                for name, attr in (("mamba_head", "mamba_apply"),
-                                   ("mamba_scan", "associative_scan")):
-                    stack.enter_context(mock.patch.object(
-                        ssm, attr, outer_range(name, getattr(ssm, attr))))
+            for name, (mod, attr) in wrapped.items():
+                stack.enter_context(mock.patch.object(
+                    mod, attr, outer_range(name, getattr(mod, attr))))
             times_p, why_p = device_times(timed("prefill", prefill),
                                           ranges=ranges)
+        times_e = None
+        if cfg.family == "encdec":      # the encoder's kernels alone
+            times_e, why_e = device_times(
+                lambda: fam_mod.encode(model, cfg, media))
         logits, cache = out.pop("prefill")
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         fam_mod.decode_step(model, cfg, cache, tok, S)      # warm
@@ -2411,7 +2580,13 @@ def busy_shares(dev, cfg, fam_mod, kernel_key, steps=16):
                  f"{kernel_key} {kern * 1e3:.3f} ms ({kern / busy:.1%}); "
                  f"the five longest kernels: " + "; ".join(
                      f"{name[:60]} {us / 1e3:.3f} ms" for name, us in top))
-        if hybrid:
+        if cfg.family == "encdec":
+            enc = sum(times_e.values()) / 1e6 if times_e else 0
+            why_p += ("; the encoder, profiled alone, "
+                      + (f"{enc * 1e3:.3f} ms of device time "
+                         f"({enc / busy:.1%} of the prefill's)" if enc
+                         else f"not measured ({why_e})"))
+        if ranges:
             why_p += "; " + ", ".join(
                 f"{name} {ranges[name] / 1e3:.3f} ms "
                 f"({ranges[name] / 1e6 / busy:.1%} of the device time)"
@@ -2443,6 +2618,7 @@ def f32_divergence(dev, cfg, fam_mod, kernel_mod, kernel_name, seed):
 
     import torch
 
+    from repro_torch.launch.serve import make_media
     from repro_torch.models.common import init_model
 
     arch = cfg.name
@@ -2453,14 +2629,16 @@ def f32_divergence(dev, cfg, fam_mod, kernel_mod, kernel_name, seed):
         return
     cfg = dataclasses.replace(cfg, compute_dtype="float32")
     model = init_model(fam_mod, cfg, torch.Generator(dev).manual_seed(0))
-    B, S = SERVE_KW["batch"], SERVE_KW["prompt_len"]
+    B, S = serve_kw(cfg)["batch"], serve_kw(cfg)["prompt_len"]
     prompts = torch.as_tensor(np.random.default_rng(seed).integers(
         2, cfg.vocab_size, size=(B, S)), dtype=torch.int32, device=dev)
+    media = make_media(cfg, B, dev)
     with torch.no_grad():
-        a, ca = fam_mod.prefill(model, cfg, prompts, max_seq=S)
+        a, ca = fam_mod.prefill(model, cfg, prompts, max_seq=S, media=media)
         with mock.patch.object(kernel_mod, kernel_name,
                                getattr(kernel_mod, kernel_name + "_ref")):
-            b, cb = fam_mod.prefill(model, cfg, prompts, max_seq=S)
+            b, cb = fam_mod.prefill(model, cfg, prompts, max_seq=S,
+                                    media=media)
     name = next(iter(ca))
     per_layer = [_rel_l2(x, y) for x, y in zip(ca[name], cb[name])]
     log(f"serve {arch} prefill in f32 compute, on the kernel vs on its plain "
@@ -2486,17 +2664,20 @@ def deepseek_config():
 
 def models_phase(dev, seed):
     """-> (kernels rows, launches) of K5 and K6: K5's over the qwen2-1.5b,
-    granite-moe-3b-a800m, deepseek-v2-236b (4 layers) and hymba-1.5b
-    serves' prefills, K6's over rwkv6-3b's."""
+    granite-moe-3b-a800m, deepseek-v2-236b (4 layers), hymba-1.5b and
+    whisper-large-v3 serves' prefills (whisper's 96: its encoder's
+    self-attention, its decoder's self- and cross-attention), K6's over
+    rwkv6-3b's."""
     from repro_torch.kernels.flash_attention import ops as k5
     from repro_torch.kernels.rwkv6 import ops as k6
-    from repro_torch.models import hymba, lm, rwkv
+    from repro_torch.models import encdec, hymba, lm, rwkv
     from repro_torch.nn import layers, ssm
 
     rows = {"flash_attention": flash_phase(dev), "wkv6": wkv6_phase(dev)}
     k5_serves = {}
     for arch, fam in (("qwen2-1.5b", lm), ("granite-moe-3b-a800m", lm),
-                      (deepseek_config(), lm), ("hymba-1.5b", hymba)):
+                      (deepseek_config(), lm), ("hymba-1.5b", hymba),
+                      ("whisper-large-v3", encdec)):
         t0 = time.perf_counter()
         name = getattr(arch, "name", arch)
         k5_serves[name] = serve_model(dev, arch, fam, k5, "flash_attention",
@@ -2869,8 +3050,8 @@ def main(argv=None):
         rows.update(model_rows)
         launches.update(model_launches)
         log(f"launches (K5 over the qwen2-1.5b, granite-moe-3b-a800m, "
-            f"deepseek-v2-236b and hymba-1.5b serves' prefills, K6 over the "
-            f"rwkv6-3b serve's prefill): "
+            f"deepseek-v2-236b, hymba-1.5b and whisper-large-v3 serves' "
+            f"prefills, K6 over the rwkv6-3b serve's prefill): "
             f"{model_launches}; models phase "
             f"{time.perf_counter() - t0:.1f} s")
         for name, n in model_launches.items():

@@ -5,10 +5,14 @@
 
 Runs on the card (``--device cuda``, the default) unless asked for the CPU;
 ``--no-smoke`` serves the full published configuration.  The prefill runs
-the family's kernel (K5 flash attention for the dense and MoE LMs and for
+the family's kernel (K5 flash attention for the dense and MoE LMs, for
 the hybrid family's attention heads, hymba's with a sliding window on its
-local layers; K6 WKV6 for RWKV6); hymba's Mamba heads scan in plain
-PyTorch.  A MoE model's prefill drops the (token, slot) pairs past its
+local layers, and for the enc-dec family's three attentions: whisper's
+encoder self-attention and decoder cross-attention without the causal
+mask, its decoder self-attention with it; K6 WKV6 for RWKV6); hymba's
+Mamba heads scan in plain PyTorch.  The enc-dec family takes the stub
+frontend's frame embeddings (:func:`make_media`); its prefill caches each
+decoder layer's cross-attention K/V, which every decode step reads.  A MoE model's prefill drops the (token, slot) pairs past its
 experts' capacity; the serve reports their share.  A recurrent state
 (RWKV6's, hymba's SSM ``h`` and conv tail) is part of the cache the
 decode step updates in place.
@@ -123,8 +127,8 @@ class DecodeStep:
     def warm(self):
         """One eager step on a clone of the cache: it makes the parameters'
         cast copies and the BLAS library's state outside the capture and
-        leaves the served cache (an RWKV state, hymba's ``h`` and conv tail
-        too) as it was."""
+        leaves the served cache (an RWKV state, hymba's ``h`` and conv
+        tail, whisper's cross K/V too) as it was."""
         clone = {k: v.clone() for k, v in self.cache.items()}
         self._body(clone)
 

@@ -2,8 +2,10 @@
 parameters, carrying the reference's parameters across, and the registry.
 
 A model is a :class:`Model`: ``embed`` (a :class:`Params` node of the
-embedding template) and ``layers`` (an ``nn.ModuleList`` of per-layer
-:class:`Params`), where the reference stacks the layers on a leading axis
+embedding template), the family's other unstacked nodes (the enc-dec
+family's ``enc_norm``) and its stacks, each an ``nn.ModuleList`` of
+per-layer :class:`Params` (``layers``; the enc-dec family's ``encoder``
+and ``decoder``), where the reference stacks the layers on a leading axis
 and scans over them.  The family functions take the model where the
 reference takes its parameter tree.
 """
@@ -67,18 +69,26 @@ def unembed(params, cfg: ModelConfig, x):
 
 
 class Model(nn.Module):
-    """A family's parameters as modules (``embed``, ``layers``), in the
-    reference's shapes with the layer axis split off."""
+    """A family's parameters as modules, in the reference's shapes with
+    each stack's layer axis split off: ``embed``, the unstacked ``nodes``
+    ({name: template}) and the ``stacks`` ({name: (layer template, number
+    of layers)}); by default one stack, ``layers``, of ``layer_template``
+    and ``cfg.n_layers``."""
 
-    def __init__(self, cfg: ModelConfig, layer_template, dtype=None,
-                 device=None):
+    def __init__(self, cfg: ModelConfig, layer_template=None, dtype=None,
+                 device=None, *, stacks=None, nodes=None):
         super().__init__()
         self.cfg = cfg
         dtype = dtype or cfg.pdtype()
-        self.embed = Params(embed_template(cfg), dtype, device)
-        self.layers = nn.ModuleList(
-            Params(layer_template(cfg), dtype, device)
-            for _ in range(cfg.n_layers))
+        if stacks is None:
+            stacks = {"layers": (layer_template(cfg), cfg.n_layers)}
+        nodes = {"embed": embed_template(cfg), **(nodes or {})}
+        self.node_names, self.stack_names = tuple(nodes), tuple(stacks)
+        for name, template in nodes.items():
+            self.add_module(name, Params(template, dtype, device))
+        for name, (template, n) in stacks.items():
+            self.add_module(name, nn.ModuleList(
+                Params(template, dtype, device) for _ in range(n)))
 
     def param_bytes(self) -> int:
         return sum(p.numel() * p.element_size() for p in self.parameters())
@@ -110,19 +120,27 @@ def _fill(node: Params, tree, index=None):
 
 
 def load_reference_params(model: Model, tree) -> Model:
-    """Fill ``model`` from a parameter tree of the reference's layout
-    (``{"embed": ..., "layers": ...}`` with the layers stacked on a leading
-    axis of length L), by path: numpy arrays (the reference's
-    ``jax.tree.map(np.asarray, params)``) are copied in; tensors already of
-    the model's device and type are taken as views, not copied.  A model
-    built on the meta device takes the tree's tensors as they are, on
-    their own device."""
-    _fill(model.embed, tree["embed"])
-    for i, layer in enumerate(model.layers):
-        _fill(layer, tree["layers"], i)
-    model.embed.drop_casts()
-    for layer in model.layers:
-        layer.drop_casts()
+    """Fill ``model`` from a parameter tree of the reference's layout (its
+    unstacked nodes, ``{"embed": ...}`` and the enc-dec family's
+    ``enc_norm``, and its stacks, ``layers`` or ``encoder`` and
+    ``decoder``, each stacked on a leading axis of its length), by path:
+    numpy arrays (the reference's ``jax.tree.map(np.asarray, params)``) are
+    copied in; tensors already of the model's device and type are taken as
+    views, not copied.  A model built on the meta device takes the tree's
+    tensors as they are, on their own device."""
+    names = set(model.node_names) | set(model.stack_names)
+    if set(tree) != names:
+        raise ValueError(f"parameter tree keys {sorted(tree)} != "
+                         f"{sorted(names)}")
+    nodes = [getattr(model, name) for name in model.node_names]
+    for name, node in zip(model.node_names, nodes):
+        _fill(node, tree[name])
+    for name in model.stack_names:
+        for i, layer in enumerate(getattr(model, name)):
+            _fill(layer, tree[name], i)
+            nodes.append(layer)
+    for node in nodes:
+        node.drop_casts()
     return model
 
 
@@ -130,7 +148,8 @@ def init_model(fam, cfg: ModelConfig, generator: torch.Generator) -> Model:
     """A model of ``fam`` with parameters drawn by :func:`init_params` from
     ``generator`` (on its device, in ``cfg.pdtype()``).  The model is built
     on the meta device and takes the drawn tensors as views, so the
-    parameters are held once (deepseek-v2's 4 layers fill 34 GB in bf16)."""
+    parameters are held once (deepseek-v2's 4 layers fill 34 GB in bf16;
+    whisper-large-v3's two stacks 6.1 GB in f32)."""
     tree = init_params(fam.template(cfg), generator, dtype=cfg.pdtype())
     model = fam.build(cfg, device="meta")
     return load_reference_params(model, tree)
@@ -139,7 +158,7 @@ def init_model(fam, cfg: ModelConfig, generator: torch.Generator) -> Model:
 # -- registry ----------------------------------------------------------------
 
 _REGISTRY: dict[str, Any] = {}
-NOT_PORTED = ("encdec", "vlm")
+NOT_PORTED = ("vlm",)
 
 
 def register_family(name: str):
@@ -153,20 +172,22 @@ def not_ported(what: str) -> str:
     """The message of a refused family."""
     return (f"{what} is not ported to repro_torch yet (see ROADMAP.md, "
             "Queue 1 item 6, the model substrate); the ported families are "
-            "the dense and MoE LMs (MLA attention included), RWKV6 and the "
-            "hybrid (hymba: attention and Mamba heads); the enc-dec and VLM "
-            "families are still refused")
+            "the dense and MoE LMs (MLA attention included), RWKV6, the "
+            "hybrid (hymba: attention and Mamba heads) and the enc-dec "
+            "family (whisper: encoder, decoder and cross-attention); the "
+            "VLM family is still refused")
 
 
 def get_family(cfg_or_name) -> Any:
     """The family module of a config (or family name).  The dense and MoE
-    LMs (with MHA / GQA or MLA attention), RWKV6 and the hybrid family
-    (hymba) are ported; the enc-dec and VLM families raise
-    NotImplementedError."""
+    LMs (with MHA / GQA or MLA attention), RWKV6, the hybrid family
+    (hymba) and the enc-dec family (whisper) are ported; the VLM family
+    raises NotImplementedError."""
     cfg = None if isinstance(cfg_or_name, str) else cfg_or_name
     name = cfg_or_name if cfg is None else cfg.family
     if name in NOT_PORTED:
         raise NotImplementedError(not_ported(f"the {name!r} family"))
+    import repro_torch.models.encdec  # noqa: F401
     import repro_torch.models.hymba   # noqa: F401
     import repro_torch.models.lm      # noqa: F401
     import repro_torch.models.rwkv    # noqa: F401

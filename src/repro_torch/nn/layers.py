@@ -1,5 +1,6 @@
-"""Transformer layers of the LMs: norms, RoPE, attention (MHA / GQA and
-deepseek-v2's MLA), MLP, MoE.
+"""Transformer layers of the LMs and of the enc-dec family: norms, RoPE and
+sinusoidal positions, attention (MHA / GQA, deepseek-v2's MLA, whisper's
+bidirectional encoder attention and cross-attention), MLP, MoE.
 
 Pure-function style, as in the reference: ``*_template(cfg)`` returns a
 ParamSpec tree; ``*_apply(params, x, ...)`` computes, with ``params`` a
@@ -15,6 +16,10 @@ tensors, its plain version on CPU tensors.  The one-token decode keeps the
 reference's plain masked softmax over the cache.  MLA's prefill attention
 is K5 too, on 192-wide q/k heads and 128-wide v heads (deepseek-v2); its
 decode keeps the reference's absorbed query over the compressed cache.
+The enc-dec family's encoder self-attention and its cross-attention over
+the encoder output are K5 without the causal mask (T != S for the
+cross-attention); the decode cross-attends the cached K/V with the
+reference's plain softmax.  Every K5 call goes through the ``_k5`` alias.
 
 The MoE layer (:func:`moe_apply`) is plain PyTorch, as the reference's is
 XLA outside any Pallas kernel: batched matrix products over a capacity grid
@@ -73,6 +78,18 @@ def rope(x, positions, theta=10_000.0):
     return out.to(x.dtype)
 
 
+def sinusoidal_pos(positions, dim):
+    """Absolute sinusoidal embeddings (..., dim) in f32 of integer
+    ``positions`` (...,), a tensor on any device (the decode passes its
+    (1,) position buffer, so nothing is read on the host)."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(10_000.0)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=positions.device) / half)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # attention (MHA / GQA, causal / sliding-window)
 # ---------------------------------------------------------------------------
@@ -127,13 +144,15 @@ def _out_proj(params, out):
 
 
 def _gqa_scores_softmax_out(cfg, q, k, v, mask):
-    """q: (B,S,H,D), k/v: (B,T,K,D), mask: (B,1,1,S,T) or (1,1,1,S,T)."""
+    """q: (B,S,H,D), k/v: (B,T,K,D), mask: (B,1,1,S,T) or (1,1,1,S,T), or
+    None for every key (the reference's all-true mask)."""
     B, S, H, D = q.shape
     K = k.shape[2]
     G = H // K
     qg = q.reshape(B, S, K, G, D)
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float() / math.sqrt(D)
-    scores = torch.where(mask, scores, NEG_INF)
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", w, v)
     return out.reshape(B, S, H, D)
@@ -147,6 +166,15 @@ def attention_core(cfg, q, k, v, is_global: bool):
     is_global)``."""
     window = 0 if is_global else cfg.window
     return _k5.flash_attention(q, k, v, causal=True, window=window)
+
+
+def bidirectional_attention_apply(params, cfg: ModelConfig, x):
+    """The enc-dec encoder's self-attention over a full sequence: every
+    query sees every key (the reference's all-ones mask), no RoPE.  K5
+    with ``causal=False``, no window."""
+    q, k, v = _qkv(params, cfg, x, None, use_rope=False)
+    out = _k5.flash_attention(q, k, v, causal=False, window=0)
+    return _out_proj(params, out)
 
 
 def causal_window_mask(positions_q, positions_k, window: int, is_global):
@@ -200,6 +228,58 @@ def attention_decode(params, cfg: ModelConfig, x, cache_k, cache_v, pos,
     out = _gqa_scores_softmax_out(cfg, q, cache_k.to(q.dtype),
                                   cache_v.to(q.dtype), mask)
     return _out_proj(params, out), cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (the enc-dec decoder over the encoder output)
+# ---------------------------------------------------------------------------
+
+def cross_attention_template(cfg: ModelConfig):
+    E, H, K, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "wq": spec((E, H, D), ("embed", "heads", None)),
+        "wk": spec((E, K, D), ("embed", "kv_heads", None)),
+        "wv": spec((E, K, D), ("embed", "kv_heads", None)),
+        "wo": spec((H, D, E), ("heads", None, "embed")),
+        "q_norm": rmsnorm_template(D),
+        "k_norm": rmsnorm_template(D),
+    }
+
+
+def cross_attention_kv(params, cfg: ModelConfig, media):
+    """The cross-attention's keys, k-normed, and values (B,M,K,D) over
+    ``media`` (B,M,E), in media's type: what the decode's cache keeps (the
+    reference's ``_cross_kv``)."""
+    dt = media.dtype
+    k = _proj(media, params.cast("wk", dt))
+    v = _proj(media, params.cast("wv", dt))
+    return rmsnorm(params["k_norm"], k, cfg.norm_eps), v
+
+
+def _cross_q(params, cfg, x):
+    q = _proj(x, params.cast("wq", x.dtype))
+    return rmsnorm(params["q_norm"], q, cfg.norm_eps)
+
+
+def cross_attention_apply(params, cfg: ModelConfig, x, media, kv=None):
+    """x: (B,S,E) attends over media (B,M,E): no mask, no RoPE; K5 with
+    ``causal=False`` (M != S).  ``kv``: the :func:`cross_attention_kv` of
+    this media in x's type, where the caller has them (the prefill, which
+    caches them); the reference computes them here again, to the same
+    bits."""
+    k, v = (kv if kv is not None
+            else cross_attention_kv(params, cfg, media.to(x.dtype)))
+    out = _k5.flash_attention(_cross_q(params, cfg, x), k, v, causal=False,
+                              window=0)
+    return _out_proj(params, out)
+
+
+def cross_attention_cached(params, cfg: ModelConfig, x, k, v):
+    """Cross-attention against the cached (already k-normed) K/V (B,M,K,D):
+    only q is normed.  The reference's plain softmax over every key (the
+    decode's one token; no mask is built)."""
+    out = _gqa_scores_softmax_out(cfg, _cross_q(params, cfg, x), k, v, None)
+    return _out_proj(params, out)
 
 
 # ---------------------------------------------------------------------------

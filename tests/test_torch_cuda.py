@@ -625,6 +625,34 @@ def test_flash_tc_hymba_prefill_equals_plain(dev, window):
                                **ops.tolerance("flash_tc", q.dtype, v))
 
 
+@pytest.mark.parametrize("B", [4, 1])
+@pytest.mark.parametrize("S,T", [(1500, 1500), (224, 1500)],
+                         ids=["encoder", "cross"])
+def test_flash_tc_whisper_noncausal_equals_plain(dev, S, T, B):
+    """K5 at whisper-large-v3's two non-causal prefill shapes, bf16, MHA
+    (20 heads of 64): the encoder's self-attention over its 1500 frames
+    (11 full key tiles and a ragged one of 92 keys, which TMA's box runs
+    past) and the decoder's cross-attention, 224 queries (a full query tile
+    and a ragged one) against the 1500 frames; at the served batch 4 and
+    at 1.  The tensor-core kernel, within its tolerance of the plain
+    version."""
+    from repro_torch.kernels.flash_attention import ops
+
+    g = torch.Generator(dev).manual_seed(S + T + B)
+    q = torch.randn((B, S, 20, 64), generator=g, device=dev).to(
+        torch.bfloat16)
+    k, v = (torch.randn((B, T, 20, 64), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    by0 = ops.flash_attention.variant_launches["flash_tc"]
+    got = ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.variant_launches["flash_tc"] == by0 + 1
+    want = ops.flash_attention_ref(q, k, v, causal=False)
+    assert got.shape == want.shape == (B, S, 20, 64)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **ops.tolerance("flash_tc", q.dtype, v))
+
+
 # K5 at deepseek-v2's MLA head dims: q and k 192 wide, v 128 wide
 @pytest.mark.parametrize("B,H,K,S,T,causal,window", [
     (1, 4, 4, 256, 256, True, 0),       # a kv head a query head, as MLA
@@ -1296,7 +1324,8 @@ def test_a_capture_that_fails_raises(dev, monkeypatch):
 
 
 SERVED = ("qwen2_1_5b", "qwen3_8b", "gemma3_12b", "mistral_nemo_12b",
-          "granite_moe_3b", "rwkv6_3b", "deepseek_v2_236b", "hymba_1_5b")
+          "granite_moe_3b", "rwkv6_3b", "deepseek_v2_236b", "hymba_1_5b",
+          "whisper_large_v3")
 
 
 def _mla_card_config(**kw):
@@ -1407,7 +1436,8 @@ def test_graphed_decode_equals_eager(dev, arch, temperature):
     """The decode on its captured graph (one capture) and the same step run
     eagerly, from one prefill's cache, default bf16 compute: every step's
     logits, the tokens and the cache bit for bit, greedy and sampled from
-    generators of one seed."""
+    generators of one seed (whisper's prefill on the stub frontend's
+    media, its decode reading the cached cross K/V)."""
     from repro_torch.launch import serve
     from repro_torch.models.common import get_family, init_model
 
@@ -1419,7 +1449,8 @@ def test_graphed_decode_equals_eager(dev, arch, temperature):
                             generator=torch.Generator(dev).manual_seed(1))
     runs = {}
     with torch.no_grad():
-        logits, cache = fam.prefill(model, cfg, prompts, max_seq=P + gen)
+        logits, cache = fam.prefill(model, cfg, prompts, max_seq=P + gen,
+                                    media=serve.make_media(cfg, 3, dev))
         first = serve.pick(logits[:, -1])
         for graph in (True, False):
             steps, served = [], {k: v.clone() for k, v in cache.items()}

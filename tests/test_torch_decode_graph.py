@@ -18,8 +18,8 @@ import numpy as np
 import pytest
 import torch
 from _torch_nosync import NoSync
-from test_torch_models import (ARCHS, BF16_CACHES, F32_TOL, _np, _pair,
-                               _tokens)
+from test_torch_models import (ARCHS, BF16_CACHES, F32_TOL, _media, _np,
+                               _pair, _tokens)
 
 import repro.launch.serve as ref_serve
 import repro_torch.launch.serve as port_serve
@@ -57,10 +57,11 @@ def test_tensor_position_equals_reference(arch):
     tensor, f32 compute."""
     rc, rf, params, pc, pf, model = _pair(arch, "float32")
     toks = _tokens(rc, 2)
+    rm, pm = _media(rc)
     _lg, rcache = rf.prefill(params, rc, jnp.asarray(toks[:, :HALF]),
-                             max_seq=S)
+                             max_seq=S, media=rm)
     _lg, pcache = pf.prefill(model, pc, torch.as_tensor(toks[:, :HALF]),
-                             max_seq=S)
+                             max_seq=S, media=pm)
     for t in (HALF, HALF + 1):
         want, rcache = rf.decode_step(params, rc, rcache,
                                       jnp.asarray(toks[:, t:t + 1]),
@@ -82,7 +83,8 @@ def test_tensor_position_equals_int_position(arch):
     """The same decode steps with the position as an int and as a tensor
     give the same logits and caches bit for bit (default bf16 compute)."""
     cfg, fam, model, toks = _port(arch)
-    _lg, cache = fam.prefill(model, cfg, toks[:, :HALF], max_seq=S)
+    _lg, cache = fam.prefill(model, cfg, toks[:, :HALF], max_seq=S,
+                             media=_media(cfg)[1])
     by_int, by_tensor = _copy(cache), _copy(cache)
     for t in range(HALF, S):
         a, _ = fam.decode_step(model, cfg, by_int, toks[:, t:t + 1], t)
@@ -191,7 +193,8 @@ def test_decode_loop_equals_plain_loop(arch, temperature):
     cfg, fam, model, toks = _port(arch)
     gen = S - HALF
     with torch.no_grad():
-        _lg, cache = fam.prefill(model, cfg, toks[:, :HALF], max_seq=S)
+        _lg, cache = fam.prefill(model, cfg, toks[:, :HALF], max_seq=S,
+                             media=_media(cfg)[1])
         first = toks[:, HALF:HALF + 1]
         want, want_steps = _plain_loop(
             fam, model, cfg, _copy(cache), first, gen, temperature,
@@ -215,7 +218,8 @@ def test_decode_step_never_syncs(arch):
     no tensor from host data."""
     cfg, fam, model, toks = _port(arch)
     with torch.no_grad():
-        _lg, cache = fam.prefill(model, cfg, toks[:, :HALF], max_seq=S)
+        _lg, cache = fam.prefill(model, cfg, toks[:, :HALF], max_seq=S,
+                             media=_media(cfg)[1])
         ds = port_serve.DecodeStep(fam, model, cfg, cache, 4)
         assert ds.graph is None                  # eager on the CPU
         ds.start(toks[:, HALF:HALF + 1], HALF)
@@ -233,7 +237,8 @@ def test_warm_up_leaves_the_served_cache(arch):
     the step did run."""
     cfg, fam, model, toks = _port(arch)
     with torch.no_grad():
-        _lg, cache = fam.prefill(model, cfg, toks[:, :HALF], max_seq=S)
+        _lg, cache = fam.prefill(model, cfg, toks[:, :HALF], max_seq=S,
+                             media=_media(cfg)[1])
         before = _copy(cache)
         ds = port_serve.DecodeStep(fam, model, cfg, cache, 4, graph=False)
         ds.warm()

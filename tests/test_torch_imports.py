@@ -36,6 +36,7 @@ def test_import_loads_neither_jax_nor_reference():
             "repro_torch.cluster.gang", "repro_torch.launch.serve",
             "repro_torch.models.common", "repro_torch.models.lm",
             "repro_torch.models.rwkv", "repro_torch.models.hymba",
+            "repro_torch.models.encdec",
             "repro_torch.nn.config",
             "repro_torch.nn.param", "repro_torch.nn.layers",
             "repro_torch.nn.ssm", "repro_torch.configs",
@@ -242,24 +243,26 @@ MLA_DIMS = dict(use_mla=True, q_lora_rank=0, kv_lora_rank=16, qk_nope_dim=16,
 
 @pytest.mark.parametrize("make,what", [
     (lambda: "hymba-1.5b", None),
-    (lambda: "whisper-large-v3", "'encdec'"),
+    (lambda: "whisper-large-v3", None),
     (lambda: "llama-3.2-vision-90b", "'vlm'"),
 ], ids=["hymba", "whisper", "llama-vision"])
 def test_unported_families_raise(make, what):
-    """Families not ported yet (enc-dec, VLM) raise NotImplementedError
-    naming ROADMAP.md, from the registry and from ``serve``.  The hybrid
-    family is ported: hymba resolves to the port's ``hymba`` module and its
-    smoke config serves on the CPU, no kernel launched."""
+    """The family not ported yet (VLM) raises NotImplementedError naming
+    ROADMAP.md, from the registry and from ``serve``.  The hybrid and
+    enc-dec families are ported: hymba and whisper resolve to the port's
+    ``hymba`` and ``encdec`` modules and their smoke configs serve on the
+    CPU, no kernel launched."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
-    from repro_torch.models import hymba
+    from repro_torch.models import encdec, hymba
     from repro_torch.models.common import get_family
 
     name = make()
     cfg = get_config(name, smoke=True)
     if what is None:
-        assert get_family(get_config(name)) is hymba
-        assert get_family(cfg) is hymba
+        mod = {"hybrid": hymba, "encdec": encdec}[cfg.family]
+        assert get_family(get_config(name)) is mod
+        assert get_family(cfg) is mod
         out = serve.serve(name, device="cpu", batch=2, prompt_len=8, gen=4)
         assert out["tokens"].shape == (2, 4)
         assert ((out["tokens"] >= 0) & (out["tokens"] < cfg.vocab_size)).all()

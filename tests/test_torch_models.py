@@ -30,14 +30,15 @@ from repro_torch.configs import get_config
 from repro_torch.models.common import get_family, load_reference_params
 
 ARCHS = ("qwen2_1_5b", "qwen3_8b", "gemma3_12b", "mistral_nemo_12b",
-         "rwkv6_3b", "granite_moe_3b", "deepseek_v2_236b", "hymba_1_5b")
+         "rwkv6_3b", "granite_moe_3b", "deepseek_v2_236b", "hymba_1_5b",
+         "whisper_large_v3")
 B, S = 2, 16
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 DECODE_ATOL = {"granite_moe_3b": 6e-2,     # see test_decode_matches_forward
                "deepseek_v2_236b": 6e-2}
 #: the bf16 caches: K/V, MLA's compressed ``ckv`` and ``krope``, hymba's
-#: conv tail
-BF16_CACHES = ("k", "v", "ckv", "krope", "conv")
+#: conv tail, whisper's cross K/V
+BF16_CACHES = ("k", "v", "ckv", "krope", "conv", "xk", "xv")
 
 
 def _np(x):
@@ -62,21 +63,36 @@ def _tokens(cfg, seed):
         0, cfg.vocab_size, (B, S)).astype(np.int32)
 
 
+def _media(cfg, batch=B, seed=11):
+    """-> (reference media, port media): the enc-dec family's frame
+    embeddings (B, M, E) drawn from a numpy seed, as ``jnp`` and torch
+    arrays, or (None, None) for a family that takes none (the reference's
+    ``tests/test_archs_smoke.py`` threads media the same way)."""
+    if cfg.family not in ("encdec", "vlm"):
+        return None, None
+    m = (np.random.default_rng(seed).standard_normal(
+        (batch, cfg.n_media_tokens, cfg.d_model)) * 0.02).astype(np.float32)
+    return jnp.asarray(m), torch.as_tensor(m)
+
+
 def _run(arch, dtype):
     """forward logits, prefill (logits, cache) of the first half, and two
     decode steps after it, in both packages -> ({name: array}, {name:
     array})."""
     rc, rf, params, pc, pf, model = _pair(arch, dtype)
     toks = _tokens(rc, 1)
+    rm, pm = _media(rc)
     half = S // 2
     ref, port = {}, {}
-    ref["forward"] = _np(rf.forward(params, rc, jnp.asarray(toks)))
-    port["forward"] = _np(pf.forward(model, pc, torch.as_tensor(toks)))
-    lg, cache = rf.prefill(params, rc, jnp.asarray(toks[:, :half]), max_seq=S)
+    ref["forward"] = _np(rf.forward(params, rc, jnp.asarray(toks), media=rm))
+    port["forward"] = _np(pf.forward(model, pc, torch.as_tensor(toks),
+                                     media=pm))
+    lg, cache = rf.prefill(params, rc, jnp.asarray(toks[:, :half]), max_seq=S,
+                           media=rm)
     ref["prefill"] = _np(lg)
     ref.update({f"cache.{k}": _np(v) for k, v in cache.items()})
     plg, pcache = pf.prefill(model, pc, torch.as_tensor(toks[:, :half]),
-                             max_seq=S)
+                             max_seq=S, media=pm)
     port["prefill"] = _np(plg)
     port.update({f"cache.{k}": _np(v) for k, v in pcache.items()})
     for t in (half, half + 1):
@@ -149,7 +165,10 @@ def test_decode_matches_forward(arch):
     the reference's 2e-2, and 0 with the forward's attention rounded as the
     decode's (its Mamba head's scan and the decode's one combine give the
     same bits): all of the gap is K5's f32 probabilities, so it takes the
-    5e-2 of the other K5 models."""
+    5e-2 of the other K5 models.  whisper-smoke (its cross K/V filled by
+    ``encode_to_cache``, as the reference's test fills them) measures
+    0.0039, and 0 with all three of the forward's attentions rounded as
+    the decode's; it takes the same 5e-2."""
     cfg = get_config(arch, smoke=True)
     fam = get_family(cfg)
     params = ref_init(ref_family(ref_config(arch, smoke=True)).template(
@@ -157,8 +176,11 @@ def test_decode_matches_forward(arch):
     model = load_reference_params(fam.build(cfg),
                                   jax.tree.map(np.asarray, params))
     toks = torch.as_tensor(_tokens(cfg, 3))
-    full = fam.forward(model, cfg, toks)
+    media = _media(cfg)[1]
+    full = fam.forward(model, cfg, toks, media=media)
     cache = fam.init_cache(cfg, B, S)
+    if media is not None:       # the enc-dec family's cross K/V
+        cache = fam.encode_to_cache(model, cfg, media, cache)
     outs = []
     for t in range(S):
         logits, cache = fam.decode_step(model, cfg, cache, toks[:, t:t + 1], t)
