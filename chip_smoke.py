@@ -73,7 +73,10 @@ kernel from the sources in the checkout (nvcc into ``build/``).  Phases:
    128) bf16, at hymba-1.5b's (4, 25, 2048, 64) x (4, 5, 2048, 64)
    bf16 with its window of 1024 and with none, and at whisper-large-v3's
    encoder, (4, 1500, 20, 64) against itself, and cross-attention, q (4,
-   224, 20, 64) against k/v (4, 1500, 20, 64), bf16 non-causal (each timed
+   224, 20, 64) against k/v (4, 1500, 20, 64), bf16 non-causal, and at
+   llama-3.2-vision-90b's self layers, q (4, 2048, 64, 128) against k/v
+   (4, 2048, 8, 128) bf16 causal, and cross layers, the same q against
+   k/v (4, 1601, 8, 128) bf16 non-causal (each timed
    beside its bound and SDPA, whose backend is named; the windowed one
    beside SDPA with a boolean window mask), in
    f32, with a window below the key tile, non-causal with T != S, at a
@@ -108,14 +111,23 @@ kernel from the sources in the checkout (nvcc into ``build/``).  Phases:
    non-causal at 1500 x 1500 in the encoder, 32 causal at 224 x 224 and
    32 non-causal at 224 x 1500 in the decoder, counted by (causal, S, T)
    and gated; the encoder's share of the prefill's device time printed;
-   the decode cross-attends the cached ``xk``/``xv``) and rwkv6-3b
+   the decode cross-attends the cached ``xk``/``xv``),
+   llama-3.2-vision-90b at full width cut to 2 of its 20 groups (8 self
+   and 2 gated cross layers, parameters stored in bf16, 21.3 GB; 1601
+   media tokens of the stub vision tower; every cross layer's two gates
+   set to ``VLM_GATE`` on the served model, the reference's init leaving
+   them 0; K5: 10, all at (128, 128): 8 causal at 2048 x 2048 in the self
+   layers and 2 non-causal at 2048 x 1601 in the cross layers, counted by
+   (causal, S, T) and gated) and rwkv6-3b
    (K6: 32), each launch shadowed by the plain version on the same inputs
    (gated at the kernel's tolerance), against the same serve with the
    kernel swapped for its plain version, teacher-forced with the first
    run's tokens (whisper's also with the first run's encoder output): the
    caches of the first two layers (whisper's ``k``, ``v``, ``xk``, ``xv``,
    and its first encoder layer's output, one attention deep as the other
-   models' layer-1 caches) within a relative L2 tolerance (for granite
+   models' layer-1 caches; the VLM's ``k``, ``v`` of group 0's self
+   layers 0 and 1 and the ``xk``, ``xv`` of its first two groups, which
+   depend on the media alone) within a relative L2 tolerance (for granite
    also in a prefill on the plain version with every layer's experts
    forced to the K5 run's, drops equal layer by layer; for deepseek
    too); the other layers, prefill and decode logits, greedy-token
@@ -166,8 +178,9 @@ K3 over the allocator's fleet epochs, K1/K2 over the tiles-loop replays
 (one a step of each replayed chunk, dead steps included: a replay adds its
 graph's launches to the counters, a capture adds none),
 K4 over the fleet serve on the per-grant backend, K5 (qwen2-1.5b,
-granite-moe-3b-a800m, deepseek-v2-236b, hymba-1.5b and whisper-large-v3)
-and K6 (rwkv6-3b) over the prefills of their model serves, K3 over each
+granite-moe-3b-a800m, deepseek-v2-236b, hymba-1.5b, whisper-large-v3 and
+llama-3.2-vision-90b) and K6 (rwkv6-3b) over the prefills of their model
+serves, K3 over each
 pooled fill (once a fill,
 the K3 row's ``fill_launches`` in the JSON); each must have launched.  The
 last lines are the kernels JSON, the ``nvidia-smi`` name and power limit,
@@ -1683,6 +1696,11 @@ HYMBA_WINDOW = 1024
 # tokens against them; both non-causal
 WHISPER_ENC_ATTN = (4, 20, 20, 1500, 1500, 64)
 WHISPER_CROSS_ATTN = (4, 20, 20, 224, 1500, 64)
+# llama-3.2-vision-90b's prefill, a GQA group of 8: its self layers attend
+# causally over the 2048 prompt tokens, its cross layers put them against
+# the 1601 media tokens without the mask
+VLM_SELF_ATTN = (4, 64, 8, 2048, 2048, 128)
+VLM_CROSS_ATTN = (4, 64, 8, 2048, 1601, 128)
 RWKV_WKV = (4, 2048, 40, 64)                # B, S, H, D of one prefill
 # K5's tolerances are stated once, by variant, in
 # repro_torch.kernels.flash_attention.ops.tolerance: f32 rtol 1e-5, atol 2e-5;
@@ -1720,13 +1738,18 @@ def k5_calls(cfg, prompt_len):
     the config's window, a global one and every layer of a model without
     a window through none); for the enc-dec family one an encoder layer
     (non-causal, M x M frames) and two a decoder layer (causal over the
-    prompt, and non-causal from the prompt to the M frames)."""
-    P = prompt_len
+    prompt, and non-causal from the prompt to the M frames); for the VLM
+    one a self layer (causal over the prompt) and one a cross layer
+    (non-causal from the prompt to the M media tokens)."""
+    P, M = prompt_len, cfg.n_media_tokens
     if cfg.family == "encdec":
-        M = cfg.n_media_tokens
         return collections.Counter({(False, M, M, 0): cfg.n_encoder_layers,
                                     (True, P, P, 0): cfg.n_layers,
                                     (False, P, M, 0): cfg.n_layers})
+    if cfg.family == "vlm":
+        G = cfg.n_layers // cfg.cross_every
+        return collections.Counter({(True, P, P, 0): (cfg.cross_every - 1) * G,
+                                    (False, P, M, 0): G})
     return collections.Counter(
         (True, P, P, 0 if cfg.is_global_layer(i) else cfg.window)
         for i in range(cfg.n_layers))
@@ -1743,14 +1766,16 @@ def _close(got, want, rtol, atol):
 
 def flash_phase(dev):
     """K5 against its plain version at the qwen2-1.5b, granite-moe-3b,
-    deepseek-v2 (MLA: q/k 192, v 128), hymba-1.5b (window 1024 and none)
-    and whisper-large-v3 (encoder and cross-attention, non-causal) prefill
-    shapes and on the edge cases, each on the kernel the wrapper's rule
-    picks and within that kernel's tolerance; then the timing block at the
-    seven prefill shapes.  -> the kernels row (qwen2-1.5b's shape,
-    granite's in ``granite_prefill``, deepseek-v2's in ``mla_prefill``,
-    hymba's in ``hymba_prefill``, by window, whisper's in
-    ``whisper_prefill``, by attention)."""
+    deepseek-v2 (MLA: q/k 192, v 128), hymba-1.5b (window 1024 and none),
+    whisper-large-v3 (encoder and cross-attention, non-causal) and
+    llama-3.2-vision-90b (self layers causal, cross layers non-causal, GQA
+    8:1) prefill shapes and on the edge cases, each on the kernel the
+    wrapper's rule picks and within that kernel's tolerance; then the
+    timing block at the nine prefill shapes.  -> the kernels row
+    (qwen2-1.5b's shape, granite's in ``granite_prefill``, deepseek-v2's in
+    ``mla_prefill``, hymba's in ``hymba_prefill``, by window, whisper's in
+    ``whisper_prefill`` and the VLM's in ``vlm_prefill``, by
+    attention)."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops as k5
@@ -1767,6 +1792,9 @@ def flash_phase(dev):
         ("whisper-large-v3 encoder prefill", WHISPER_ENC_ATTN, bf16, False,
          0),
         ("whisper-large-v3 cross prefill", WHISPER_CROSS_ATTN, bf16, False,
+         0),
+        ("llama-3.2-vision-90b self prefill", VLM_SELF_ATTN, bf16, True, 0),
+        ("llama-3.2-vision-90b cross prefill", VLM_CROSS_ATTN, bf16, False,
          0),
         ("f32", (2, 12, 2, 512, 512, 128), torch.float32, True, 0),
         ("window 48 below the key tile, gemma3-style", (2, 8, 4, 1000,
@@ -1860,8 +1888,13 @@ def flash_phase(dev):
     whisper = {}
     for kind in ("encoder", "cross"):
         label = f"whisper-large-v3 {kind} prefill"
-        whisper[kind] = noncausal_timing(label, inputs.pop(label),
+        whisper[kind] = attention_timing(label, inputs.pop(label),
                                          errs[label])
+    vlm = {}
+    for kind, causal in (("self", True), ("cross", False)):
+        label = f"llama-3.2-vision-90b {kind} prefill"
+        vlm[kind] = attention_timing(label, inputs.pop(label), errs[label],
+                                     causal)
     del inputs
     # head dim 256 (gemma3-12b's heads), where the kernel compiles its
     # warpgroups' turns out
@@ -1884,7 +1917,8 @@ def flash_phase(dev):
                 max_abs_err=errs["qwen2-1.5b prefill"], bound_ms=bound,
                 bound_by=bound_by, cuda_core_ms=simt,
                 granite_prefill=granite, mla_prefill=mla,
-                hymba_prefill=hymba, whisper_prefill=whisper)
+                hymba_prefill=hymba, whisper_prefill=whisper,
+                vlm_prefill=vlm)
 
 
 def hymba_timing(qkv, window, err):
@@ -1921,25 +1955,28 @@ def hymba_timing(qkv, window, err):
     return row
 
 
-def noncausal_timing(label, qkv, err):
-    """K5 at a non-causal prefill shape (whisper's encoder and
-    cross-attention) beside its bound, its plain version and SDPA
-    (non-causal).  -> the row, printed."""
+def attention_timing(label, qkv, err, causal=False):
+    """K5 at a prefill shape with no window (whisper's encoder and
+    cross-attention, the VLM's self and cross layers) beside its bound, its
+    plain version and SDPA (``enable_gqa`` where K < H), causal or not.
+    -> the row, printed."""
     from repro_torch.kernels.flash_attention import ops as k5
 
     q, k, v = qkv
     row = dict(
-        shape=[list(q.shape), list(k.shape)], causal=False,
-        ms=cuda_ms(lambda: k5.flash_attention(q, k, v, causal=False), 20),
+        shape=[list(q.shape), list(k.shape)], causal=causal,
+        ms=cuda_ms(lambda: k5.flash_attention(q, k, v, causal=causal), 20),
         plain_ms=cuda_ms(lambda: k5.flash_attention_ref(q, k, v,
-                                                        causal=False), 3),
+                                                        causal=causal), 3),
         max_abs_err=err)
-    row["library_ms"], how = sdpa_ms(q, k, v, causal=False)
-    row["bound_ms"], row["bound_by"] = attention_bound(q, k, v, causal=False)
+    row["library_ms"], how = sdpa_ms(q, k, v, causal=causal)
+    row["bound_ms"], row["bound_by"] = attention_bound(q, k, v,
+                                                       causal=causal)
     B, S, H, D = q.shape
-    flops = 2 * B * H * S * k.shape[1] * (D + v.shape[-1])
+    flops = (1 if causal else 2) * B * H * S * k.shape[1] * (D + v.shape[-1])
     log(f"K5 flash_attention {label} {tuple(q.shape)} x {tuple(k.shape)} "
-        f"bf16 non-causal: {k5.variant(q.dtype, D)} {row['ms']:.4f} ms "
+        f"bf16 {'causal' if causal else 'non-causal'}: "
+        f"{k5.variant(q.dtype, D)} {row['ms']:.4f} ms "
         f"({flops / row['ms'] / 1e9:.1f} TFLOP/s, "
         f"{row['bound_ms'] / row['ms']:.1%} of the bound "
         f"{row['bound_ms']:.4f} ms, {row['bound_by']}); plain "
@@ -2097,7 +2134,9 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
     replaces the alias, so the wrapper itself stays in place and counts.
 
     The caches of the first two layers (and an enc-dec model's first
-    encoder layer's output) must agree between the first two runs.  A MoE
+    encoder layer's output; the VLM's ``k``/``v`` taken as its self layers
+    in order, (group, layer), and its ``xk``/``xv`` by group) must agree
+    between the first two runs.  A MoE
     model's routing can flip where a router logit differs by an ulp: its
     routing agreement by layer and its capacity-drop share are printed,
     not gated, and :func:`routed_alike` gates the first two layers again
@@ -2120,8 +2159,9 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
         n_launch = sum(want_calls.values())
     else:
         n_launch = cfg.n_layers           # K6: once a layer
-    encdec = cfg.family == "encdec"
+    encdec, vlm = cfg.family == "encdec", cfg.family == "vlm"
     prefill, decode = fam_mod.prefill, fam_mod.decode_step
+    cross_layer = fam_mod._cross_layer if vlm else None
     encode = fam_mod.encode if encdec else None
     kernel, plain = (getattr(kernel_mod, kernel_name),
                      getattr(kernel_mod, kernel_name + "_ref"))
@@ -2166,6 +2206,12 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
                 rec["experts"] = [r.experts.cpu() for r in k["routing"]]
             return logits, cache
 
+        def rec_cross(*a, **k):     # the prefill's (S > 1), group 0's
+            out = cross_layer(*a, **k)
+            if out.shape[1] > 1 and "cross" not in rec:
+                rec["cross"] = out.float().cpu()
+            return out
+
         def rec_decode(model, cfg, cache, tokens, pos, media=None):
             step = len(rec.setdefault("steps", []))
             if forced is not None:
@@ -2181,6 +2227,9 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
         if encdec:
             stack.enter_context(mock.patch.object(fam_mod, "encode",
                                                   rec_encode))
+        if vlm:
+            stack.enter_context(mock.patch.object(fam_mod, "_cross_layer",
+                                                  rec_cross))
         stack.enter_context(mock.patch.object(fam_mod, "decode_step",
                                               rec_decode))
         # a graph calls decode_step only while it is captured: the
@@ -2252,9 +2301,12 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
         ok for layer in shadow_errs for ok, _err in layer),
         f"{arch}: {kernel_name} differs from its plain version inside the "
         f"serve: {shadow_errs}")
-    per_layer = {name: [_rel_l2(a, b) for a, b in zip(rec["cache"][name],
-                                                      rec_p["cache"][name])]
-                 for name in rec["cache"]}
+    def by_layer(run, name):    # the VLM's k/v, (G, 4, ...) -> (G·4, ...)
+        c = run["cache"][name]
+        return c.flatten(0, 1) if vlm and name in ("k", "v") else c
+
+    per_layer = {name: [_rel_l2(a, b) for a, b in zip(
+        by_layer(rec, name), by_layer(rec_p, name))] for name in rec["cache"]}
     if encdec:      # each encoder layer's output, of both serves' encodes
         per_layer["encoder"] = [_rel_l2(a, b) for a, b in zip(
             rec["encoder"], rec_p["encoder"])]
@@ -2300,6 +2352,15 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
             f"one attention deep, as an LM's layer-1 cache does; the "
             f"plain-version serve's decoder reads the kernel serve's encoder "
             f"output, so its xk and xv take their bits)")
+    if vlm:
+        log(f"serve {arch}: the residual after group 0's cross layer (its "
+            f"four self layers' K5 calls and the cross layer's, gates "
+            f"{VLM_GATE}) of the kernel serve vs the plain-version serve's, "
+            f"relative L2 {_rel_l2(rec['cross'], rec_p['cross']):.3g} (not "
+            f"gated: four attentions deep); the self K/V gated at group 0's "
+            f"layers 0 and 1, printed for the rest in (group, layer) order; "
+            f"xk and xv, which depend on the media alone, gated at groups 0 "
+            f"and 1")
     # gated as deep as an LM's layer-1 cache, one attention: the first
     # two layers' caches, and the first encoder layer's output (the second
     # lies two attentions deep, and grows ~10x from the first, printed)
@@ -2346,6 +2407,7 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
         f"{timed['prefill_s'] * 1e3:.2f} ms "
         f"for {kw['batch']} x {kw['prompt_len']} tokens"
         + (f" and {cfg.n_media_tokens} frames" if encdec else "")
+        + (f" and {cfg.n_media_tokens} media tokens" if vlm else "")
         + f", decode "
         f"{timed['decode_s'] * 1e3:.2f} ms, {timed['tok_per_s']:.2f} "
         f"tokens/s ({timed['tok_per_s'] / kw['batch']:.2f} a sequence), "
@@ -2438,18 +2500,23 @@ STATE_REWRITTEN = {"ssm": ("wkv", "tm_last", "cm_last"),
 
 def step_weights(model, cfg):
     """The parameters a decode step reads: all of them, but for the
-    enc-dec family the embedding and the decoder without its
-    cross-attention's ``wk``/``wv`` (the step reads the cached ``xk``/``xv``
-    instead; the encoder and ``enc_norm`` run at the prefill only)."""
+    enc-dec family the embedding and the decoder, and for the VLM every
+    group, without the cross-attention's ``wk``/``wv`` (the step reads
+    the cached ``xk``/``xv`` instead; the encoder and ``enc_norm`` run at
+    the prefill only)."""
+    cross_kv = ("xattn.wk", "xattn.wv")
+    if cfg.family == "vlm":
+        return sum(p.numel() for name, p in model.named_parameters()
+                   if not name.endswith(cross_kv))
     if cfg.family != "encdec":
         return sum(p.numel() for p in model.parameters())
     return (sum(p.numel() for p in model.embed.parameters())
             + sum(p.numel() for layer in model.decoder
                   for name, p in layer.named_parameters()
-                  if name not in ("xattn.wk", "xattn.wv")))
+                  if name not in cross_kv))
 
 
-def decode_bytes(model, cfg, cache):
+def decode_bytes(model, cfg, cache, B):
     """The bytes one decode step must move: every weight it reads
     (:func:`step_weights`), once, in the compute type (the bf16 casts; the
     1-D scales and decays and hymba's ``A_log``, read in f32 or cast, are
@@ -2457,11 +2524,11 @@ def decode_bytes(model, cfg, cache):
     embedding table's rows past the batch's and RWKV channel-mix ``wr``
     off its diagonal (the step reads only those); the K/V cache (whisper's
     cross K/V too) read whole; the recurrent state
-    (:data:`STATE_REWRITTEN`) read and written; the logits written."""
+    (:data:`STATE_REWRITTEN`) read and written; the logits written.  ``B``
+    is the served batch (axis 1 of the VLM's ``k`` is a group's layer)."""
     import torch
 
     esize = torch.empty((), dtype=cfg.cdtype()).element_size()
-    B = next(iter(cache.values())).shape[1]
     weights = step_weights(model, cfg)
     if not cfg.tie_embeddings:
         weights -= (cfg.padded_vocab - B) * cfg.d_model
@@ -2569,7 +2636,7 @@ def busy_shares(dev, cfg, fam_mod, kernel_key, steps=16):
         launched_g = {}
         times_g, why_g = device_times(timed("graph", replays), launched_g)
         ds.close()
-        nbytes = decode_bytes(model, cfg, cache)
+        nbytes = decode_bytes(model, cfg, cache, B)
     if times_p:
         busy = sum(times_p.values()) / 1e6
         kern = sum(v for k, v in times_p.items() if kernel_key in k) / 1e6
@@ -2612,7 +2679,9 @@ def f32_divergence(dev, cfg, fam_mod, kernel_mod, kernel_name, seed):
     plain version: printed, not gated.  A growth that stays in f32 comes
     from the model amplifying any difference, not from bf16 rounding.  Not
     run for a model whose parameters are stored in bf16 (deepseek-v2 cut to
-    4 layers): their f32 casts would double its 34 GB."""
+    4 layers, llama-3.2-vision-90b cut to 2 groups): their f32 casts would
+    double its 34 GB, or add 42.6 GB to the VLM's 21.3 GB beside K5's
+    plain-version f32 scores."""
     import dataclasses
     from unittest import mock
 
@@ -2662,26 +2731,76 @@ def deepseek_config():
                                param_dtype="bfloat16")
 
 
+def vlm_config():
+    """llama-3.2-vision-90b at full width (d 8192, 64 heads and 8 kv heads
+    of 128, d_ff 28672, vocab 128256 untied, 1601 media tokens), cut to 2
+    of its 20 groups (8 self and 2 cross layers) and its parameters stored
+    in bf16, the compute type (21.3 GB; a group holds 4.28 B
+    parameters)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("llama-3.2-vision-90b"),
+                               n_layers=10, param_dtype="bfloat16")
+
+
+#: the value every cross layer's ``gate_attn`` and ``gate_ffn`` takes on the
+#: card's VLM serves: the reference's init leaves them 0 (each cross layer
+#: the identity), so the media and the cross layers' K5 output would not
+#: reach the logits
+VLM_GATE = 0.5
+
+
+@contextlib.contextmanager
+def gates_set():
+    """``serve.init_model`` wrapped so that a VLM's cross layers' gates
+    are set to :data:`VLM_GATE` after its parameters are drawn."""
+    from unittest import mock
+
+    from repro_torch.launch import serve
+
+    init = serve.init_model
+
+    def gated(fam, cfg, generator):
+        model = init(fam, cfg, generator)
+        for group in model.groups:
+            for name in ("gate_attn", "gate_ffn"):
+                group.cross[name].fill_(VLM_GATE)
+        return model
+
+    with mock.patch.object(serve, "init_model", gated):
+        yield
+
+
 def models_phase(dev, seed):
     """-> (kernels rows, launches) of K5 and K6: K5's over the qwen2-1.5b,
-    granite-moe-3b-a800m, deepseek-v2-236b (4 layers), hymba-1.5b and
-    whisper-large-v3 serves' prefills (whisper's 96: its encoder's
-    self-attention, its decoder's self- and cross-attention), K6's over
+    granite-moe-3b-a800m, deepseek-v2-236b (4 layers), hymba-1.5b,
+    whisper-large-v3 and llama-3.2-vision-90b (2 groups) serves' prefills
+    (whisper's 96: its encoder's self-attention, its decoder's self- and
+    cross-attention; the VLM's 10: its self and cross layers), K6's over
     rwkv6-3b's."""
     from repro_torch.kernels.flash_attention import ops as k5
     from repro_torch.kernels.rwkv6 import ops as k6
-    from repro_torch.models import encdec, hymba, lm, rwkv
+    from repro_torch.models import encdec, hymba, lm, rwkv, vlm
     from repro_torch.nn import layers, ssm
 
     rows = {"flash_attention": flash_phase(dev), "wkv6": wkv6_phase(dev)}
     k5_serves = {}
     for arch, fam in (("qwen2-1.5b", lm), ("granite-moe-3b-a800m", lm),
                       (deepseek_config(), lm), ("hymba-1.5b", hymba),
-                      ("whisper-large-v3", encdec)):
+                      ("whisper-large-v3", encdec), (vlm_config(), vlm)):
         t0 = time.perf_counter()
         name = getattr(arch, "name", arch)
-        k5_serves[name] = serve_model(dev, arch, fam, k5, "flash_attention",
-                                      (layers, "_k5"), seed)
+        with gates_set() if fam is vlm else contextlib.nullcontext():
+            if fam is vlm:
+                log(f"serve {name}: every cross layer's gate_attn and "
+                    f"gate_ffn set to {VLM_GATE} on the served model of the "
+                    f"kernel, plain-version and timed serves (the package's "
+                    f"init keeps the reference's zeros)")
+            k5_serves[name] = serve_model(dev, arch, fam, k5,
+                                          "flash_attention", (layers, "_k5"),
+                                          seed)
         log(f"serve {name}: {time.perf_counter() - t0:.1f} s")
     log(f"K5 launches by serve: {k5_serves}")
     launches = {
@@ -3050,8 +3169,9 @@ def main(argv=None):
         rows.update(model_rows)
         launches.update(model_launches)
         log(f"launches (K5 over the qwen2-1.5b, granite-moe-3b-a800m, "
-            f"deepseek-v2-236b, hymba-1.5b and whisper-large-v3 serves' "
-            f"prefills, K6 over the rwkv6-3b serve's prefill): "
+            f"deepseek-v2-236b, hymba-1.5b, whisper-large-v3 and "
+            f"llama-3.2-vision-90b serves' prefills, K6 over the rwkv6-3b "
+            f"serve's prefill): "
             f"{model_launches}; models phase "
             f"{time.perf_counter() - t0:.1f} s")
         for name, n in model_launches.items():

@@ -7,13 +7,17 @@ Runs on the card (``--device cuda``, the default) unless asked for the CPU;
 ``--no-smoke`` serves the full published configuration.  The prefill runs
 the family's kernel (K5 flash attention for the dense and MoE LMs, for
 the hybrid family's attention heads, hymba's with a sliding window on its
-local layers, and for the enc-dec family's three attentions: whisper's
+local layers, for the enc-dec family's three attentions: whisper's
 encoder self-attention and decoder cross-attention without the causal
-mask, its decoder self-attention with it; K6 WKV6 for RWKV6); hymba's
+mask, its decoder self-attention with it, and for the VLM's two:
+llama-3.2-vision's self layers with the causal mask, its gated cross
+layers over the media tokens without it; K6 WKV6 for RWKV6); hymba's
 Mamba heads scan in plain PyTorch.  The enc-dec family takes the stub
-frontend's frame embeddings (:func:`make_media`); its prefill caches each
-decoder layer's cross-attention K/V, which every decode step reads.  A MoE model's prefill drops the (token, slot) pairs past its
-experts' capacity; the serve reports their share.  A recurrent state
+frontend's frame embeddings and the VLM the stub vision tower's patch
+embeddings (:func:`make_media`); their prefills cache each cross layer's
+K/V, which every decode step reads.  A MoE model's prefill drops the
+(token, slot) pairs past its experts' capacity; the serve reports their
+share.  A recurrent state
 (RWKV6's, hymba's SSM ``h`` and conv tail) is part of the cache the
 decode step updates in place.
 
@@ -51,6 +55,7 @@ from repro_torch.core.engine_torch import resolve_device
 from repro_torch.kernels import KernelError
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.rwkv6.ops import wkv6
+from repro_torch.models import common as C
 from repro_torch.models.common import get_family, init_model
 from repro_torch.nn.config import ModelConfig
 
@@ -100,8 +105,8 @@ class DecodeStep:
 
     def __init__(self, fam, model, cfg, cache, gen: int, *, greedy=True,
                  media=None, graph=None):
-        some = next(iter(cache.values()))
-        dev, B = some.device, some.shape[1]          # caches are (L, B, ...)
+        dev = next(iter(cache.values())).device
+        B = C.cache_batch(fam, cache)
         self.fam, self.model, self.cfg, self.cache = fam, model, cfg, cache
         self.media, self.greedy = media, greedy
         self.tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)

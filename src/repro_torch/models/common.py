@@ -6,11 +6,16 @@ embedding template), the family's other unstacked nodes (the enc-dec
 family's ``enc_norm``) and its stacks, each an ``nn.ModuleList`` of
 per-layer :class:`Params` (``layers``; the enc-dec family's ``encoder``
 and ``decoder``), where the reference stacks the layers on a leading axis
-and scans over them.  The family functions take the model where the
-reference takes its parameter tree.
+and scans over them.  A stack's layer may hold stacks of its own (a
+:class:`Layout`): the VLM's ``groups``, each a :class:`Tree` of a
+``self`` stack of four layers and an unstacked ``cross`` layer, which the
+reference stacks on two leading axes (group, layer) and on one.  The
+family functions take the model where the reference takes its parameter
+tree.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import numpy as np
@@ -57,6 +62,13 @@ def embed_tokens(params, cfg: ModelConfig, tokens):
     return x
 
 
+def positions(tokens):
+    """The positions ``arange(S)`` of a (B, S) batch, int32, as (B, S)."""
+    B, S = tokens.shape
+    return torch.arange(S, dtype=torch.int32,
+                        device=tokens.device).expand(B, S)
+
+
 def unembed(params, cfg: ModelConfig, x):
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
@@ -68,33 +80,55 @@ def unembed(params, cfg: ModelConfig, x):
     return logits
 
 
-class Model(nn.Module):
-    """A family's parameters as modules, in the reference's shapes with
-    each stack's layer axis split off: ``embed``, the unstacked ``nodes``
-    ({name: template}) and the ``stacks`` ({name: (layer template, number
-    of layers)}); by default one stack, ``layers``, of ``layer_template``
-    and ``cfg.n_layers``."""
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """The template of a stack's layer that holds stacks of its own: its
+    unstacked ``nodes`` ({name: template}) and its ``stacks`` ({name:
+    (layer template or Layout, number of layers)})."""
+    nodes: dict
+    stacks: dict
 
-    def __init__(self, cfg: ModelConfig, layer_template=None, dtype=None,
-                 device=None, *, stacks=None, nodes=None):
+
+class Tree(nn.Module):
+    """Unstacked nodes (:class:`Params`) and stacks (``nn.ModuleList`` of
+    per-layer :class:`Params`, or of :class:`Tree` for a :class:`Layout`),
+    each the module attribute of its name."""
+
+    def __init__(self, nodes, stacks, dtype, device):
         super().__init__()
-        self.cfg = cfg
-        dtype = dtype or cfg.pdtype()
-        if stacks is None:
-            stacks = {"layers": (layer_template(cfg), cfg.n_layers)}
-        nodes = {"embed": embed_template(cfg), **(nodes or {})}
         self.node_names, self.stack_names = tuple(nodes), tuple(stacks)
         for name, template in nodes.items():
             self.add_module(name, Params(template, dtype, device))
         for name, (template, n) in stacks.items():
             self.add_module(name, nn.ModuleList(
-                Params(template, dtype, device) for _ in range(n)))
+                Tree(template.nodes, template.stacks, dtype, device)
+                if isinstance(template, Layout)
+                else Params(template, dtype, device) for _ in range(n)))
+
+
+class Model(Tree):
+    """A family's parameters as modules, in the reference's shapes with
+    each stack's layer axes split off: ``embed``, the unstacked ``nodes``
+    ({name: template}) and the ``stacks`` ({name: (layer template or
+    :class:`Layout`, number of layers)}); by default one stack, ``layers``,
+    of ``layer_template`` and ``cfg.n_layers``."""
+
+    def __init__(self, cfg: ModelConfig, layer_template=None, dtype=None,
+                 device=None, *, stacks=None, nodes=None):
+        if stacks is None:
+            stacks = {"layers": (layer_template(cfg), cfg.n_layers)}
+        super().__init__({"embed": embed_template(cfg), **(nodes or {})},
+                         stacks, dtype or cfg.pdtype(), device)
+        self.cfg = cfg
 
     def param_bytes(self) -> int:
         return sum(p.numel() * p.element_size() for p in self.parameters())
 
 
 def _fill(node: Params, tree, index=None):
+    """Fill ``node`` from ``tree``, each leaf indexed by ``index``, the
+    layer's place in its stacks (an int, or a tuple in a nested stack): a
+    stacked 0-d leaf (the VLM's gates) gives a 0-d tensor."""
     if set(tree) != set(node.keys()):
         raise ValueError(f"parameter tree keys {sorted(tree)} != "
                          f"{sorted(node.keys())}")
@@ -119,27 +153,41 @@ def _fill(node: Params, tree, index=None):
             target.data.copy_(src)
 
 
+def _fill_tree(mod: Tree, tree, index=()) -> list:
+    """Fill ``mod``'s nodes and stacks from ``tree`` at its place
+    ``index`` in the stacks around it -> the :class:`Params` filled."""
+    names = set(mod.node_names) | set(mod.stack_names)
+    if set(tree) != names:
+        raise ValueError(f"parameter tree keys {sorted(tree)} != "
+                         f"{sorted(names)}")
+    filled = []
+    for name in mod.node_names:
+        node = getattr(mod, name)
+        _fill(node, tree[name], index or None)
+        filled.append(node)
+    for name in mod.stack_names:
+        for i, layer in enumerate(getattr(mod, name)):
+            if isinstance(layer, Tree):
+                filled += _fill_tree(layer, tree[name], (*index, i))
+            else:
+                _fill(layer, tree[name], (*index, i))
+                filled.append(layer)
+    return filled
+
+
 def load_reference_params(model: Model, tree) -> Model:
     """Fill ``model`` from a parameter tree of the reference's layout (its
     unstacked nodes, ``{"embed": ...}`` and the enc-dec family's
     ``enc_norm``, and its stacks, ``layers`` or ``encoder`` and
-    ``decoder``, each stacked on a leading axis of its length), by path:
-    numpy arrays (the reference's ``jax.tree.map(np.asarray, params)``) are
-    copied in; tensors already of the model's device and type are taken as
-    views, not copied.  A model built on the meta device takes the tree's
-    tensors as they are, on their own device."""
-    names = set(model.node_names) | set(model.stack_names)
-    if set(tree) != names:
-        raise ValueError(f"parameter tree keys {sorted(tree)} != "
-                         f"{sorted(names)}")
-    nodes = [getattr(model, name) for name in model.node_names]
-    for name, node in zip(model.node_names, nodes):
-        _fill(node, tree[name])
-    for name in model.stack_names:
-        for i, layer in enumerate(getattr(model, name)):
-            _fill(layer, tree[name], i)
-            nodes.append(layer)
-    for node in nodes:
+    ``decoder``, each stacked on a leading axis of its length; the VLM's
+    ``groups``, whose ``self`` leaves are stacked on two, (group, layer),
+    and ``cross`` leaves on one), by path: numpy arrays (the reference's
+    ``jax.tree.map(np.asarray, params)``) are copied in; tensors already of
+    the model's device and type are taken as views, not copied.  A model
+    built on the meta device takes the tree's tensors as they are, on their
+    own device.  A tree whose keys differ from the model's nodes and
+    stacks, at any depth, is refused."""
+    for node in _fill_tree(model, tree):
         node.drop_casts()
     return model
 
@@ -155,10 +203,18 @@ def init_model(fam, cfg: ModelConfig, generator: torch.Generator) -> Model:
     return load_reference_params(model, tree)
 
 
+def cache_batch(fam, cache) -> int:
+    """The batch of ``fam``'s cache: axis 1 of its tensors, (L, B, ...),
+    or the family's own ``cache_batch`` (the VLM's self K/V are (G,
+    GROUP - 1, B, ...))."""
+    if hasattr(fam, "cache_batch"):
+        return fam.cache_batch(cache)
+    return next(iter(cache.values())).shape[1]
+
+
 # -- registry ----------------------------------------------------------------
 
 _REGISTRY: dict[str, Any] = {}
-NOT_PORTED = ("vlm",)
 
 
 def register_family(name: str):
@@ -168,27 +224,16 @@ def register_family(name: str):
     return deco
 
 
-def not_ported(what: str) -> str:
-    """The message of a refused family."""
-    return (f"{what} is not ported to repro_torch yet (see ROADMAP.md, "
-            "Queue 1 item 6, the model substrate); the ported families are "
-            "the dense and MoE LMs (MLA attention included), RWKV6, the "
-            "hybrid (hymba: attention and Mamba heads) and the enc-dec "
-            "family (whisper: encoder, decoder and cross-attention); the "
-            "VLM family is still refused")
-
-
 def get_family(cfg_or_name) -> Any:
-    """The family module of a config (or family name).  The dense and MoE
-    LMs (with MHA / GQA or MLA attention), RWKV6, the hybrid family
-    (hymba) and the enc-dec family (whisper) are ported; the VLM family
-    raises NotImplementedError."""
-    cfg = None if isinstance(cfg_or_name, str) else cfg_or_name
-    name = cfg_or_name if cfg is None else cfg.family
-    if name in NOT_PORTED:
-        raise NotImplementedError(not_ported(f"the {name!r} family"))
+    """The family module of a config (or family name).  Every family of
+    the reference is ported: the dense and MoE LMs (with MHA / GQA or MLA
+    attention) in ``lm``, RWKV6 in ``rwkv``, the hybrid family (hymba) in
+    ``hymba``, the enc-dec family (whisper) in ``encdec`` and the VLM
+    family (llama-3.2-vision) in ``vlm``."""
+    name = cfg_or_name if isinstance(cfg_or_name, str) else cfg_or_name.family
     import repro_torch.models.encdec  # noqa: F401
     import repro_torch.models.hymba   # noqa: F401
     import repro_torch.models.lm      # noqa: F401
     import repro_torch.models.rwkv    # noqa: F401
+    import repro_torch.models.vlm     # noqa: F401
     return _REGISTRY[name]

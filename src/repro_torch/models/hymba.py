@@ -57,16 +57,10 @@ def _combine(lp, cfg, a, s):
     return 0.5 * (b[0] * a + b[1] * s)
 
 
-def _positions(tokens):
-    B, Sq = tokens.shape
-    return torch.arange(Sq, dtype=torch.int32,
-                        device=tokens.device).expand(B, Sq)
-
-
 def forward(model, cfg: ModelConfig, tokens, media=None):
     """Teacher-forcing forward -> logits (B,S,V); positions ``arange(S)``."""
     del media
-    positions = _positions(tokens)
+    positions = C.positions(tokens)
     x = C.embed_tokens(model.embed, cfg, tokens)
     for i, lp in enumerate(model.layers):
         h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
@@ -128,7 +122,7 @@ def prefill(model, cfg: ModelConfig, tokens, max_seq=None, media=None):
     ``h`` at the last position in f32 and its conv tail in bf16)."""
     del media
     B, Sq = tokens.shape
-    positions = _positions(tokens)
+    positions = C.positions(tokens)
     cache = init_cache(cfg, B, max_seq or Sq, device=tokens.device)
     x = C.embed_tokens(model.embed, cfg, tokens)
     for i, lp in enumerate(model.layers):

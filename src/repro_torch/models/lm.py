@@ -52,16 +52,10 @@ def _ffn(p, cfg: ModelConfig, x, dropless=False, routing=None):
     return L.mlp_apply(p, x)
 
 
-def _positions(tokens):
-    B, S = tokens.shape
-    return torch.arange(S, dtype=torch.int32,
-                        device=tokens.device).expand(B, S)
-
-
 def forward(model, cfg: ModelConfig, tokens, media=None, routing=None):
     """Teacher-forcing forward -> logits (B,S,V); positions ``arange(S)``."""
     del media
-    positions = _positions(tokens)
+    positions = C.positions(tokens)
     x = C.embed_tokens(model.embed, cfg, tokens)
     for i, lp in enumerate(model.layers):
         h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
@@ -124,7 +118,7 @@ def prefill(model, cfg: ModelConfig, tokens, max_seq=None, media=None,
     them a second time, to the same bits)."""
     del media
     B, S = tokens.shape
-    positions = _positions(tokens)
+    positions = C.positions(tokens)
     cache = init_cache(cfg, B, max_seq or S, device=tokens.device)
     x = C.embed_tokens(model.embed, cfg, tokens)
     for i, lp in enumerate(model.layers):

@@ -653,6 +653,34 @@ def test_flash_tc_whisper_noncausal_equals_plain(dev, S, T, B):
                                **ops.tolerance("flash_tc", q.dtype, v))
 
 
+@pytest.mark.parametrize("T,causal", [(2048, True), (1601, False),
+                                      (65, False)],
+                         ids=["self", "cross", "cross-ragged-65"])
+def test_flash_tc_vlm_equals_plain(dev, T, causal):
+    """K5 at llama-3.2-vision's prefill shapes cut to batch 1, bf16, GQA
+    with 64 query heads over 8 kv heads of 128 (query head h reads kv head
+    h // 8): its self layers' causal 2048 x 2048, its cross layers'
+    non-causal 2048 queries against the 1601 media keys (12 key tiles of
+    128 and a ragged one of 65, which TMA's box runs past), and a
+    non-causal T of 65 alone (one ragged key tile).  The tensor-core
+    kernel, within its tolerance of the plain version."""
+    from repro_torch.kernels.flash_attention import ops
+
+    g = torch.Generator(dev).manual_seed(T + causal)
+    q = torch.randn((1, 2048, 64, 128), generator=g, device=dev).to(
+        torch.bfloat16)
+    k, v = (torch.randn((1, T, 8, 128), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    by0 = ops.flash_attention.variant_launches["flash_tc"]
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.variant_launches["flash_tc"] == by0 + 1
+    want = ops.flash_attention_ref(q, k, v, causal=causal)
+    assert got.shape == want.shape == (1, 2048, 64, 128)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **ops.tolerance("flash_tc", q.dtype, v))
+
+
 # K5 at deepseek-v2's MLA head dims: q and k 192 wide, v 128 wide
 @pytest.mark.parametrize("B,H,K,S,T,causal,window", [
     (1, 4, 4, 256, 256, True, 0),       # a kv head a query head, as MLA
@@ -1325,7 +1353,7 @@ def test_a_capture_that_fails_raises(dev, monkeypatch):
 
 SERVED = ("qwen2_1_5b", "qwen3_8b", "gemma3_12b", "mistral_nemo_12b",
           "granite_moe_3b", "rwkv6_3b", "deepseek_v2_236b", "hymba_1_5b",
-          "whisper_large_v3")
+          "whisper_large_v3", "llama32_vision_90b")
 
 
 def _mla_card_config(**kw):
@@ -1339,12 +1367,27 @@ def _mla_card_config(**kw):
                                v_head_dim=128, **kw)
 
 
+def _vlm_card_config(**kw):
+    """llama-vision-smoke's narrow model (E 64, 12 media tokens) cut to 2
+    groups, with llama-3.2-vision's head dim 128 and its 8:1 GQA (8 query
+    heads, 1 kv head): K5's (128, 128) tensor-core instance (the smoke
+    config's D 16 goes to ``flash.cu``)."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("llama32_vision_90b", smoke=True),
+                               n_layers=10, n_heads=8, n_kv_heads=1,
+                               head_dim=128, **kw)
+
+
 def _served(arch):
-    """The smoke config a card test serves: deepseek's with K5's dims."""
+    """The smoke config a card test serves: deepseek's and the VLM's with
+    K5's dims."""
     from repro_torch.configs import get_config
 
     if arch == "deepseek_v2_236b":
         return _mla_card_config()
+    if arch == "llama32_vision_90b":
+        return _vlm_card_config()
     return get_config(arch, smoke=True)
 
 
@@ -1428,6 +1471,76 @@ def test_mla_model_on_card_equals_cpu(dev, monkeypatch):
     for name in ("ckv", "krope"):
         assert _rel_l2(card[0][name][0], cpu16[0][name][0]) \
             <= MLA_CARD_FIRST_LAYER_REL_L2, name
+
+
+#: the VLM card config on the card against the CPU, bf16 compute: relative
+#: L2 of what lies before any attention (group 0's first self layer's k/v)
+#: or depends on the media alone (group 0's xk/xv)
+VLM_CARD_FIRST_REL_L2 = 2 ** -7
+
+
+def test_vlm_on_card_equals_cpu(dev, monkeypatch):
+    """The VLM card config (2 groups, head dim 128) with the same bf16
+    weights and non-zero gates, its prefill on the card in bf16 compute and
+    on the CPU: K5 launched on the tensor-core kernel once a self layer,
+    causal at (S, S), and once a cross layer, non-causal at (S, M), each
+    launch within ``ops.tolerance`` of the plain version on its own inputs;
+    group 0's first self layer's k/v and its xk/xv within the relative L2
+    above of the CPU's; the logits finite."""
+    import collections
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import vlm
+    from repro_torch.models.common import load_reference_params
+    from repro_torch.launch.serve import make_media
+    from repro_torch.nn import layers
+    from repro_torch.nn.param import init_params
+
+    cfg = _vlm_card_config(param_dtype="bfloat16")
+    tree = init_params(vlm.template(cfg), torch.Generator().manual_seed(0),
+                       dtype=torch.bfloat16)
+    for name in ("gate_attn", "gate_ffn"):
+        tree["groups"]["cross"][name].fill_(0.5)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40)), dtype=torch.int32)
+    calls, shadow = collections.Counter(), []
+
+    class Shadow:
+        @staticmethod
+        def flash_attention(q, k, v, causal=True, window=0):
+            out = ops.flash_attention(q, k, v, causal=causal, window=window)
+            if q.is_cuda:
+                calls[causal, q.shape[1], k.shape[1]] += 1
+                want = ops.flash_attention_ref(q, k, v, causal=causal,
+                                               window=window)
+                shadow.append(bool(torch.isclose(
+                    out.float(), want.float(),
+                    **ops.tolerance("flash_tc", q.dtype, v)).all()))
+            return out
+
+    monkeypatch.setattr(layers, "_k5", Shadow)
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        model = load_reference_params(vlm.build(cfg, device=device), tree)
+        by0 = ops.flash_attention.variant_launches["flash_tc"]
+        logits, cache = vlm.prefill(model, cfg, toks.to(device), max_seq=44,
+                                    media=make_media(cfg, 2, device))
+        out[device.type] = (logits.float().cpu(),
+                            {k: c.float().cpu() for k, c in cache.items()},
+                            ops.flash_attention.variant_launches["flash_tc"]
+                            - by0)
+    M = cfg.n_media_tokens
+    assert out["cuda"][2] == 10 and out["cpu"][2] == 0
+    assert calls == {(True, 40, 40): 8, (False, 40, M): 2}
+    assert shadow == [True] * 10
+    assert torch.isfinite(out["cuda"][0]).all()
+    card, cpu = out["cuda"][1], out["cpu"][1]
+    for name in ("k", "v"):
+        assert _rel_l2(card[name][0, 0], cpu[name][0, 0]) \
+            <= VLM_CARD_FIRST_REL_L2, name
+    for name in ("xk", "xv"):
+        assert _rel_l2(card[name][0], cpu[name][0]) \
+            <= VLM_CARD_FIRST_REL_L2, name
 
 
 @pytest.mark.parametrize("temperature", [0.0, 0.8])

@@ -241,40 +241,30 @@ MLA_DIMS = dict(use_mla=True, q_lora_rank=0, kv_lora_rank=16, qk_nope_dim=16,
                 qk_rope_dim=8, v_head_dim=16)
 
 
-@pytest.mark.parametrize("make,what", [
-    (lambda: "hymba-1.5b", None),
-    (lambda: "whisper-large-v3", None),
-    (lambda: "llama-3.2-vision-90b", "'vlm'"),
-], ids=["hymba", "whisper", "llama-vision"])
-def test_unported_families_raise(make, what):
-    """The family not ported yet (VLM) raises NotImplementedError naming
-    ROADMAP.md, from the registry and from ``serve``.  The hybrid and
-    enc-dec families are ported: hymba and whisper resolve to the port's
-    ``hymba`` and ``encdec`` modules and their smoke configs serve on the
-    CPU, no kernel launched."""
+@pytest.mark.parametrize("name", ["hymba-1.5b", "whisper-large-v3",
+                                  "llama-3.2-vision-90b"],
+                         ids=["hymba", "whisper", "llama-vision"])
+def test_unported_families_raise(name):
+    """No family raises any more (the name is the test's history: it held
+    the refusals while families were left to port).  The families ported
+    last, the hybrid, enc-dec and VLM families: hymba, whisper and
+    llama-3.2-vision resolve to the port's ``hymba``, ``encdec`` and
+    ``vlm`` modules, from the full config and the smoke config, and their
+    smoke configs serve on the CPU, no kernel launched."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
-    from repro_torch.models import encdec, hymba
+    from repro_torch.models import encdec, hymba, vlm
     from repro_torch.models.common import get_family
 
-    name = make()
     cfg = get_config(name, smoke=True)
-    if what is None:
-        mod = {"hybrid": hymba, "encdec": encdec}[cfg.family]
-        assert get_family(get_config(name)) is mod
-        assert get_family(cfg) is mod
-        out = serve.serve(name, device="cpu", batch=2, prompt_len=8, gen=4)
-        assert out["tokens"].shape == (2, 4)
-        assert ((out["tokens"] >= 0) & (out["tokens"] < cfg.vocab_size)).all()
-        assert not any(n for phase in out["launches"].values()
-                       for n in phase.values())
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.serve(name, device="cpu")
-    with pytest.raises(NotImplementedError, match=what):
-        get_family(cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        get_family(cfg)
+    mod = {"hybrid": hymba, "encdec": encdec, "vlm": vlm}[cfg.family]
+    assert get_family(get_config(name)) is mod
+    assert get_family(cfg) is mod
+    out = serve.serve(name, device="cpu", batch=2, prompt_len=8, gen=4)
+    assert out["tokens"].shape == (2, 4)
+    assert ((out["tokens"] >= 0) & (out["tokens"] < cfg.vocab_size)).all()
+    assert not any(n for phase in out["launches"].values()
+                   for n in phase.values())
 
 
 @pytest.mark.parametrize("make", [
@@ -310,10 +300,11 @@ def test_mla_configs_build_and_serve(make):
 
 def test_ported_families_resolve():
     from repro_torch.configs import get_config
-    from repro_torch.models import hymba, lm, rwkv
+    from repro_torch.models import hymba, lm, rwkv, vlm
     from repro_torch.models.common import get_family
 
     assert get_family(get_config("hymba-1.5b")) is hymba
+    assert get_family(get_config("llama-3.2-vision-90b")) is vlm
     for arch in ("qwen2-1.5b", "qwen3-8b", "gemma3-12b", "mistral-nemo-12b",
                  "granite-moe-3b-a800m"):
         assert get_family(get_config(arch)) is lm
