@@ -170,7 +170,30 @@ kernel from the sources in the checkout (nvcc into ``build/``).  Phases:
    epoch.  The pooled rPS-DSF fleet fill on two shards equals K3's
    one-launch fill.  With two cards or more, K = 2 also runs on two cards
    (eagerly); otherwise the phase says it did not.  The mesh launches no
-   kernel (counted from zero around each run).
+   kernel (counted from zero around each run);
+9. train: K5's backward kernel (``flash_bwd.cu``) against its plain
+   version on the card at qwen2-1.5b's training shape, (2, 4096, 12, 128)
+   against (2, 4096, 2, 128) bf16 causal, and windowed, non-causal (S !=
+   T), MLA's (192, 128), f32 D-16 and ragged causal S != T cases, each
+   gradient within ``ops.bwd_tolerance`` (relative L2) and two runs the
+   same bits; at the training shape timed beside its bound, its plain
+   version and ``scaled_dot_product_attention``'s backward.  The first
+   micro-batch's gradients on K5's kernels: at full depth in bf16 against
+   the forward kernel with the plain backward (the same loss bits, each
+   layer's gradient within the backward's tolerance), and on the config
+   cut to two layers in f32 against the plain versions (printed: the
+   kernels against the plain versions in bf16).  Then the training entry
+   point, ``repro_torch.launch.train.train``, on qwen2-1.5b at full width
+   and depth (28 layers, f32 master weights and AdamW moments, bf16
+   compute, remat "full"), cut from train_4k's global batch of 256 to 8
+   sequences of 4096 tokens in 4 micro-batches, for 5 steps: every loss
+   and grad norm finite, K5 launched 28 x 4 x 2 times forward (remat runs
+   each layer's forward twice) and 28 x 4 backward a step, peak memory
+   under 80 GB; one more step under torch.profiler moves the weights
+   beyond weight decay (an Adam step of at least 0.1 somewhere in the
+   embedding and the first and last layers); printed: ms a step,
+   tokens/s, the model-FLOP share, the loss trajectory and the profiled
+   step's busy share.
 
 Outside the chaos serve the allocator fault counters must be zero.
 Launches are counted per path, from zero just before it to just after it:
@@ -180,7 +203,7 @@ graph's launches to the counters, a capture adds none),
 K4 over the fleet serve on the per-grant backend, K5 (qwen2-1.5b,
 granite-moe-3b-a800m, deepseek-v2-236b, hymba-1.5b, whisper-large-v3 and
 llama-3.2-vision-90b) and K6 (rwkv6-3b) over the prefills of their model
-serves, K3 over each
+serves, K5's backward over the training steps, K3 over each
 pooled fill (once a fill,
 the K3 row's ``fill_launches`` in the JSON); each must have launched.  The
 last lines are the kernels JSON, the ``nvidia-smi`` name and power limit,
@@ -191,6 +214,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
 import gc
 import json
 import re
@@ -2810,6 +2834,419 @@ def models_phase(dev, seed):
     return rows, launches
 
 
+# -- phase 9: training ----------------------------------------------------
+
+TRAIN_ARCH = "qwen2-1.5b"
+#: the one cut of train_4k (seq 4096, global batch 256): batch 8, as 4
+#: micro-batches of 2, for 5 steps
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS = 8, 4096, 4, 5
+#: relative L2 of the first micro-batch's gradients (the embedding, layers
+#: 0 and 1) on K5's kernels against K5's plain versions in f32 compute, two
+#: layers at full width (see train_grad_check): f32 sums in other orders
+TRAIN_GRAD_TOL_F32 = 1e-3
+#: relative L2, each layer's, of the first micro-batch's bf16 gradients at
+#: full depth on K5's backward kernel against its plain backward (one
+#: forward): once two bf16 backwards round one element apart they part to
+#: the level of bf16 rounding carried through the layers below, measured
+#: 2.6e-4 at layer 27 (where the backward starts) and 1.5e-2 to 3.1e-2
+#: from layer 20 down; a zero or dropped gradient reads 1.0
+TRAIN_GRAD_TOL_BF16_DEEP = 0.1
+#: K5's backward against its plain version: name, q, k/v, DV, type,
+#: causal, window
+K5_BWD_CASES = (
+    ("train", (2, 4096, 12, 128), (2, 4096, 2, 128), 128, "bfloat16", True,
+     0),
+    ("window", (2, 1500, 8, 64), (2, 1500, 2, 64), 64, "bfloat16", True, 256),
+    ("noncausal", (2, 224, 20, 64), (2, 1500, 20, 64), 64, "bfloat16", False,
+     0),
+    ("mla", (1, 1000, 16, 192), (1, 1000, 16, 192), 128, "bfloat16", True, 0),
+    ("f32_d16", (2, 257, 4, 16), (2, 257, 2, 16), 16, "float32", True, 0),
+    ("ragged", (1, 333, 6, 128), (1, 517, 2, 128), 128, "float16", True, 0),
+)
+
+
+class SeamK5:
+    """K5 through the ``layers._k5`` seam as an autograd Function of a
+    chosen forward and backward: ``forward(q, k, v, causal, window)`` and
+    ``backward(q, k, v, out, dout, causal=, window=)``."""
+
+    def __init__(self, forward, backward):
+        self.forward, self.backward = forward, backward
+
+    def flash_attention(self, q, k, v, causal=True, window=0):
+        import torch
+
+        seam = self
+
+        class Fn(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, q, k, v):
+                out = seam.forward(q, k, v, causal, window)
+                ctx.save_for_backward(q, k, v, out)
+                return out
+
+            @staticmethod
+            def backward(ctx, dout):
+                return seam.backward(*ctx.saved_tensors, dout.contiguous(),
+                                     causal=causal, window=window)
+        return Fn.apply(q, k, v)
+
+
+def k5_seams():
+    """-> {"plain": K5's plain versions, forward (``ref.flash_attention_ref``)
+    and backward (``ref.flash_attention_bwd_ref``); "mixed": the forward
+    kernel (its launch, as ``ops`` dispatches it) with the plain
+    backward}."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    def plain_fwd(q, k, v, causal, window):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return {"plain": SeamK5(plain_fwd, ref.flash_attention_bwd_ref),
+            "mixed": SeamK5(ops._forward, ref.flash_attention_bwd_ref)}
+
+
+def bwd_bound(q, k, v, causal, window):
+    """-> (ms, what bounds it) of K5's backward on these inputs: q, k, v,
+    the output and its gradient read once, dq, dk, dv written once; five
+    products over the visible (query, key) pairs (s = q k^T, dP = dO v^T,
+    dV, dQ, dK), 2·B·H·pairs·(3D + 2DV) operations, at the inputs' type's
+    peak (bf16 / f16 tensor cores, f32 CUDA cores)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+
+    B, S, H, D = q.shape
+    T, K, DV = k.shape[1], k.shape[2], v.shape[-1]
+    pairs = int(attention_mask(S, T, causal, window, "cpu").sum())
+    nbytes = (B * S * H * (2 * D + 2 * DV) + 2 * B * T * K * (D + DV)) \
+        * q.element_size()
+    ops = 2 * B * H * pairs * (3 * D + 2 * DV)
+    peak = F32_OPS_PER_S if q.dtype == torch.float32 else BF16_OPS_PER_S
+    times = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": ops / peak}
+    what = max(times, key=times.get)
+    return times[what] * 1e3, what
+
+
+def k5_bwd_checks(dev):
+    """K5's backward kernel against its plain version on the card at
+    :data:`K5_BWD_CASES` (the forward on the kernel), each gradient within
+    ``ops.bwd_tolerance`` (relative L2), and two runs the same bits; at the
+    training shape timed beside its bound, its plain version and
+    ``scaled_dot_product_attention``'s backward (a yardstick only).  ->
+    the kernels row."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as k5
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+
+    gen = torch.Generator(dev).manual_seed(7)
+    row = {}
+    for name, qs, ks, DV, dt, causal, window in K5_BWD_CASES:
+        dt = getattr(torch, dt)
+        q = torch.randn(qs, generator=gen, device=dev).to(dt)
+        k = torch.randn(ks, generator=gen, device=dev).to(dt)
+        v = torch.randn((*ks[:3], DV), generator=gen, device=dev).to(dt)
+        with torch.no_grad():
+            out = k5.flash_attention(q, k, v, causal=causal, window=window)
+        dout = torch.randn(out.shape, generator=gen, device=dev).to(dt)
+        args = (q, k, v, out, dout)
+        kw = dict(causal=causal, window=window)
+        got = k5.flash_attention_bwd(*args, **kw)
+        again = k5.flash_attention_bwd(*args, **kw)
+        torch.cuda.synchronize()
+        want = flash_attention_bwd_ref(*args, **kw)
+        tol = k5.bwd_tolerance(dt)
+        errs = [_rel_l2(g, w) for g, w in zip(got, want)]
+        err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+        log(f"K5 backward {name}: q {qs} k/v {ks} DV {DV} {dt} causal "
+            f"{causal} window {window}: dq/dk/dv relative L2 "
+            + "/".join(f"{e:.3e}" for e in errs)
+            + f" (gate {tol:.3e}), max abs {err:.3e}")
+        check(all(e <= tol for e in errs),
+              f"K5 backward {name} differs from its plain version: {errs}")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K5 backward {name}: two runs differ")
+        if name != "train":
+            continue
+        ms = cuda_ms(lambda: k5.flash_attention_bwd(*args, **kw), 5)
+        plain = cuda_ms(lambda: flash_attention_bwd_ref(*args, **kw), 3)
+        bound, by = bwd_bound(q, k, v, causal, window)
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                      for x in (q, k, v))
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True)
+        gt = dout.transpose(1, 2).contiguous()
+        lib = cuda_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), gt,
+                                                  retain_graph=True), 5)
+        log(f"K5 backward at the training shape: {ms:.4f} ms a launch, "
+            f"bound {bound:.4f} ms ({by}; {bound / ms:.1%} of it), plain "
+            f"version {plain:.4f} ms, SDPA's backward (is_causal, "
+            f"enable_gqa; {sdpa_backend(qt.detach(), kt.detach(), vt.detach(), gqa=True)}) "
+            f"{lib:.4f} ms")
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                   bound_by=by, library_ms=lib)
+    return row
+
+
+def first_grads(model, cfg, tokens, labels, seam):
+    """-> (loss, {parameter name: gradient}) of one micro-batch with K5
+    through ``seam``; every gradient present and finite."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.models import common as C
+    from repro_torch.models import lm
+    from repro_torch.nn import layers
+
+    for p in model.parameters():
+        p.grad = None
+    with mock.patch.object(layers, "_k5", seam):
+        loss = C.lm_loss(lm.forward(model, cfg, tokens), labels)
+        loss.backward()
+    missing = [n for n, p in model.named_parameters()
+               if p.grad is None or not torch.isfinite(p.grad).all()]
+    check(not missing, f"train ({cfg.compute_dtype}): parameters without a "
+          f"finite gradient: {missing[:5]} ({len(missing)})")
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    return float(loss.detach()), grads
+
+
+def rel_by_layer(got, want) -> dict:
+    """Relative L2 of two gradient dicts, by layer ("embed", "0", ...), in
+    f64."""
+    sums = {}
+    for n in want:
+        where = n.split(".")[1] if n.startswith("layers.") else "embed"
+        a, b = sums.get(where, (0.0, 0.0))
+        sums[where] = (
+            a + float((got[n].double() - want[n].double()).square().sum()),
+            b + float(want[n].double().square().sum()))
+    return {w: (a / max(b, 1e-300)) ** 0.5 for w, (a, b) in sums.items()}
+
+
+def train_grad_check(dev, cfg, tokens, labels):
+    """The first micro-batch's gradients (the f32 parameters', relative L2
+    by layer) on K5's kernels (forward and backward) against the seams of
+    :func:`k5_seams`, from one set of weights a config.
+
+    Gated in the training type, bf16: the kernels against the forward
+    kernel with the plain backward ("mixed").  Their forwards are the same
+    launches, so the losses must be the same bits and the gradients differ
+    only by the backward's rounding, carried back through the layers: on
+    the config cut to two layers at full width each layer's within
+    ``ops.bwd_tolerance`` of bf16, the backward kernel's own; at full depth
+    within :data:`TRAIN_GRAD_TOL_BF16_DEEP`.  A zero or dropped gradient
+    reads 1.0 and fails both.  Gated in f32 compute, on the two layers
+    (``flash.cu`` forward, the backward's f32 instance): the embedding's
+    and layers 0-1's gradients on the kernels within
+    :data:`TRAIN_GRAD_TOL_F32` of the plain versions'.  Printed, not
+    gated: the kernels against the plain versions in bf16, at full depth
+    and at two layers, and the two layers' bf16 gradients against the f32
+    plain ones.  There the forwards round apart, and under the reference's
+    init a one-ulp difference grows about 10x a layer, so two bf16 runs
+    differ by O(1): the JAX package's own bf16 gradient at two layers lies
+    1.39-1.67 from its f32 one, and the port's on the CPU 1.21-1.47 from
+    its own and 0.87-1.24 from the JAX package's bf16 one
+    (``tests/_torch_bf16_witness.py``)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as k5
+    from repro_torch.models import common as C
+    from repro_torch.models import lm
+    from repro_torch.nn import layers
+
+    seams = {"kernel": layers._k5, **k5_seams()}
+    tol = k5.bwd_tolerance(torch.bfloat16)
+    cut = dataclasses.replace(cfg, n_layers=2)
+    cut32 = dataclasses.replace(cut, compute_dtype="float32")
+    for c, names in ((cfg, ("kernel", "mixed", "plain")),
+                     (cut, ("kernel", "mixed", "plain")),
+                     (cut32, ("kernel", "plain"))):
+        model = C.init_model(lm, c, torch.Generator(dev).manual_seed(0))
+        model.requires_grad_(True)
+        runs = {k: first_grads(model, c, tokens, labels, seams[k])
+                for k in names}
+        where = ["embed", *map(str, range(c.n_layers))]
+        rels = {k: rel_by_layer(runs["kernel"][1], runs[k][1])
+                for k in names[1:]}
+        for k, rel in rels.items():
+            log(f"train, {c.n_layers} layers, {c.compute_dtype}: first "
+                f"micro-batch loss {runs['kernel'][0]:.6f} on the kernels, "
+                f"{runs[k][0]:.6f} on the {k} seam; gradient relative L2 "
+                f"by layer: " + ", ".join(f"{w} {rel[w]:.3e}" for w in where))
+        if c is cfg:
+            norm = sum(float(g.double().square().sum())
+                       for g in runs["kernel"][1].values()) ** 0.5
+            log(f"train, {c.n_layers} layers: the first micro-batch's "
+                f"gradient norm (f64) {norm:.4e}")
+        if c is not cut32:
+            limit = tol if c is cut else TRAIN_GRAD_TOL_BF16_DEEP
+            check(runs["kernel"][0] == runs["mixed"][0], "train (bf16): the "
+                  "forward kernel gives other losses under the two seams")
+            bad = {w: r for w, r in rels["mixed"].items() if not r <= limit}
+            check(not bad, f"train (bf16, {c.n_layers} layers): gradients on "
+                  f"K5's backward kernel differ from those on its plain "
+                  f"version by more than {limit:.3e}: {bad}")
+        if c is cut:
+            bf16 = {k: runs[k][1] for k in ("kernel", "plain")}
+        elif c is cut32:
+            check(all(rels["plain"][w] <= TRAIN_GRAD_TOL_F32 for w in where),
+                  f"train (f32): gradients differ from the plain versions' "
+                  f"by more than {TRAIN_GRAD_TOL_F32}: {rels['plain']}")
+            truth = runs["plain"][1]
+            kern = rel_by_layer(bf16["kernel"], truth)
+            plain = rel_by_layer(bf16["plain"], truth)
+            log("train, 2 layers, bf16 against the f32 plain gradient: "
+                + ", ".join(f"{w} kernels {kern[w]:.3e}, plain versions "
+                            f"{plain[w]:.3e}" for w in where))
+            del bf16, truth
+        del model, runs
+        torch.cuda.empty_cache()
+
+
+def adam_steps(metrics, opt, after, before):
+    """Gate one train step's update beyond weight decay: AdamW sets ``p -=
+    lr * (a + weight_decay * p)``, so each parameter's Adam step ``a`` is
+    ``(before - after) / lr - weight_decay * before`` (in f64).  A step
+    that applies weight decay alone (a clip scale of 0) leaves ``a`` at
+    f32 rounding, about 1e-5 here; an Adam step on a real gradient moves
+    the elements whose clipped gradient passes ``eps`` by up to about 1.
+    Printed by leaf group (the embedding, the first and the last layer):
+    the largest and the root mean square |a|; gated: the largest of all at
+    least 0.1, and every one finite."""
+    lr, wd = metrics["lr"], opt.weight_decay
+    check(lr > 0 and np.isfinite(metrics["grad_norm"]),
+          f"train: the profiled step's metrics {metrics}")
+    groups = {}
+    for path, p in after.items():
+        a = ((before[path].double() - p.detach().double()) / lr
+             - wd * before[path].double())
+        where = f"layer {path[-1]}" if path[0] == "layers" else "embed"
+        g = groups.setdefault(where, [0.0, 0.0, 0])
+        g[0] = max(g[0], float(a.abs().max()))
+        g[1] += float(a.square().sum())
+        g[2] += a.numel()
+    log(f"train, the profiled step (lr {lr:.3e}, grad norm "
+        f"{metrics['grad_norm']:.4e}): Adam's step |a| beyond weight decay, "
+        + "; ".join(f"{w} max {m:.3e} rms {(sq / n) ** 0.5:.3e}"
+                    for w, (m, sq, n) in groups.items()))
+    top = max(m for m, _, _ in groups.values())
+    check(np.isfinite(top) and top >= 0.1, f"train: the profiled step moved "
+          f"no weight beyond weight decay (largest Adam step {top:.3e})")
+
+
+def train_phase(dev, seed):
+    """K5's backward checked and timed (:func:`k5_bwd_checks`), then the
+    training entry point ``repro_torch.launch.train.train`` on qwen2-1.5b at
+    full width and depth (f32 master weights and moments, bf16 compute,
+    remat "full"): the first micro-batch's gradients
+    (:func:`train_grad_check`), :data:`TRAIN_STEPS` steps of
+    :data:`TRAIN_BATCH` x :data:`TRAIN_SEQ` tokens in
+    :data:`TRAIN_ACCUM` micro-batches with K5's launches counted and gated
+    (forward twice a layer and micro-batch under remat, backward once) and
+    every loss and grad norm finite, one more step under torch.profiler
+    for the busy share and its update (:func:`adam_steps`); printed: ms a
+    step, tokens/s, the model-FLOP share, the loss trajectory and peak
+    memory.
+    -> (kernels row, K5 backward launches)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, HostDataLoader
+    from repro_torch.kernels.flash_attention import ops as k5
+    from repro_torch.launch import train as T
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.steps import TrainConfig, make_train_step
+    from repro_torch.tree import leaves_with_paths
+
+    row = k5_bwd_checks(dev)
+    cfg = get_config(TRAIN_ARCH)
+    check(cfg.remat == "full" and cfg.param_dtype == "float32"
+          and cfg.compute_dtype == "bfloat16", f"train config {cfg}")
+    loader = HostDataLoader(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=TRAIN_SEQ,
+                                       global_batch=TRAIN_BATCH))
+    first = next(loader)
+    mb = TRAIN_BATCH // TRAIN_ACCUM
+    t0 = time.perf_counter()
+    train_grad_check(dev, cfg, *(torch.as_tensor(first[k][:mb], device=dev)
+                                 for k in ("tokens", "labels")))
+    log(f"train: gradient checks {time.perf_counter() - t0:.1f} s")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    k5.flash_attention.launches = k5.flash_attention.bwd_launches = 0
+    t0 = time.perf_counter()
+    r = T.train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                log_every=1, device="cuda", accum_steps=TRAIN_ACCUM)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = k5.flash_attention.launches, k5.flash_attention.bwd_launches
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    want = cfg.n_layers * TRAIN_ACCUM * TRAIN_STEPS
+    log(f"train {cfg.name}: {TRAIN_STEPS} steps in {wall:.1f} s (model "
+        f"init included); K5 launches forward {fwd} (expected {2 * want}: "
+        f"remat runs each layer's forward twice), backward {bwd} (expected "
+        f"{want}); peak memory {peak:.3f} GB")
+    check(fwd == 2 * want and bwd == want,
+          f"train: K5 launches forward {fwd}, backward {bwd}")
+    check(all(np.isfinite(r["losses"])), f"train: losses {r['losses']}")
+    check(all(np.isfinite(r["grad_norms"])),
+          f"train: grad norms {r['grad_norms']}")
+    check(peak < 80.0, f"train: peak memory {peak:.3f} GB")
+    state = r["state"]
+    n_params = sum(p.numel() for p in state["model"].parameters())
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    H, D = cfg.n_heads, cfg.head_dim
+    attn = 3 * (TRAIN_BATCH * H * TRAIN_SEQ * TRAIN_SEQ * 2 * D) \
+        * cfg.n_layers
+    flops = 6 * n_params * tokens + attn
+    for i, (loss, s) in enumerate(zip(r["losses"], r["step_s"])):
+        log(f"train step {i}: loss {loss:.6f}, gnorm "
+            f"{r['grad_norms'][i]:.4f}, lr {r['lrs'][i]:.3e}, {s * 1e3:.1f} "
+            f"ms, {tokens / s:.0f} tokens/s, model-FLOP share "
+            f"{flops / s / BF16_OPS_PER_S:.2%}")
+
+    # one more step under the profiler: the device's busy share, and the
+    # update beyond weight decay of the embedding and the first and last
+    # layers
+    opt = AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=TRAIN_STEPS)
+    step = make_train_step(cfg, TrainConfig(accum_steps=TRAIN_ACCUM, opt=opt))
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in next(loader).items()}
+    wall = {}
+    watched = {path: p for path, p in leaves_with_paths(state["params"])
+               if path[0] != "layers" or path[-1] in (0, cfg.n_layers - 1)}
+    before = {path: p.detach().clone() for path, p in watched.items()}
+
+    def one():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        wall["metrics"] = {k: float(v) for k, v in step(state, batch).items()}
+        wall["s"] = time.perf_counter() - t
+    times, why = device_times(one)
+    adam_steps(wall["metrics"], opt, watched, before)
+    del watched, before
+    if times:
+        busy = sum(times.values()) / 1e6
+        top = sorted(times.items(), key=lambda kv: -kv[1])[:4]
+        log(f"train step under torch.profiler: {wall['s'] * 1e3:.1f} ms, "
+            f"device busy {busy * 1e3:.1f} ms ({busy / wall['s']:.2%}); "
+            f"top kernels " + "; ".join(f"{k[:60]} {v / 1e3:.1f} ms"
+                                        for k, v in top))
+    else:
+        log(f"train step busy share not measured: {why}")
+    log(f"train: {n_params} parameters, {6 * n_params * tokens / 1e12:.1f} "
+        f"TFLOP (6·N·tokens) + {attn / 1e12:.1f} TFLOP of attention a step")
+    del state, r
+    torch.cuda.empty_cache()
+    return row, bwd
+
+
 # -- phase 7: progressive filling, the paper's Section 2 --------------------
 
 FILL_TRIALS = 200           # paper_tables' trials a stochastic scheduler
@@ -3099,10 +3536,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="kernels,allocator,des,serve,gang,models,fill,"
-                    "mesh",
+                    "mesh,train",
                     help="comma list of kernels, allocator, des, serve, gang, "
-                    "models, fill, mesh, and chunks (a sweep of the epoch "
-                    "loop's chunk size; not a default phase)")
+                    "models, fill, mesh, train, and chunks (a sweep of the "
+                    "epoch loop's chunk size; not a default phase)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -3125,7 +3562,8 @@ def main(argv=None):
     card = nvidia_smi()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    sources = [tiles.SOURCE, k3.SOURCE, *k5.SOURCES.values(), k6.SOURCE]
+    sources = [tiles.SOURCE, k3.SOURCE, *k5.SOURCES.values(),
+               k5.BWD_SOURCE, k6.SOURCE]
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc each
         builds = [pool.submit(_build.build, src) for src in sources]
         for b in builds:
@@ -3134,6 +3572,7 @@ def main(argv=None):
     k3.library()
     for name in k5.SOURCES:
         k5.library(name)
+    k5.bwd_library()
     k6.library()
     log(f"built {', '.join(src.name for src in sources)} in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -3187,6 +3626,15 @@ def main(argv=None):
               "persistent_epoch")
     if "mesh" in phases:
         mesh_phase(dev, agents, fws, args.seed)
+    if "train" in phases:
+        t0 = time.perf_counter()
+        rows["flash_attention_bwd"], launches["flash_attention_bwd"] = (
+            train_phase(dev, args.seed))
+        log(f"launches (K5's backward over the {TRAIN_ARCH} training "
+            f"steps): {launches['flash_attention_bwd']}; train phase "
+            f"{time.perf_counter() - t0:.1f} s")
+        check(launches["flash_attention_bwd"] > 0, "the train path never "
+              "launched flash_attention_bwd")
     meta = {
         "masked_argmin1d": dict(
             route="cuda",
@@ -3212,6 +3660,13 @@ def main(argv=None):
             route="cuda",
             source="src/repro_torch/kernels/rwkv6/csrc/wkv6.cu",
             replaces="src/repro/kernels/rwkv6/kernel.py:67"),
+        # no Pallas counterpart: the reference differentiates the XLA twin
+        # of its flash kernel
+        "flash_attention_bwd": dict(
+            route="cuda",
+            source="src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_bwd.cu",
+            replaces="src/repro/nn/layers.py:104"),
     }
     log(f"chip_smoke phases {','.join(sorted(phases))}: "
         f"{time.perf_counter() - t_start:.1f} s, the builds included")

@@ -22,6 +22,16 @@ No call gives way from one kernel to the other, or to the plain version.
 ``flash_attention.variant_launches`` counts them by variant.
 :func:`tolerance` states how far each variant may lie from the plain
 version.
+
+Under autograd (grad enabled and an input that requires grad) the call is
+a :class:`torch.autograd.Function` whose forward is the same dispatch and
+whose backward is :func:`flash_attention_bwd`: on CUDA the hand-written
+``csrc/flash_bwd.cu`` (dq, dk and dv for every case the forward takes,
+f32 sums on the CUDA cores, two launches a call and no atomics), on the
+CPU its plain version :func:`.ref.flash_attention_bwd_ref`.
+``flash_attention.bwd_launches`` counts backward calls on the card;
+:func:`bwd_tolerance` states how far the kernel's gradients may lie from
+the plain version's.
 """
 from __future__ import annotations
 
@@ -33,7 +43,8 @@ import torch
 
 from repro_torch import _build
 from repro_torch.kernels import KernelError
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                    flash_attention_ref)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"flash_tc": CSRC / "flash_tc.cu", "flash": CSRC / "flash.cu"}
@@ -46,6 +57,9 @@ TC_HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
 
 #: unit roundoff of the type P is rounded to before the tensor cores' PV
 UNIT_ROUNDOFF = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
+BWD_SOURCE = CSRC / "flash_bwd.cu"
+#: the backward kernel's (q/k, v) head dims, in each of the three types
+BWD_HEAD_DIMS = tuple((D, D) for D in HEAD_DIMS) + ((192, 128),)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -111,17 +125,136 @@ def library(variant_name: str = "flash_tc") -> ctypes.CDLL:
     return lib
 
 
+def bwd_tolerance(dtype: torch.dtype) -> float:
+    """The relative L2 distance (``||a - b|| / ||b||``, each of dq, dk and
+    dv) within which ``csrc/flash_bwd.cu`` equals
+    :func:`.ref.flash_attention_bwd_ref` on the same inputs.
+
+    Both compute every product and sum in f32 from the same inputs and the
+    same forward output, and differ only in the order of their sums; then
+    each rounds its gradients to the inputs' type.  A rounding to nearest
+    moves an element by at most u times its size (u = 2**-8 bf16, 2**-11
+    f16), and the two may round to neighbours on either side: 2u, 2**-7
+    for bf16 and 2**-10 for f16.  In f32 only the sums' orders differ: at
+    most about sqrt(n) u32 times a gradient's condition (the sum of its
+    terms' sizes over its size), 1e-4 for n up to 2**14 terms at a
+    condition up to 200 (u32 = 2**-24)."""
+    return {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7,
+            torch.float16: 2.0 ** -10}[dtype]
+
+
+def _forward(q, k, v, causal, window):
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    return launch(variant(q.dtype, q.shape[-1], v.shape[-1]), q, k, v,
+                  causal=causal, window=window)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K5 under autograd: the forward's dispatch, and the backward kernel
+    (its plain version on the CPU) for the gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out = _forward(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.mask = (causal, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        causal, window = ctx.mask
+        dout = dout.contiguous()         # autograd's layout, not the caller's
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, causal=causal,
+                                         window=window)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q: (B,S,H,D); k: (B,T,K,D) with H % K == 0; v: (B,T,K,DV) -> (B,S,H,DV)
     in q's type, the scores scaled by ``1/sqrt(D)``.  Positions are the
     indices: key t is visible to query s when ``t <= s`` (if causal) and
     ``s - t < window`` (if window > 0).  Any S and T; on CUDA, f32, bf16 or
     f16 with DV = D in (16, 32, 64, 128, 256), or bf16 / f16 at (D, DV) =
-    (192, 128), on the kernel that :func:`variant` names."""
+    (192, 128), on the kernel that :func:`variant` names.  Under autograd
+    the gradient of q, k and v comes from :func:`flash_attention_bwd`."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window)
+
+
+def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
+                        window: int = 0):
+    """The gradient of :func:`flash_attention` at ``(q, k, v)``, whose
+    output was ``out``, for the output's gradient ``dout`` -> (dq, dk, dv)
+    in the inputs' types.  CPU tensors: the plain version.  CUDA tensors:
+    ``csrc/flash_bwd.cu`` (f32, bf16 or f16 at (D, DV) in
+    :data:`BWD_HEAD_DIMS`), or :class:`KernelError`; nothing gives way to
+    the plain version."""
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
-    return launch(variant(q.dtype, q.shape[-1], v.shape[-1]), q, k, v,
-                  causal=causal, window=window)
+        return flash_attention_bwd_ref(q, k, v, out, dout, causal=causal,
+                                       window=window)
+    dev = q.device
+    ins = (q, k, v, out, dout)
+    if dev.type != "cuda" or any(t.device != dev for t in ins):
+        raise KernelError("flash_attention_bwd: q, k, v, out, dout must "
+                          "share one CUDA device (got "
+                          + ", ".join(str(t.device) for t in ins) + ")")
+    if q.dtype not in DTYPES or any(t.dtype != q.dtype for t in ins):
+        raise KernelError(f"flash_attention_bwd: needs one type among f32, "
+                          f"bf16, f16 (got {[str(t.dtype) for t in ins]})")
+    if any(t.dim() != 4 for t in ins) or v.shape[:3] != k.shape[:3]:
+        raise KernelError(f"flash_attention_bwd: needs q (B,S,H,D), k "
+                          f"(B,T,K,D), v (B,T,K,DV) (got "
+                          f"{[tuple(t.shape) for t in ins]})")
+    B, S, H, D = q.shape
+    T, K, DV = k.shape[1], k.shape[2], v.shape[3]
+    if (k.shape[0] != B or k.shape[3] != D or H % K or B * H > 65535
+            or out.shape != (B, S, H, DV) or dout.shape != out.shape):
+        raise KernelError(f"flash_attention_bwd: unsupported shapes "
+                          f"{[tuple(t.shape) for t in ins]} (H % K == 0, "
+                          f"B*H <= 65535, out and dout (B,S,H,DV))")
+    if (D, DV) not in BWD_HEAD_DIMS:
+        raise KernelError(f"flash_attention_bwd: (D, DV) = ({D}, {DV}) is "
+                          f"not among {BWD_HEAD_DIMS}")
+    if any(t.stride(3) != 1 for t in ins):
+        raise KernelError("flash_attention_bwd: the head dim must be "
+                          "contiguous")
+    dq = torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
+    dk = torch.empty((B, T, K, D), dtype=q.dtype, device=dev)
+    dv = torch.empty((B, T, K, DV), dtype=q.dtype, device=dev)
+    m, l, di = torch.empty((3, B, H, S), dtype=torch.float32, device=dev)
+    lib = bwd_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.flash_bwd_launch(
+            *(t.data_ptr() for t in (q, k, v, out, dout, dq, dk, dv, m, l,
+                                     di)),
+            DTYPES[q.dtype], B, H, K, S, T, D, DV,
+            *(t.stride(i) for t in ins for i in range(3)),
+            int(bool(causal)), int(window), 1.0 / math.sqrt(D), stream)
+    if rc != 0:
+        raise KernelError("flash_attention_bwd launch failed: "
+                          + lib.flash_bwd_error(rc).decode())
+    flash_attention.bwd_launches += 1
+    return dq, dk, dv
+
+
+def bwd_library() -> ctypes.CDLL:
+    """The built backward kernel (nvcc runs on the first call)."""
+    lib = _LIBS.get("flash_bwd")
+    if lib is None:
+        lib = _build.load(BWD_SOURCE)
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.flash_bwd_launch.argtypes = ([ptr] * 11 + [i32] * 8 + [i64] * 15
+                                         + [i32, i32, ctypes.c_float, ptr])
+        lib.flash_bwd_launch.restype = i32
+        lib.flash_bwd_error.argtypes = [i32]
+        lib.flash_bwd_error.restype = ctypes.c_char_p
+        _LIBS["flash_bwd"] = lib
+    return lib
 
 
 def launch(variant_name: str, q, k, v, *, causal: bool = True,
@@ -192,3 +325,4 @@ def launch(variant_name: str, q, k, v, *, causal: bool = True,
 
 flash_attention.launches = 0
 flash_attention.variant_launches = dict.fromkeys(SOURCES, 0)
+flash_attention.bwd_launches = 0

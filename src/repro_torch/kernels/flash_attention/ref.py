@@ -1,4 +1,5 @@
-"""Plain PyTorch version of the flash attention kernel (K5).
+"""Plain PyTorch versions of the flash attention kernel (K5) and of its
+backward kernel.
 
 The closed form of ``repro.kernels.flash_attention.ref.attention_ref``, in
 the model layout: f32 scores scaled by ``1/sqrt(D)``, the positional causal
@@ -45,3 +46,32 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
     out = torch.where(mask.any(dim=-1)[:, None, None, None], out, 0.0)
     return out.reshape(B, S, H, v.shape[-1]).to(q.dtype)
+
+
+def flash_attention_bwd_ref(q, k, v, out, dout, *, causal: bool = True,
+                            window: int = 0):
+    """The gradient of :func:`flash_attention_ref` by its explicit backward
+    equations, in f32: with p the forward's probabilities (0 on a masked key
+    and on a row with no valid key), ``Di = rowsum(dout * out)`` from the
+    forward's output ``out``, ``dS = p * (dout v^T - Di)``, ``dq = dS k /
+    sqrt(D)``, ``dk = dS^T q / sqrt(D)`` and ``dv = p^T dout``, each kv
+    head's summed over its group's query heads.  -> (dq, dk, dv) in the
+    types of q, k and v.  ``csrc/flash_bwd.cu`` computes the same."""
+    B, S, H, D = q.shape
+    T, K, DV = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // K
+    qf = q.float().reshape(B, S, K, G, D)
+    kf, vf = k.float(), v.float()
+    gf = dout.float().reshape(B, S, K, G, DV)
+    di = (gf * out.float().reshape(B, S, K, G, DV)).sum(-1)   # (B,S,K,G)
+    s = torch.einsum("bskgd,btkd->bkgst", qf, kf) / math.sqrt(D)
+    mask = attention_mask(S, T, causal, window, q.device)
+    p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    p = torch.where(mask.any(dim=-1)[:, None], p, 0.0)
+    dp = torch.einsum("bskgd,btkd->bkgst", gf, vf)
+    ds = p * (dp - di.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, kf) / math.sqrt(D)
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, qf) / math.sqrt(D)
+    dv = torch.einsum("bkgst,bskgd->btkd", p, gf)
+    return (dq.reshape(B, S, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

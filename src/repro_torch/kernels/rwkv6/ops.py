@@ -8,6 +8,11 @@ call is three CUDA launches (the chunks' own parts, the scan of the state
 over the chunks, the chunks' inter-chunk parts) into a scratch of one
 (D, D) increment a chunk that the wrapper allocates; ``wkv6.launches``
 counts calls, one a layer of the prefill.
+
+K6 has no backward kernel yet: a CUDA call under autograd (grad enabled
+and an input that requires grad) raises instead of returning an output
+whose inputs would silently get no gradient.  The plain version on the CPU
+stays differentiable.
 """
 from __future__ import annotations
 
@@ -51,6 +56,10 @@ def wkv6(r, k, v, logw, u, *, chunk: int = 64, state0=None):
         return wkv6_ref(r, k, v, logw, u, chunk=chunk, state0=state0)
     dev = r.device
     ins = (r, k, v, logw, u) + (() if state0 is None else (state0,))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+        raise KernelError("wkv6: K6 has no backward kernel yet, so it cannot "
+                          "run under autograd on CUDA (RWKV6 trains on the "
+                          "CPU's plain version)")
     if dev.type != "cuda" or any(t.device != dev for t in ins):
         raise KernelError("wkv6: inputs must share one CUDA device (got "
                           + ", ".join(str(t.device) for t in ins) + ")")

@@ -55,6 +55,7 @@ from repro_torch.core.engine_torch import resolve_device
 from repro_torch.kernels import KernelError
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.rwkv6.ops import wkv6
+from repro_torch.launch.train import make_media
 from repro_torch.models import common as C
 from repro_torch.models.common import get_family, init_model
 from repro_torch.nn.config import ModelConfig
@@ -70,16 +71,6 @@ def launch_counts():
     no launch)."""
     return {"flash_attention": flash_attention.launches,
             "wkv6": wkv6.launches}
-
-
-def make_media(cfg, batch, device=None):
-    if cfg.family in ("encdec", "vlm"):
-        # frontend stub: deterministic pseudo-embeddings
-        rng = np.random.default_rng(0)
-        return torch.as_tensor(
-            rng.normal(size=(batch, cfg.n_media_tokens, cfg.d_model)) * 0.02,
-            dtype=torch.float32, device=device)
-    return None
 
 
 def pick(logits, temperature: float = 0.0, sampler=None):

@@ -1,5 +1,6 @@
-"""Shared model machinery: embeddings, the module tree of a family's
-parameters, carrying the reference's parameters across, and the registry.
+"""Shared model machinery: embeddings, the loss, remat of a layer body,
+the module tree of a family's parameters, carrying the reference's
+parameters across, and the registry.
 
 A model is a :class:`Model`: ``embed`` (a :class:`Params` node of the
 embedding template), the family's other unstacked nodes (the enc-dec
@@ -16,11 +17,13 @@ tree.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.nn.config import ModelConfig
 from repro_torch.nn.layers import rmsnorm, rmsnorm_template
@@ -80,6 +83,55 @@ def unembed(params, cfg: ModelConfig, x):
     return logits
 
 
+def lm_loss(logits, labels, mask=None, z_weight: float = 1e-4):
+    """Cross-entropy + z-loss; labels < 0 are ignored (the reference's
+    ``lm_loss``, in f32)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.take_along_dim(logits, labels.clamp_min(0).long()[..., None],
+                              dim=-1)[..., 0]
+    valid = (labels >= 0) if mask is None else (mask & (labels >= 0))
+    valid = valid.float()
+    ce = (lse - ll) * valid
+    z = torch.square(lse) * valid
+    denom = valid.sum().clamp_min(1.0)
+    return ce.sum() / denom + z_weight * z.sum() / denom
+
+
+#: the products "dots" saves: matrix products without a batch dim (the
+#: reference's ``checkpoint_dots_with_no_batch_dims``)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def remat(fn: Callable, cfg: ModelConfig) -> Callable:
+    """A layer body ``fn`` under the config's remat policy (the reference's
+    ``remat_wrap`` around its scanned bodies): ``"full"`` keeps only the
+    body's inputs and recomputes the rest in the backward
+    (``torch.utils.checkpoint``), ``"dots"`` also keeps the outputs of its
+    matrix products, ``"none"`` runs the body as is.  Only under grad: a
+    serve or prefill runs the body as is."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    if cfg.remat == "none":
+        return fn
+    kw = {"context_fn": _dots_contexts} if cfg.remat == "dots" else {}
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return wrapped
+
+
 @dataclasses.dataclass(frozen=True)
 class Layout:
     """The template of a stack's layer that holds stacks of its own: its
@@ -106,6 +158,13 @@ class Tree(nn.Module):
                 else Params(template, dtype, device) for _ in range(n)))
 
 
+    def drop_casts(self):
+        """Forget every node's cast copies (:meth:`Params.drop_casts`)."""
+        for m in self.modules():
+            if isinstance(m, Params):
+                m._casts.clear()
+
+
 class Model(Tree):
     """A family's parameters as modules, in the reference's shapes with
     each stack's layer axes split off: ``embed``, the unstacked ``nodes``
@@ -123,6 +182,55 @@ class Model(Tree):
 
     def param_bytes(self) -> int:
         return sum(p.numel() * p.element_size() for p in self.parameters())
+
+    def requires_grad_(self, requires_grad: bool = True):
+        """The train path's switch: every parameter requires grad, and
+        every :class:`Params` node reads its leaves under grad in the
+        config's compute type (``Params.grad_dtype``), as the reference's
+        loss casts its parameters; ``False`` turns both off (a serve's
+        model)."""
+        super().requires_grad_(requires_grad)
+        dtype = self.cfg.cdtype() if requires_grad else None
+        for m in self.modules():
+            if isinstance(m, Params):
+                m.grad_dtype = dtype
+        return self
+
+
+def _node_tree(node: Params) -> dict:
+    out = {}
+    for name in node.keys():
+        t = getattr(node, name)
+        out[name] = _node_tree(t) if isinstance(t, Params) else t
+    return out
+
+
+def _stacked(layers: list):
+    """Trees of one structure, a stack's layers -> one tree whose leaves
+    are the lists of the layers' leaves (a nested stack's lists joined in
+    layer order)."""
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _stacked([t[k] for t in layers]) for k in first}
+    if isinstance(first, list):
+        return [x for t in layers for x in t]
+    return list(layers)
+
+
+def param_tree(model: Tree) -> dict:
+    """The model's parameters (the tensors themselves) in the reference's
+    parameter tree: the same keys at every level; where the reference
+    stacks a leaf over a stack's layers, the list of the per-layer
+    parameters in stack order (a nested stack's in (outer, inner) order,
+    as the reference's two stacking axes are laid out).  Walked as
+    :mod:`repro_torch.tree` walks it, its leaves come in the reference's
+    leaf order, each stacked leaf's layers one after the other."""
+    out = {name: _node_tree(getattr(model, name)) for name in model.node_names}
+    for name in model.stack_names:
+        out[name] = _stacked([param_tree(layer) if isinstance(layer, Tree)
+                              else _node_tree(layer)
+                              for layer in getattr(model, name)])
+    return out
 
 
 def _fill(node: Params, tree, index=None):

@@ -81,14 +81,29 @@ def encode(model, cfg: ModelConfig, media, trace=None):
     dt = cfg.cdtype()
     pos = L.sinusoidal_pos(_arange(M, media.device), E)
     x = media.to(dt) + pos[None].to(dt)
+    layer = C.remat(_enc_layer, cfg)
     for lp in model.encoder:
-        h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        x = x + L.bidirectional_attention_apply(lp["attn"], cfg, h)
-        h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        x = x + L.mlp_apply(lp["ffn"], h)
+        x = layer(x, lp, cfg)
         if trace is not None:
             trace.append(x)
     return L.rmsnorm(model.enc_norm, x, cfg.norm_eps)
+
+
+def _enc_layer(x, lp, cfg: ModelConfig):
+    h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    x = x + L.bidirectional_attention_apply(lp["attn"], cfg, h)
+    h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    return x + L.mlp_apply(lp["ffn"], h)
+
+
+def _dec_layer(x, lp, cfg: ModelConfig, positions, enc_out):
+    h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    x = x + L.attention_apply(lp["attn"], cfg, h, positions, True,
+                              use_rope=False)
+    h = L.rmsnorm(lp["lnx"], x, cfg.norm_eps)
+    x = x + L.cross_attention_apply(lp["xattn"], cfg, h, enc_out)
+    h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    return x + L.mlp_apply(lp["ffn"], h)
 
 
 def _embed(model, cfg, tokens, pos):
@@ -100,7 +115,8 @@ def _embed(model, cfg, tokens, pos):
 
 def forward(model, cfg: ModelConfig, tokens, media=None):
     """Teacher-forcing: media (B,M,E) + decoder tokens (B,S) -> logits
-    (B,S,V); positions ``arange(S)``."""
+    (B,S,V); positions ``arange(S)``.  Under grad each encoder and decoder
+    layer runs under the config's remat policy."""
     if media is None:
         raise ValueError("the enc-dec forward needs media embeddings")
     B, S = tokens.shape
@@ -108,14 +124,9 @@ def forward(model, cfg: ModelConfig, tokens, media=None):
     positions = pos.expand(B, S)
     enc_out = encode(model, cfg, media)
     x = _embed(model, cfg, tokens, pos)
+    layer = C.remat(_dec_layer, cfg)
     for lp in model.decoder:
-        h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        x = x + L.attention_apply(lp["attn"], cfg, h, positions, True,
-                                  use_rope=False)
-        h = L.rmsnorm(lp["lnx"], x, cfg.norm_eps)
-        x = x + L.cross_attention_apply(lp["xattn"], cfg, h, enc_out)
-        h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        x = x + L.mlp_apply(lp["ffn"], h)
+        x = layer(x, lp, cfg, positions, enc_out)
     return C.unembed(model.embed, cfg, x)
 
 

@@ -58,19 +58,25 @@ def _combine(lp, cfg, a, s):
 
 
 def forward(model, cfg: ModelConfig, tokens, media=None):
-    """Teacher-forcing forward -> logits (B,S,V); positions ``arange(S)``."""
+    """Teacher-forcing forward -> logits (B,S,V); positions ``arange(S)``.
+    Under grad each layer runs under the config's remat policy."""
     del media
     positions = C.positions(tokens)
     x = C.embed_tokens(model.embed, cfg, tokens)
+    layer = C.remat(_layer, cfg)
     for i, lp in enumerate(model.layers):
-        h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        a = L.attention_apply(lp["attn"], cfg, h, positions,
-                              cfg.is_global_layer(i))
-        s, _state = S.mamba_apply(lp["ssm"], cfg, h)
-        x = x + _combine(lp, cfg, a, s)
-        h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        x = x + L.mlp_apply(lp["ffn"], h)
+        x = layer(x, lp, cfg, positions, i)
     return C.unembed(model.embed, cfg, x)
+
+
+def _layer(x, lp, cfg: ModelConfig, positions, i):
+    h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    a = L.attention_apply(lp["attn"], cfg, h, positions,
+                          cfg.is_global_layer(i))
+    s, _state = S.mamba_apply(lp["ssm"], cfg, h)
+    x = x + _combine(lp, cfg, a, s)
+    h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    return x + L.mlp_apply(lp["ffn"], h)
 
 
 # -- serving -----------------------------------------------------------------

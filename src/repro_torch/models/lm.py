@@ -52,20 +52,27 @@ def _ffn(p, cfg: ModelConfig, x, dropless=False, routing=None):
     return L.mlp_apply(p, x)
 
 
+def _layer(x, lp, cfg: ModelConfig, positions, i, routing=None):
+    h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    if cfg.use_mla:
+        x = x + L.mla_apply(lp["attn"], cfg, h, positions)
+    else:
+        x = x + L.attention_apply(lp["attn"], cfg, h, positions,
+                                  cfg.is_global_layer(i))
+    h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    return x + _ffn(lp["ffn"], cfg, h, routing=routing)
+
+
 def forward(model, cfg: ModelConfig, tokens, media=None, routing=None):
-    """Teacher-forcing forward -> logits (B,S,V); positions ``arange(S)``."""
+    """Teacher-forcing forward -> logits (B,S,V); positions ``arange(S)``.
+    Under grad each layer runs under the config's remat policy (whose
+    recomputation appends a MoE layer's routing to ``routing`` again)."""
     del media
     positions = C.positions(tokens)
     x = C.embed_tokens(model.embed, cfg, tokens)
+    layer = C.remat(_layer, cfg)
     for i, lp in enumerate(model.layers):
-        h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        if cfg.use_mla:
-            x = x + L.mla_apply(lp["attn"], cfg, h, positions)
-        else:
-            x = x + L.attention_apply(lp["attn"], cfg, h, positions,
-                                      cfg.is_global_layer(i))
-        h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        x = x + _ffn(lp["ffn"], cfg, h, routing=routing)
+        x = layer(x, lp, cfg, positions, i, routing)
     return C.unembed(model.embed, cfg, x)
 
 

@@ -39,16 +39,23 @@ def build(cfg: ModelConfig, device=None, dtype=None) -> C.Model:
     return C.Model(cfg, layer_template, dtype, device)
 
 
+def _layer(x, lp, cfg: ModelConfig):
+    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    h, _s, _last = S.rwkv6_apply(lp["tmix"], cfg, h, chunked=True)
+    x = x + h
+    h = rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    h, _last2 = S.rwkv6_channel_apply(lp["cmix"], cfg, h)
+    return x + h
+
+
 def forward(model, cfg: ModelConfig, tokens, media=None):
+    """Teacher-forcing forward -> logits (B,S,V); under grad each layer
+    runs under the config's remat policy."""
     del media
     x = C.embed_tokens(model.embed, cfg, tokens)
+    layer = C.remat(_layer, cfg)
     for lp in model.layers:
-        h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        h, _s, _last = S.rwkv6_apply(lp["tmix"], cfg, h, chunked=True)
-        x = x + h
-        h = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        h, _last2 = S.rwkv6_channel_apply(lp["cmix"], cfg, h)
-        x = x + h
+        x = layer(x, lp, cfg)
     return C.unembed(model.embed, cfg, x)
 
 

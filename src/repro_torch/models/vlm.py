@@ -89,21 +89,35 @@ def _cross_layer(lp, cfg, x, attend):
 
 def forward(model, cfg: ModelConfig, tokens, media=None):
     """Teacher-forcing: tokens (B,S) and media (B,M,E) -> logits (B,S,V);
-    positions ``arange(S)``."""
+    positions ``arange(S)``.  Under grad each group, and each self layer
+    in it, runs under the config's remat policy (the reference's nested
+    scans)."""
     if media is None:
         raise ValueError("the VLM forward needs media (patch embeddings)")
     positions = C.positions(tokens)
     x = C.embed_tokens(model.embed, cfg, tokens)
     media = media.to(x.dtype)
+    group = C.remat(_group, cfg)
     for gp in model.groups:
-        for lp in gp.self:
-            h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-            x = x + L.attention_apply(lp["attn"], cfg, h, positions, True)
-            h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
-            x = x + L.mlp_apply(lp["ffn"], h)
-        x = _cross_layer(gp.cross, cfg, x, lambda p, h: (
-            L.cross_attention_apply(p, cfg, h, media)))
+        x = group(x, gp, cfg, positions, media)
     return C.unembed(model.embed, cfg, x)
+
+
+def _self_layer(x, lp, cfg: ModelConfig, positions):
+    h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    x = x + L.attention_apply(lp["attn"], cfg, h, positions, True)
+    h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    return x + L.mlp_apply(lp["ffn"], h)
+
+
+def _group(x, gp, cfg: ModelConfig, positions, media):
+    """A group's self layers, each under remat as the reference scans
+    them, then its cross layer."""
+    layer = C.remat(_self_layer, cfg)
+    for lp in gp.self:
+        x = layer(x, lp, cfg, positions)
+    return _cross_layer(gp.cross, cfg, x, lambda p, h: (
+        L.cross_attention_apply(p, cfg, h, media)))
 
 
 # -- serving -----------------------------------------------------------------

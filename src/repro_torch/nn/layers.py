@@ -572,3 +572,18 @@ def moe_apply(params, cfg: ModelConfig, x, dropless: bool = False,
             dropped = torch.zeros((), dtype=torch.int64, device=x.device)
         routing.append(Routing(top_i, dropped))
     return out
+
+
+def moe_aux_loss(params, cfg: ModelConfig, x):
+    """Load-balancing auxiliary loss (Switch-style f*P), the reference's
+    ``moe_aux_loss``: X times the sum over experts of the share of (token,
+    slot) pairs routed to each and its mean router probability.  As in the
+    reference, the train step's loss does not add it."""
+    dt = x.dtype
+    T = x.shape[0] * x.shape[1]
+    X, K = cfg.n_experts, cfg.experts_per_token
+    logits = (x @ params.cast("router", dt)).reshape(T, -1)
+    probs = torch.softmax(logits.float(), dim=-1)
+    top_i = _top_k(probs, K)[1]
+    f = torch.bincount(top_i.reshape(-1), minlength=X).float() / (T * K)
+    return X * torch.sum(f * probs.mean(dim=0))

@@ -107,15 +107,25 @@ class Params(nn.Module):
 
     ``params["wq"]`` returns the parameter, ``params["attn"]`` the sub-tree,
     ``"wg" in params`` tests for a leaf, as the reference's dicts do.
-    :meth:`cast` returns a leaf in the compute type, made once and kept: the
-    reference casts the f32 weights at every use, which gives the same bits
-    every time.  Parameters hold no gradient (the port serves; it does not
-    train yet)."""
+    :meth:`cast` returns a leaf in the compute type.
+
+    Serving (no gradient): the cast is made once and kept, since the
+    reference's cast of the f32 weights at every use gives the same bits
+    every time; :meth:`drop_casts` forgets the copies after the parameters
+    were overwritten.  Training (grad enabled and the leaf requires grad,
+    after ``Model.requires_grad_(True)``): :meth:`cast` returns ``t.to(
+    dtype)`` inside the autograd graph at every use and keeps nothing, so
+    the gradient reaches the f32 leaf and no copy outlives an optimizer
+    step.  With ``grad_dtype`` set (``Model.requires_grad_`` sets it to the
+    config's compute type), every floating leaf read under grad is first
+    cast to it, as the reference's ``loss_fn`` casts the whole parameter
+    tree to the compute type before the forward."""
 
     def __init__(self, template, dtype=torch.float32, device=None):
         super().__init__()
         self._names = []
         self._casts = {}
+        self.grad_dtype = None
         for name, sub in template.items():
             self._names.append(name)
             if is_spec(sub):
@@ -126,7 +136,12 @@ class Params(nn.Module):
                 self.add_module(name, Params(sub, dtype, device))
 
     def __getitem__(self, name):
-        return getattr(self, name)
+        t = getattr(self, name)
+        if (self.grad_dtype is not None and isinstance(t, nn.Parameter)
+                and t.requires_grad and torch.is_grad_enabled()
+                and t.is_floating_point()):
+            return t.to(self.grad_dtype)
+        return t
 
     def __contains__(self, name):
         return name in self._names
@@ -136,6 +151,8 @@ class Params(nn.Module):
 
     def cast(self, name, dtype):
         t = getattr(self, name)
+        if t.requires_grad and torch.is_grad_enabled():
+            return self[name].to(dtype)      # in the graph, kept nowhere
         if t.dtype == dtype:
             return t
         key = (name, dtype)

@@ -1727,5 +1727,235 @@ def test_devices_clamp_to_the_cards(dev, monkeypatch):
                                                           - 1))])
 
 
+# -- K5's backward and the train path on the card -------------------------------
+
+BWD_CASES = [
+    # B, H, K, S, T, D, DV, causal, window
+    (2, 4, 2, 40, 40, 16, 16, True, 0),
+    (1, 4, 4, 130, 130, 32, 32, True, 24),
+    (1, 6, 2, 33, 80, 64, 64, False, 0),
+    (2, 12, 2, 200, 200, 128, 128, True, 0),
+    (1, 3, 1, 70, 50, 128, 128, True, 0),
+    (1, 4, 4, 100, 100, 192, 128, True, 0),
+    (1, 2, 1, 70, 66, 256, 256, True, 9),
+    (1, 2, 1, 30, 20, 16, 16, True, 5),          # rows that see no key
+]
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "f16"])
+def test_flash_bwd_kernel_equals_plain(dev, case, dtype):
+    """``flash_bwd.cu`` against ``flash_attention_bwd_ref`` on the same CUDA
+    tensors: dq, dk, dv within ``ops.bwd_tolerance`` (relative L2), two
+    runs the same bits, one launch counted a call."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_ref)
+
+    B, H, K, S, T, D, DV, causal, window = case
+    g = torch.Generator(dev).manual_seed(S * T + D)
+    q = torch.randn((B, S, H, D), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, T, K, D), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, T, K, DV), generator=g, device=dev).to(dtype)
+    out = flash_attention_ref(q, k, v, causal=causal, window=window)
+    dout = torch.randn(out.shape, generator=g, device=dev).to(dtype)
+    kw = dict(causal=causal, window=window)
+    n0 = ops.flash_attention.bwd_launches
+    got = ops.flash_attention_bwd(q, k, v, out, dout, **kw)
+    again = ops.flash_attention_bwd(q, k, v, out, dout, **kw)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.bwd_launches == n0 + 2
+    want = flash_attention_bwd_ref(q, k, v, out, dout, **kw)
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        assert torch.equal(a, b)
+        assert _rel_l2(a, w) <= ops.bwd_tolerance(dtype)
+
+
+def test_flash_attention_under_grad_runs_the_backward_kernel(dev):
+    """Under autograd on the card the wrapper's gradient is the backward
+    kernel's, bit for bit, on the forward kernel's output."""
+    from repro_torch.kernels.flash_attention import ops
+
+    g = torch.Generator(dev).manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+               .requires_grad_(True) for shape in
+               ((2, 96, 12, 128), (2, 96, 2, 128), (2, 96, 2, 128)))
+    n0 = ops.flash_attention.bwd_launches
+    out = ops.flash_attention(q, k, v, causal=True)
+    dout = torch.randn(out.shape, generator=g, device=dev).to(out.dtype)
+    out.backward(dout)
+    assert ops.flash_attention.bwd_launches == n0 + 1
+    want = ops.flash_attention_bwd(q.detach(), k.detach(), v.detach(),
+                                   out.detach(), dout, causal=True)
+    for a, w in zip((q.grad, k.grad, v.grad), want):
+        assert torch.equal(a, w)
+
+
+def test_wkv6_under_grad_on_card_raises(dev):
+    from repro_torch.kernels import KernelError
+    from repro_torch.kernels.rwkv6 import ops
+
+    r, k, v = (torch.randn((1, 8, 2, 16), device=dev) for _ in range(3))
+    logw = -torch.rand((1, 8, 2, 16), device=dev)
+    u = torch.randn((2, 16), device=dev, requires_grad=True)
+    with pytest.raises(KernelError, match="no backward kernel"):
+        ops.wkv6(r, k, v, logw, u)
+    with torch.no_grad():
+        ops.wkv6(r, k, v, logw, u)
+
+
+TRAINED = tuple(a for a in SERVED if a != "rwkv6_3b")
+#: one train step on the card against the CPU's plain versions, and on
+#: the card against itself with K5's plain backward, f32 compute: the
+#: step's mean gradient, leaf by leaf (relative L2); f32 sums in other
+#: orders
+TRAIN_CARD_REL_L2 = 1e-4
+#: the VLM card config's gradients are ill-conditioned in its forward: a
+#: forward that differs by f32 rounding moves them by 1e-3 to 1e-2.  Card
+#: against CPU, every leaf read as the optimizer receives it (H100): at
+#: most 9.0e-3 (3.8e-3 the median); K5's plain versions (forward and
+#: backward) run on the card 8.8e-3 from the CPU, so the gap lies outside
+#: K5, and 1.2e-3 from the kernels (the forward kernel's f32 rounding);
+#: K5's backward kernel against its plain backward behind the forward
+#: kernel 6.4e-6, gated at TRAIN_CARD_REL_L2 below.  A control, the
+#: self-attention's dq scaled by 1 + 1e-3 on the card, reads 1.08e-2
+#: against the CPU (tests/_torch_card_grads.py prints these)
+TRAIN_CARD_ARCH_REL_L2 = {"llama32_vision_90b": 1e-2}
+
+
+def _train_run(cfg, tree, batch, device):
+    """One train step (2 micro-batches, lr 0 on the schedule's first step)
+    from ``tree`` on ``device`` -> (loss, {path: the step's mean gradient,
+    as the optimizer receives it, before the clip}, K5 forward and backward
+    launches)."""
+    from unittest import mock
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models.common import get_family, load_reference_params
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.steps import TrainConfig, init_state, make_train_step
+    from repro_torch.tree import keypaths, leaves, tree_map
+
+    # a copy: on its own device the loader takes the tensors as views
+    model = load_reference_params(get_family(cfg).build(cfg, device=device),
+                                  tree_map(torch.clone, tree))
+    state = init_state(cfg, model)
+    step = make_train_step(cfg, TrainConfig(accum_steps=2, opt=AdamWConfig(
+        lr=1e-5, warmup_steps=1, total_steps=10)))
+    b = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    g, update = {}, adamw.update
+
+    def seen(ocfg, params, grads, opt, i):
+        g.update(zip(keypaths(grads), (x.double().cpu() for x in leaves(grads))))
+        return update(ocfg, params, grads, opt, i)
+    n0 = (ops.flash_attention.launches, ops.flash_attention.bwd_launches)
+    with mock.patch.object(adamw, "update", seen):
+        metrics = step(state, b)
+    n1 = (ops.flash_attention.launches, ops.flash_attention.bwd_launches)
+    return float(metrics["loss"]), g, (n1[0] - n0[0], n1[1] - n0[1])
+
+
+def _train_case(arch):
+    """-> (config, weights, batch) of ``arch``'s served smoke config for a
+    train step: f32 compute but for MLA, the VLM's cross gates 0.5, four
+    sequences of 24 tokens and, for the enc-dec and VLM families, media."""
+    from repro_torch.models.common import get_family
+    from repro_torch.nn.param import init_params
+
+    cfg = _served(arch)
+    if not cfg.use_mla:
+        cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    tree = init_params(get_family(cfg).template(cfg),
+                       torch.Generator().manual_seed(0))
+    if cfg.family == "vlm":        # the reference's zero gates: set them
+        for name in ("gate_attn", "gate_ffn"):
+            tree["groups"]["cross"][name].fill_(0.5)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (4, 25)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family in ("encdec", "vlm"):
+        batch["media"] = (rng.standard_normal(
+            (4, cfg.n_media_tokens, cfg.d_model)) * 0.02).astype(np.float32)
+    return cfg, tree, batch
+
+
+@pytest.mark.parametrize("arch", TRAINED)
+def test_train_step_on_card_equals_plain(dev, arch):
+    """The same weights and batch, one train step on the card (K5's
+    forward and backward kernels), on the card with K5's plain backward
+    (``ref.flash_attention_bwd_ref``; one forward, so the same loss bits)
+    and on the CPU (the plain versions).  The backward kernel against the
+    plain backward: every gradient leaf within :data:`TRAIN_CARD_REL_L2`
+    in f32 compute, within ``ops.bwd_tolerance`` in bf16.  f32 compute,
+    the card against the CPU: the loss at rtol 1e-5 and every gradient
+    leaf within :data:`TRAIN_CARD_REL_L2` (the VLM's within
+    :data:`TRAIN_CARD_ARCH_REL_L2`).  The MLA config takes bf16 (K5's (192,
+    128) instance is bf16/f16): each run's gradient against the CPU's f32
+    one, the card's distance at most twice the CPU's bf16 plus 2e-2.  K5's
+    backward launches once a forward call of each micro-batch."""
+    from unittest import mock
+
+    from repro_torch.kernels.flash_attention import ref
+    from repro_torch.models.common import get_family
+
+    cfg, tree, batch = _train_case(arch)
+    fam = get_family(cfg)
+    with torch.no_grad():
+        from repro_torch.kernels.flash_attention import ops
+        from repro_torch.models.common import load_reference_params
+
+        model = load_reference_params(fam.build(cfg, device=dev), tree)
+        n0 = ops.flash_attention.launches
+        fam.forward(model, cfg, torch.as_tensor(batch["tokens"][:2],
+                                                device=dev),
+                    media=(torch.as_tensor(batch["media"][:2], device=dev)
+                           if "media" in batch else None))
+        calls = ops.flash_attention.launches - n0
+    card = _train_run(cfg, tree, batch, dev)
+    with mock.patch.object(ops, "flash_attention_bwd",
+                           ref.flash_attention_bwd_ref):
+        mixed = _train_run(cfg, tree, batch, dev)
+    cpu = _train_run(cfg, tree, batch, torch.device("cpu"))
+    assert card[2][1] == 2 * calls and card[2][0] >= 2 * card[2][1]
+    assert mixed[2] == (card[2][0], 0) and cpu[2] == (0, 0)
+    assert mixed[0] == card[0]
+    tol = (TRAIN_CARD_REL_L2 if cfg.compute_dtype == "float32"
+           else ops.bwd_tolerance(torch.bfloat16))
+    for key, want in mixed[1].items():
+        assert _rel_l2(card[1][key], want) <= tol, ("backward", key)
+    if not cfg.use_mla:
+        assert card[0] == pytest.approx(cpu[0], rel=1e-5)
+        tol = TRAIN_CARD_ARCH_REL_L2.get(arch, TRAIN_CARD_REL_L2)
+        for key, want in cpu[1].items():
+            assert _rel_l2(card[1][key], want) <= tol, key
+        return
+    truth = _train_run(dataclasses.replace(cfg, compute_dtype="float32"),
+                       tree, batch, torch.device("cpu"))[1]
+    for key, want in truth.items():
+        assert (_rel_l2(card[1][key], want)
+                <= 2 * _rel_l2(cpu[1][key], want) + 2e-2), key
+
+
+def test_rwkv6_train_step_on_card_raises(dev):
+    """K6 has no backward kernel yet: RWKV6's train step on the card
+    raises instead of dropping the WKV inputs' gradients."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import KernelError
+    from repro_torch.models.common import get_family, init_model
+    from repro_torch.train.steps import TrainConfig, init_state, make_train_step
+
+    cfg = get_config("rwkv6_3b", smoke=True)
+    model = init_model(get_family(cfg), cfg,
+                       torch.Generator(dev).manual_seed(0))
+    state = init_state(cfg, model)
+    toks = torch.randint(0, cfg.vocab_size, (2, 17), device=dev)
+    with pytest.raises(KernelError, match="no backward kernel"):
+        make_train_step(cfg, TrainConfig())(
+            state, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+
+
 if __name__ == "__main__":
     print(json.dumps(k5_equal_d_outputs(torch.device("cuda"))))

@@ -1,0 +1,299 @@
+"""K5's gradient off the card: the plain backward
+``ref.flash_attention_bwd_ref`` against ``torch.autograd`` through the
+plain forward and against ``jax.grad`` of the reference's XLA attention
+(``repro.nn.layers._gqa_scores_softmax_out`` and, blockwise,
+``_gqa_chunked_attention``), an emulation of ``csrc/flash_bwd.cu``'s
+algorithm within ``ops.bwd_tolerance``, the wrapper's autograd Function,
+and K6's refusal to run under autograd off the CPU.
+
+Tolerances.  In f32 the three differ only in the order of their sums: each
+gradient at ``rtol = atol = 1e-5`` (atol relative to the gradient's
+largest element).  The emulation keeps the kernel's tiles, its two passes
+(each row's max and sum first, then p = exp(s - m) / l) and its order of
+accumulation over key tiles (dq) and over the group's heads and query
+tiles (dk, dv), and must lie within ``ops.bwd_tolerance`` of the plain
+version, in f32 and, rounded as the kernel rounds its outputs, in bf16 and
+f16.  The kernel itself is held against the plain version on the card
+(tests/test_torch_cuda.py, chip_smoke.py)."""
+import math
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.nn import layers as ref_layers
+from repro_torch.kernels import KernelError
+from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention.ref import (attention_mask,
+                                                    flash_attention_bwd_ref,
+                                                    flash_attention_ref)
+from repro_torch.kernels.rwkv6 import ops as k6
+
+CASES = [
+    # B, H, K, S, T, D, DV, causal, window
+    (2, 4, 2, 40, 40, 16, 16, True, 0),      # GQA causal, ragged tail
+    (1, 4, 4, 70, 70, 32, 32, True, 24),     # sliding window, two tiles
+    (1, 6, 2, 33, 80, 16, 16, False, 0),     # non-causal, T != S
+    (1, 3, 1, 50, 30, 64, 64, True, 0),      # causal, S > T
+    (1, 4, 2, 40, 40, 192, 128, True, 0),    # MLA's (q/k, v) head dims
+    (1, 2, 1, 70, 66, 256, 256, True, 9),    # D 256 (32-wide tiles), window
+]
+#: a row with no visible key (window 5, S > T): its gradient is 0
+EMPTY_ROWS = (1, 2, 1, 30, 20, 16, 16, True, 5)
+IDS = [f"{'c' if c[7] else 'nc'}-S{c[3]}-T{c[4]}-D{c[5]}-{c[6]}-w{c[8]}"
+       for c in CASES]
+
+
+def _inputs(case, seed=0):
+    B, H, K, S, T, D, DV, causal, window = case
+    rng = np.random.default_rng(seed + S * T + D)
+    return [rng.standard_normal(shape).astype(np.float32) for shape in
+            ((B, S, H, D), (B, T, K, D), (B, T, K, DV), (B, S, H, DV))]
+
+
+def _close(got, want, tol=1e-5):
+    scale = float(want.abs().max()) or 1.0
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol * scale)
+
+
+def _autograd(q, k, v, dout, causal, window):
+    q, k, v = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = flash_attention_ref(q, k, v, causal=causal, window=window)
+    out.backward(dout)
+    return out.detach(), (q.grad, k.grad, v.grad)
+
+
+@pytest.mark.parametrize("case", CASES + [EMPTY_ROWS], ids=IDS + ["empty"])
+def test_plain_backward_equals_autograd(case):
+    causal, window = case[7], case[8]
+    q, k, v, dout = (torch.as_tensor(a) for a in _inputs(case))
+    out, want = _autograd(q, k, v, dout, causal, window)
+    got = flash_attention_bwd_ref(q, k, v, out, dout, causal=causal,
+                                  window=window)
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+def test_rows_without_a_key_get_no_gradient():
+    B, H, K, S, T, D, DV, causal, window = EMPTY_ROWS
+    q, k, v, dout = (torch.as_tensor(a) for a in _inputs(EMPTY_ROWS))
+    empty = ~attention_mask(S, T, causal, window, "cpu").any(dim=-1)
+    assert empty.any()
+    out = flash_attention_ref(q, k, v, causal=causal, window=window)
+    dq, dk, dv = flash_attention_bwd_ref(q, k, v, out, dout, causal=causal,
+                                         window=window)
+    assert (dq[:, empty] == 0).all() and (dq[:, ~empty] != 0).any()
+
+
+def _jax_attention(causal, window, chunked):
+    """The reference model's attention in f32 with K5's positional mask:
+    ``_gqa_scores_softmax_out`` (dense) or ``_gqa_chunked_attention``
+    (blockwise online softmax over 8-key blocks)."""
+    def f(q, k, v):
+        S, T = q.shape[1], k.shape[1]
+        mask = jnp.asarray(attention_mask(S, T, causal, window, "cpu")
+                           .numpy())
+        if chunked:
+            cfg = SimpleNamespace(window=window)
+            pos_q = jnp.broadcast_to(jnp.arange(S), (q.shape[0], S))
+            pos_k = jnp.broadcast_to(jnp.arange(T), (q.shape[0], T))
+            return ref_layers._gqa_chunked_attention(
+                cfg, q, k, v, pos_q, pos_k, window == 0, kblock=8)
+        return ref_layers._gqa_scores_softmax_out(None, q, k, v,
+                                                  mask[None, None, None])
+    return f
+
+
+def _jax_closed_form(causal, window):
+    """The same softmax attention with v narrower than q and k (MLA),
+    scaled by q's head dim."""
+    def f(q, k, v):
+        B, S, H, D = q.shape
+        T, K = k.shape[1], k.shape[2]
+        s = jnp.einsum("bskgd,btkd->bkgst", q.reshape(B, S, K, H // K, D),
+                       k) / np.sqrt(D).astype(np.float32)
+        mask = jnp.asarray(attention_mask(S, T, causal, window, "cpu")
+                           .numpy())
+        p = jax.nn.softmax(jnp.where(mask, s, -1e30), axis=-1)
+        return jnp.einsum("bkgst,btkd->bskgd", p, v).reshape(B, S, H, -1)
+    return f
+
+
+@pytest.mark.parametrize("chunked", [False, True], ids=["dense", "chunked"])
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_plain_backward_equals_jax_grad_of_reference_attention(case,
+                                                               chunked):
+    """Every row of these cases sees a key (the reference's softmax over
+    an all-masked row is uniform, where K5's row is 0)."""
+    B, H, K, S, T, D, DV, causal, window = case
+    qn, kn, vn, gn = _inputs(case)
+    if DV != D:
+        if chunked:
+            pytest.skip("the reference's blockwise attention takes DV == D")
+        f = _jax_closed_form(causal, window)
+    else:
+        if chunked and (T % 8 or not causal):
+            pytest.skip("the reference's blockwise attention is causal, "
+                        "over blocks that divide T")
+        f = _jax_attention(causal, window, chunked)
+    out, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (qn, kn, vn)))
+    want = vjp(jnp.asarray(gn))
+    q, k, v, dout = (torch.as_tensor(a) for a in (qn, kn, vn, gn))
+    got = flash_attention_bwd_ref(q, k, v, torch.as_tensor(np.array(out)),
+                                  dout, causal=causal, window=window)
+    for g, w in zip(got, want):
+        _close(g, torch.as_tensor(np.array(w)))
+
+
+# -- the kernel's algorithm ------------------------------------------------------
+
+def emulate_bwd(q, k, v, out, dout, *, causal, window):
+    """The arithmetic of ``flash_bwd.cu`` in torch, f32: tiles of 64 rows
+    and 64 keys (32 at D = 256); launch 1 per query tile: Di from dout and
+    out, each row's running max and sum over the key tiles (the forward's
+    recurrence: ``l = exp(m - m_new) l + rowsum(exp(s - m_new))``), then
+    over the key tiles again p = exp(s - m) / l (0 on a masked key and on
+    a row with l = 0), dP, dS and dq accumulated tile by tile; launch 2 per
+    key tile: dk and dv accumulated over the group's heads in order and,
+    for each, over the query tiles in order.  -> f32 (dq, dk, dv) before
+    the rounding to the inputs' type."""
+    B, S, H, D = q.shape
+    T, K, DV = k.shape[1], k.shape[2], v.shape[3]
+    G = H // K
+    BT = 32 if D == 256 else 64
+    scale = torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32)
+    qf = q.float().permute(0, 2, 1, 3)                     # (B,H,S,D)
+    kf = k.float().permute(0, 2, 1, 3).repeat_interleave(G, 1)
+    vf = v.float().permute(0, 2, 1, 3).repeat_interleave(G, 1)
+    gf = dout.float().permute(0, 2, 1, 3)
+    di = (gf * out.float().permute(0, 2, 1, 3)).sum(-1)    # (B,H,S)
+    mask = attention_mask(S, T, causal, window, q.device)
+    m = torch.full((B, H, S), -1e30)
+    l = torch.zeros((B, H, S))
+    tiles = range(0, T, BT)
+    for k0 in tiles:
+        s = (qf @ kf[:, :, k0:k0 + BT].transpose(-1, -2)) * scale
+        valid = mask[:, k0:k0 + BT]
+        s = torch.where(valid, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        rs = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0).sum(-1)
+        l = torch.exp(m - m_new) * l + rs
+        m = m_new
+
+    def probs(s, valid):
+        keep = valid & (l[..., None] > 0)
+        return torch.where(keep, torch.exp(s * scale - m[..., None])
+                           / l.clamp_min(1e-30)[..., None], 0.0)
+
+    dq = torch.zeros((B, H, S, D))
+    p_all, ds_all = [], []
+    for k0 in tiles:
+        kt, vt = kf[:, :, k0:k0 + BT], vf[:, :, k0:k0 + BT]
+        p = probs(qf @ kt.transpose(-1, -2), mask[:, k0:k0 + BT])
+        ds = p * (gf @ vt.transpose(-1, -2) - di[..., None])
+        dq = dq + ds @ kt
+        p_all.append(p)
+        ds_all.append(ds)
+    p, ds = torch.cat(p_all, -1), torch.cat(ds_all, -1)    # (B,H,S,T)
+    dk = torch.zeros((B, K, T, D))
+    dv = torch.zeros((B, K, T, DV))
+    for g in range(G):
+        h = torch.arange(K) * G + g
+        for q0 in range(0, S, BT):
+            rows = slice(q0, q0 + BT)
+            dv = dv + p[:, h, rows].transpose(-1, -2) @ gf[:, h, rows]
+            dk = dk + ds[:, h, rows].transpose(-1, -2) @ qf[:, h, rows]
+    return ((dq * scale).permute(0, 2, 1, 3),
+            (dk * scale).permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3))
+
+
+def _rel_l2(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("case", CASES + [EMPTY_ROWS], ids=IDS + ["empty"])
+def test_emulated_kernel_within_stated_tolerance(case, dtype):
+    causal, window = case[7], case[8]
+    q, k, v, dout = (torch.as_tensor(a).to(dtype) for a in _inputs(case))
+    out = flash_attention_ref(q, k, v, causal=causal, window=window)
+    emu = emulate_bwd(q, k, v, out, dout, causal=causal, window=window)
+    ref = flash_attention_bwd_ref(q, k, v, out, dout, causal=causal,
+                                  window=window)
+    tol = ops.bwd_tolerance(dtype)
+    for name, e, r in zip(("dq", "dk", "dv"), emu, ref):
+        assert _rel_l2(e.to(dtype), r) <= tol, (name, _rel_l2(e.to(dtype), r))
+    if dtype == torch.float32:       # the f32 paths alone: far inside
+        assert max(_rel_l2(e, r) for e, r in zip(emu, ref)) <= 1e-5
+
+
+def test_bwd_tolerance_is_twice_the_output_rounding():
+    assert ops.bwd_tolerance(torch.bfloat16) == 2 * 2.0 ** -8
+    assert ops.bwd_tolerance(torch.float16) == 2 * 2.0 ** -11
+    assert ops.bwd_tolerance(torch.float32) == 1e-4
+
+
+@pytest.mark.parametrize("D,DV", [(16, 16), (32, 32), (64, 64), (128, 128),
+                                  (256, 256), (192, 128)])
+def test_backward_kernel_takes_every_forward_head_dim(D, DV):
+    """Every (D, DV) the forward takes has a backward instance."""
+    assert (D, DV) in ops.BWD_HEAD_DIMS
+    assert ops.BWD_SOURCE.exists()
+
+
+# -- the wrapper under autograd ----------------------------------------------------
+
+def test_wrapper_under_grad_uses_the_backward_on_the_cpu():
+    """Under grad the wrapper's Function runs the forward's dispatch and the
+    plain backward: its gradients are ``flash_attention_bwd_ref``'s bit for
+    bit; no launch is counted on the CPU."""
+    case = CASES[0]
+    qn, kn, vn, gn = _inputs(case)
+    q, k, v = (torch.as_tensor(a).requires_grad_(True) for a in (qn, kn, vn))
+    dout = torch.as_tensor(gn)
+    n0, b0 = ops.flash_attention.launches, ops.flash_attention.bwd_launches
+    out = ops.flash_attention(q, k, v, causal=True)
+    assert out.grad_fn is not None
+    assert type(out.grad_fn).__name__.startswith("_FlashAttention")
+    out.backward(dout)
+    want = flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(),
+                                   out.detach(), dout, causal=True)
+    for g, w in zip((q.grad, k.grad, v.grad), want):
+        assert torch.equal(g, w)
+    assert (ops.flash_attention.launches, ops.flash_attention.bwd_launches) \
+        == (n0, b0)
+    with torch.no_grad():
+        served = ops.flash_attention(q, k, v, causal=True)
+    assert served.grad_fn is None and torch.equal(served, out.detach())
+
+
+def test_backward_refuses_what_it_cannot_take():
+    """Off the CPU the backward launches or raises: a device that is not
+    CUDA (meta tensors stand in for one here) is refused."""
+    q = torch.empty((1, 8, 2, 16), device="meta")
+    with pytest.raises(KernelError, match="CUDA"):
+        ops.flash_attention_bwd(q, q, q, q, q)
+
+
+def test_wkv6_under_grad_off_the_cpu_is_refused():
+    """K6 has no backward kernel: off the CPU (a meta tensor stands in for a
+    CUDA one) a call under grad raises before anything launches; the CPU's
+    plain version stays differentiable."""
+    B, S, H, D = 1, 8, 2, 4
+    r, k, v, w = (torch.zeros((B, S, H, D), device="meta") for _ in range(4))
+    u = torch.zeros((H, D), device="meta", requires_grad=True)
+    n0 = k6.wkv6.launches
+    with pytest.raises(KernelError, match="no backward kernel"):
+        k6.wkv6(r, k, v, w, u)
+    assert k6.wkv6.launches == n0
+    g = torch.Generator().manual_seed(0)
+    x = [torch.randn((B, S, H, D), generator=g) for _ in range(3)]
+    logw = -torch.rand((B, S, H, D), generator=g)
+    uc = torch.randn((H, D), generator=g, requires_grad=True)
+    y, _ = k6.wkv6(*x, logw, uc)
+    y.sum().backward()
+    assert uc.grad is not None and torch.isfinite(uc.grad).all()

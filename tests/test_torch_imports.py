@@ -51,7 +51,11 @@ def test_import_loads_neither_jax_nor_reference():
             "repro_torch.launch.paper_tables",
             "repro_torch.launch.paper_figures",
             "repro_torch.launch.fig9_adaptation",
-            "repro_torch.launch.mesh"} <= set(mods)
+            "repro_torch.launch.mesh", "repro_torch.launch.train",
+            "repro_torch.train.steps", "repro_torch.optim.adamw",
+            "repro_torch.optim.compress", "repro_torch.data.pipeline",
+            "repro_torch.checkpoint.store", "repro_torch.fault.tolerance",
+            "repro_torch.tree"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
