@@ -87,7 +87,10 @@ kernel from the sources in the checkout (nvcc into ``build/``).  Phases:
    ``flash.cu``, the CUDA cores, for f32) and within that kernel's stated
    tolerance; the tensor-core kernel timed beside the
    CUDA-core one at the same shape, the plain version and
-   ``scaled_dot_product_attention`` (a yardstick only).  K6 (WKV6) at the
+   ``scaled_dot_product_attention`` (a yardstick only); each case on
+   ``flash_tc`` again with its log-sum-exp (the backward's input): the
+   output bit for bit the same, and on the edge cases the log-sum-exp
+   within f32 rounding of its plain version.  K6 (WKV6) at the
    rwkv6-3b prefill shape (4, 2048, 40, 64), at S = 2000 and under strong
    decay, output and final state, within the tolerance printed beside it,
    timed beside its plain version.  Then the
@@ -171,24 +174,30 @@ kernel from the sources in the checkout (nvcc into ``build/``).  Phases:
    one-launch fill.  With two cards or more, K = 2 also runs on two cards
    (eagerly); otherwise the phase says it did not.  The mesh launches no
    kernel (counted from zero around each run);
-9. train: K5's backward kernel (``flash_bwd.cu``) against its plain
-   version on the card at qwen2-1.5b's training shape, (2, 4096, 12, 128)
-   against (2, 4096, 2, 128) bf16 causal, and windowed, non-causal (S !=
-   T), MLA's (192, 128), f32 D-16 and ragged causal S != T cases, each
-   gradient within ``ops.bwd_tolerance`` (relative L2) and two runs the
-   same bits; at the training shape timed beside its bound, its plain
-   version and ``scaled_dot_product_attention``'s backward.  The first
-   micro-batch's gradients on K5's kernels: at full depth in bf16 against
-   the forward kernel with the plain backward (the same loss bits, each
-   layer's gradient within the backward's tolerance), and on the config
-   cut to two layers in f32 against the plain versions (printed: the
-   kernels against the plain versions in bf16).  Then the training entry
+9. train: K5's backward against its plain version on the card, each case
+   on the kernel the rule picks (``ops.bwd_variant``: ``flash_bwd_tc.cu``,
+   wgmma + TMA behind the forward kernel's log-sum-exp, for bf16 / f16 at
+   (64, 64), (128, 128) and (192, 128); ``flash_bwd.cu``, the CUDA cores,
+   otherwise), at qwen2-1.5b's training shape, (2, 4096, 12, 128) against
+   (2, 4096, 2, 128) bf16 causal, and windowed, non-causal (S != T), MLA's
+   (192, 128), f32 D-16, ragged causal S != T and (256, 256) cases, each
+   gradient within ``ops.bwd_tolerance`` of its variant (relative L2) and
+   two runs the same bits; at every case on ``flash_bwd_tc`` timed beside
+   its bound, ``flash_bwd.cu`` on the same inputs and
+   ``scaled_dot_product_attention``'s backward (and its plain version at
+   the training shape).  The first micro-batch's gradients on K5's
+   kernels: at full depth in bf16 against the forward kernel with the
+   plain backward (the same loss bits, each layer's gradient within 0.1,
+   and at two layers within the backward kernel's tolerance), and on the
+   config cut to two layers in f32 against the plain versions (printed:
+   the kernels against the plain versions in bf16).  Then the training entry
    point, ``repro_torch.launch.train.train``, on qwen2-1.5b at full width
    and depth (28 layers, f32 master weights and AdamW moments, bf16
    compute, remat "full"), cut from train_4k's global batch of 256 to 8
    sequences of 4096 tokens in 4 micro-batches, for 5 steps: every loss
    and grad norm finite, K5 launched 28 x 4 x 2 times forward (remat runs
-   each layer's forward twice) and 28 x 4 backward a step, peak memory
+   each layer's forward twice) and 28 x 4 backward a step, every backward
+   on ``flash_bwd_tc`` and none on ``flash_bwd``, peak memory
    under 80 GB; one more step under torch.profiler moves the weights
    beyond weight decay (an Adam step of at least 0.1 somewhere in the
    embedding and the first and last layers); printed: ms a step,
@@ -1794,7 +1803,9 @@ def flash_phase(dev):
     whisper-large-v3 (encoder and cross-attention, non-causal) and
     llama-3.2-vision-90b (self layers causal, cross layers non-causal, GQA
     8:1) prefill shapes and on the edge cases, each on the kernel the
-    wrapper's rule picks and within that kernel's tolerance; then the
+    wrapper's rule picks and within that kernel's tolerance, and on
+    ``flash_tc`` again with its log-sum-exp (:func:`lse_check`: the same
+    output bits; the log-sum-exp's values on the edge cases); then the
     timing block at the nine prefill shapes.  -> the kernels row
     (qwen2-1.5b's shape, granite's in ``granite_prefill``, deepseek-v2's in
     ``mla_prefill``, hymba's in ``hymba_prefill``, by window, whisper's in
@@ -1853,6 +1864,9 @@ def flash_phase(dev):
               f"K5 {label}: {variant} did not launch")
         check(ok, f"K5 {label}: kernel differs from its plain version "
               f"(max abs err {err})")
+        if variant == "flash_tc":
+            lse_check(label, got, q, k, v, causal, window,
+                      values=not label.endswith("prefill"))
         if label.startswith("rows"):
             check(bool((got[:, 19:] == 0).all()), "K5: a row with no valid "
                   "key is not 0")
@@ -1943,6 +1957,43 @@ def flash_phase(dev):
                 granite_prefill=granite, mla_prefill=mla,
                 hymba_prefill=hymba, whisper_prefill=whisper,
                 vlm_prefill=vlm)
+
+
+#: f32 tolerance of the forward's log-sum-exp against its plain version:
+#: values up to a few tens, summed in another order through ex2.approx
+LSE_TOL = dict(rtol=1e-5, atol=1e-4)
+
+
+def lse_check(label, out, q, k, v, causal, window, values):
+    """``flash_tc.cu`` again with its log-sum-exp: the output bit for bit
+    the call's without it, the rows past S +inf, and (``values``) each row
+    within :data:`LSE_TOL` of ``ref.flash_attention_lse_ref`` (+inf where
+    no key is valid)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as k5
+    from repro_torch.kernels.flash_attention.ref import flash_attention_lse_ref
+
+    again, lse = k5.launch("flash_tc", q, k, v, causal=causal,
+                           window=window, with_lse=True)
+    S = q.shape[1]
+    check(torch.equal(again, out), f"K5 {label}: the forward's output "
+          "differs with its log-sum-exp")
+    check(bool(torch.isposinf(lse[..., S:]).all()), f"K5 {label}: the "
+          "log-sum-exp's rows past S are not +inf")
+    if not values:
+        return
+    want = flash_attention_lse_ref(q, k, v, causal=causal, window=window)
+    got = lse[..., :S]
+    fin = torch.isfinite(want)
+    err = float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
+    ok = (torch.equal(torch.isposinf(got), torch.isposinf(want)) and bool(
+        torch.isclose(got[fin], want[fin], **LSE_TOL).all()))
+    log(f"K5 {label}: the forward's log-sum-exp, max abs err {err:.3g} "
+        f"(tolerance rtol {LSE_TOL['rtol']:g} atol {LSE_TOL['atol']:g}); "
+        "the output's bits the same without it")
+    check(ok, f"K5 {label}: the forward's log-sum-exp differs from its "
+          f"plain version (max abs err {err})")
 
 
 def hymba_timing(qkv, window, err):
@@ -2848,8 +2899,10 @@ TRAIN_GRAD_TOL_F32 = 1e-3
 #: full depth on K5's backward kernel against its plain backward (one
 #: forward): once two bf16 backwards round one element apart they part to
 #: the level of bf16 rounding carried through the layers below, measured
-#: 2.6e-4 at layer 27 (where the backward starts) and 1.5e-2 to 3.1e-2
-#: from layer 20 down; a zero or dropped gradient reads 1.0
+#: (``flash_bwd.cu``) 2.6e-4 at layer 27 (where the backward starts) and
+#: 1.5e-2 to 3.1e-2 from layer 20 down; a zero or dropped gradient reads
+#: 1.0.  At two layers the gate is the backward kernel's own tolerance
+#: (``ops.bwd_tolerance`` of the variant the training shape takes)
 TRAIN_GRAD_TOL_BF16_DEEP = 0.1
 #: K5's backward against its plain version: name, q, k/v, DV, type,
 #: causal, window
@@ -2862,6 +2915,7 @@ K5_BWD_CASES = (
     ("mla", (1, 1000, 16, 192), (1, 1000, 16, 192), 128, "bfloat16", True, 0),
     ("f32_d16", (2, 257, 4, 16), (2, 257, 2, 16), 16, "float32", True, 0),
     ("ragged", (1, 333, 6, 128), (1, 517, 2, 128), 128, "float16", True, 0),
+    ("d256", (2, 1024, 8, 256), (2, 1024, 4, 256), 256, "bfloat16", True, 0),
 )
 
 
@@ -2927,66 +2981,114 @@ def bwd_bound(q, k, v, causal, window):
     return times[what] * 1e3, what
 
 
-def k5_bwd_checks(dev):
-    """K5's backward kernel against its plain version on the card at
-    :data:`K5_BWD_CASES` (the forward on the kernel), each gradient within
-    ``ops.bwd_tolerance`` (relative L2), and two runs the same bits; at the
-    training shape timed beside its bound, its plain version and
-    ``scaled_dot_product_attention``'s backward (a yardstick only).  ->
-    the kernels row."""
+def sdpa_bwd_ms(q, k, v, dout, causal, window):
+    """-> (ms, backend) of ``scaled_dot_product_attention``'s backward on
+    K5's inputs (a yardstick only): ``is_causal`` (or not), or a boolean
+    (S, T) mask under a window, ``enable_gqa`` where K < H."""
     import torch
     import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+
+    S, H, T, K = q.shape[1], q.shape[2], k.shape[1], k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    mask = (attention_mask(S, T, causal, window, q.device) if window
+            else None)
+    kw = dict(is_causal=causal) if mask is None else dict(attn_mask=mask)
+    gqa = dict(enable_gqa=True) if K < H else {}
+    o = F.scaled_dot_product_attention(qt, kt, vt, **kw, **gqa)
+    gt = dout.transpose(1, 2).contiguous()
+    ms = cuda_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), gt,
+                                             retain_graph=True), 5)
+    how = sdpa_backend(qt.detach(), kt.detach(), vt.detach(), mask,
+                       gqa=bool(gqa), causal=causal)
+    return ms, ("enable_gqa, " if gqa else "") + how
+
+
+def k5_bwd_checks(dev):
+    """K5's backward against its plain version on the card at
+    :data:`K5_BWD_CASES`, each case on the kernel that ``ops.bwd_variant``
+    picks behind the forward kernel (``flash_bwd_tc`` reads the forward's
+    log-sum-exp): each gradient within ``ops.bwd_tolerance`` of its variant
+    (relative L2), two runs the same bits, one launch counted on the
+    variant.  Every case on ``flash_bwd_tc`` is timed beside its bound,
+    ``flash_bwd.cu`` on the same inputs (``ops.bwd_launch``) and
+    ``scaled_dot_product_attention``'s backward (a yardstick only); the
+    training shape also beside its plain version.  -> the kernels row (the
+    training shape's numbers, the other cases under ``cases``)."""
+    import torch
 
     from repro_torch.kernels.flash_attention import ops as k5
     from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
 
     gen = torch.Generator(dev).manual_seed(7)
-    row = {}
+    row, cases = {}, {}
     for name, qs, ks, DV, dt, causal, window in K5_BWD_CASES:
         dt = getattr(torch, dt)
         q = torch.randn(qs, generator=gen, device=dev).to(dt)
         k = torch.randn(ks, generator=gen, device=dev).to(dt)
         v = torch.randn((*ks[:3], DV), generator=gen, device=dev).to(dt)
+        kw = dict(causal=causal, window=window)
+        variant = k5.bwd_variant(dt, qs[-1], DV)
+        lse = None
         with torch.no_grad():
-            out = k5.flash_attention(q, k, v, causal=causal, window=window)
+            if variant == "flash_bwd_tc":
+                out, lse = k5.launch("flash_tc", q, k, v, with_lse=True, **kw)
+            else:
+                out = k5.flash_attention(q, k, v, **kw)
         dout = torch.randn(out.shape, generator=gen, device=dev).to(dt)
         args = (q, k, v, out, dout)
-        kw = dict(causal=causal, window=window)
-        got = k5.flash_attention_bwd(*args, **kw)
-        again = k5.flash_attention_bwd(*args, **kw)
+        n0 = k5.flash_attention.bwd_variant_launches[variant]
+        got = k5.flash_attention_bwd(*args, lse=lse, **kw)
+        again = k5.flash_attention_bwd(*args, lse=lse, **kw)
         torch.cuda.synchronize()
+        check(k5.flash_attention.bwd_variant_launches[variant] == n0 + 2,
+              f"K5 backward {name}: {variant} did not launch")
         want = flash_attention_bwd_ref(*args, **kw)
-        tol = k5.bwd_tolerance(dt)
+        tol = k5.bwd_tolerance(variant, dt)
         errs = [_rel_l2(g, w) for g, w in zip(got, want)]
         err = max(float((g.float() - w.float()).abs().max())
                   for g, w in zip(got, want))
         log(f"K5 backward {name}: q {qs} k/v {ks} DV {DV} {dt} causal "
-            f"{causal} window {window}: dq/dk/dv relative L2 "
+            f"{causal} window {window} on {variant}: dq/dk/dv relative L2 "
             + "/".join(f"{e:.3e}" for e in errs)
             + f" (gate {tol:.3e}), max abs {err:.3e}")
         check(all(e <= tol for e in errs),
               f"K5 backward {name} differs from its plain version: {errs}")
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
               f"K5 backward {name}: two runs differ")
-        if name != "train":
+        del got, again, want
+        if variant != "flash_bwd_tc":
             continue
-        ms = cuda_ms(lambda: k5.flash_attention_bwd(*args, **kw), 5)
-        plain = cuda_ms(lambda: flash_attention_bwd_ref(*args, **kw), 3)
+        ms = cuda_ms(lambda: k5.flash_attention_bwd(*args, lse=lse, **kw),
+                     10)
+        simt = cuda_ms(lambda: k5.bwd_launch("flash_bwd", *args, **kw), 2,
+                       warmup=1)
         bound, by = bwd_bound(q, k, v, causal, window)
-        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
-                      for x in (q, k, v))
-        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                           enable_gqa=True)
-        gt = dout.transpose(1, 2).contiguous()
-        lib = cuda_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), gt,
-                                                  retain_graph=True), 5)
-        log(f"K5 backward at the training shape: {ms:.4f} ms a launch, "
-            f"bound {bound:.4f} ms ({by}; {bound / ms:.1%} of it), plain "
-            f"version {plain:.4f} ms, SDPA's backward (is_causal, "
-            f"enable_gqa; {sdpa_backend(qt.detach(), kt.detach(), vt.detach(), gqa=True)}) "
+        lib, how = sdpa_bwd_ms(q, k, v, dout, causal, window)
+        log(f"K5 backward {name} on flash_bwd_tc: {ms:.4f} ms a call, bound "
+            f"{bound:.4f} ms ({by}; {bound / ms:.1%} of it); flash_bwd.cu "
+            f"{simt:.4f} ms ({simt / ms:.1f}x); SDPA's backward ({how}) "
             f"{lib:.4f} ms")
-        row = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
-                   bound_by=by, library_ms=lib)
+        cases[name] = dict(ms=ms, bound_ms=bound, bound_by=by,
+                           cuda_core_ms=simt, library_ms=lib,
+                           max_abs_err=err)
+        if name == "train":
+            plain = cuda_ms(lambda: flash_attention_bwd_ref(*args, **kw), 3)
+            def once():          # the profiler stops after the launches end
+                k5.flash_attention_bwd(*args, lse=lse, **kw)
+                torch.cuda.synchronize()
+            split, why = device_times(once)
+            split = ", ".join(
+                f"{n.split('<')[0].split('::')[-1]} {us:.1f} us"
+                for n, us in split.items()) if split else why
+            log(f"K5 backward at the training shape: plain version "
+                f"{plain:.4f} ms; device time by launch: {split}")
+            row = dict(variant=variant, max_abs_err=err, ms=ms,
+                       plain_ms=plain, bound_ms=bound, bound_by=by,
+                       library_ms=lib, cuda_core_ms=simt)
+    row["cases"] = cases
     return row
 
 
@@ -3039,8 +3141,9 @@ def train_grad_check(dev, cfg, tokens, labels):
     launches, so the losses must be the same bits and the gradients differ
     only by the backward's rounding, carried back through the layers: on
     the config cut to two layers at full width each layer's within
-    ``ops.bwd_tolerance`` of bf16, the backward kernel's own; at full depth
-    within :data:`TRAIN_GRAD_TOL_BF16_DEEP`.  A zero or dropped gradient
+    ``ops.bwd_tolerance`` of the variant the config's head dims take in
+    bf16, the backward kernel's own (``flash_bwd_tc``: 2**-6); at full
+    depth within :data:`TRAIN_GRAD_TOL_BF16_DEEP`.  A zero or dropped gradient
     reads 1.0 and fails both.  Gated in f32 compute, on the two layers
     (``flash.cu`` forward, the backward's f32 instance): the embedding's
     and layers 0-1's gradients on the kernels within
@@ -3061,7 +3164,8 @@ def train_grad_check(dev, cfg, tokens, labels):
     from repro_torch.nn import layers
 
     seams = {"kernel": layers._k5, **k5_seams()}
-    tol = k5.bwd_tolerance(torch.bfloat16)
+    tol = k5.bwd_tolerance(k5.bwd_variant(torch.bfloat16, cfg.head_dim),
+                           torch.bfloat16)
     cut = dataclasses.replace(cfg, n_layers=2)
     cut32 = dataclasses.replace(cut, compute_dtype="float32")
     for c, names in ((cfg, ("kernel", "mixed", "plain")),
@@ -3181,20 +3285,25 @@ def train_phase(dev, seed):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     k5.flash_attention.launches = k5.flash_attention.bwd_launches = 0
+    k5.flash_attention.bwd_variant_launches = dict.fromkeys(k5.BWD_SOURCES,
+                                                            0)
     t0 = time.perf_counter()
     r = T.train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                 log_every=1, device="cuda", accum_steps=TRAIN_ACCUM)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fwd, bwd = k5.flash_attention.launches, k5.flash_attention.bwd_launches
+    by_variant = dict(k5.flash_attention.bwd_variant_launches)
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     want = cfg.n_layers * TRAIN_ACCUM * TRAIN_STEPS
     log(f"train {cfg.name}: {TRAIN_STEPS} steps in {wall:.1f} s (model "
         f"init included); K5 launches forward {fwd} (expected {2 * want}: "
         f"remat runs each layer's forward twice), backward {bwd} (expected "
-        f"{want}); peak memory {peak:.3f} GB")
+        f"{want}), by variant {by_variant}; peak memory {peak:.3f} GB")
     check(fwd == 2 * want and bwd == want,
           f"train: K5 launches forward {fwd}, backward {bwd}")
+    check(by_variant == dict(flash_bwd_tc=want, flash_bwd=0),
+          f"train: K5 backward launches by variant {by_variant}")
     check(all(np.isfinite(r["losses"])), f"train: losses {r['losses']}")
     check(all(np.isfinite(r["grad_norms"])),
           f"train: grad norms {r['grad_norms']}")
@@ -3238,6 +3347,12 @@ def train_phase(dev, seed):
             f"device busy {busy * 1e3:.1f} ms ({busy / wall['s']:.2%}); "
             f"top kernels " + "; ".join(f"{k[:60]} {v / 1e3:.1f} ms"
                                         for k, v in top))
+        k5_us = {part: sum(v for k, v in times.items() if key in k)
+                 for part, key in (("forward", "flash_tc_fwd"),
+                                   ("backward", "flash_bwd_tc_"))}
+        log("train step under torch.profiler: K5 " + ", ".join(
+            f"{part} {us / 1e3:.1f} ms ({us / 1e6 / busy:.1%} of the device "
+            f"time)" for part, us in k5_us.items()))
     else:
         log(f"train step busy share not measured: {why}")
     log(f"train: {n_params} parameters, {6 * n_params * tokens / 1e12:.1f} "
@@ -3563,7 +3678,7 @@ def main(argv=None):
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     sources = [tiles.SOURCE, k3.SOURCE, *k5.SOURCES.values(),
-               k5.BWD_SOURCE, k6.SOURCE]
+               *k5.BWD_SOURCES.values(), k6.SOURCE]
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc each
         builds = [pool.submit(_build.build, src) for src in sources]
         for b in builds:
@@ -3572,7 +3687,8 @@ def main(argv=None):
     k3.library()
     for name in k5.SOURCES:
         k5.library(name)
-    k5.bwd_library()
+    for name in k5.BWD_SOURCES:
+        k5.bwd_library(name)
     k6.library()
     log(f"built {', '.join(src.name for src in sources)} in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -3665,7 +3781,7 @@ def main(argv=None):
         "flash_attention_bwd": dict(
             route="cuda",
             source="src/repro_torch/kernels/flash_attention/csrc/"
-                   "flash_bwd.cu",
+                   "flash_bwd_tc.cu",
             replaces="src/repro/nn/layers.py:104"),
     }
     log(f"chip_smoke phases {','.join(sorted(phases))}: "

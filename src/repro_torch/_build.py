@@ -3,8 +3,10 @@
 ``nvcc`` compiles each ``csrc/*.cu`` file by hand into ``build/`` at the
 root of the checkout, as a library with a plain C interface that
 :mod:`ctypes` loads (no PyTorch headers, so a build takes seconds).  The
-library's name carries a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused.  Builds run on first use,
+library's name carries a hash of the source, of the local headers it
+includes (``#include "name"``, found beside the file that includes it, and
+theirs in turn) and of the flags, so an edited source or header is rebuilt
+and an unchanged one is reused.  Builds run on first use,
 never at import.
 """
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -40,9 +43,27 @@ def nvcc() -> str:
     return found
 
 
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def local_headers(source: Path) -> list[Path]:
+    """The headers that ``source`` includes by ``#include "name"`` from
+    beside it, and those that they include, each once, in the order met."""
+    found, todo = [], [source]
+    while todo:
+        here = todo.pop(0)
+        for name in _LOCAL_INCLUDE.findall(here.read_bytes()):
+            path = here.parent / name.decode()
+            if path.exists() and path not in found:
+                found.append(path)
+                todo.append(path)
+    return found
+
+
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    data = source.read_bytes() + b"".join(
+        h.read_bytes() for h in local_headers(source))
+    digest = hashlib.sha256(data + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
 
 

@@ -71,26 +71,22 @@
 //   131072 + 1024 = 197632; (192, 128): 49152 + 98304 + 65536 + 1024 =
 //   214016; all within the 232448 a block may use.  (A third stage fits at
 //   D <= 128 but measured no faster.)
-// - Layout: every tile is kept as 64-element (128-byte) column chunks of
-//   [rows][64], written by TMA with the 128-byte swizzle that the wgmma
-//   descriptors name; a D = 128 row is two TMA boxes, a DQK = 192 row
-//   three.  The tensor maps are 4-D, (DQK, H, S, B) for q, (DQK, K, T, B)
-//   for k and (DV, K, T, B) for v, built on the host
-//   from the wrapper's strides with cuTensorMapEncodeTiled, looked up at run
-//   time through the CUDA runtime (no -lcuda); TMA zero-fills rows past S
-//   and T, and the store skips rows >= S.
-// - A barrier wait that has not completed after about 10 s of clock traps,
-//   so a fault in the pipeline ends the launch with an error instead of
-//   hanging the card.
-#include <cuda.h>                 // CUtensorMap and its enums (types only)
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-#include <stdio.h>
-
+// - Layout (sm90.cuh, which holds the PTX wrappers this kernel shares with
+//   flash_bwd_tc.cu): every tile is kept as 64-element (128-byte) column
+//   chunks of [rows][64] in the 128-byte swizzle; a D = 128 row is two TMA
+//   boxes, a DQK = 192 row three.  The tensor maps are 4-D, (DQK, H, S, B)
+//   for q, (DQK, K, T, B) for k and (DV, K, T, B) for v, built on the host
+//   from the wrapper's strides; TMA zero-fills rows past S and T, and the
+//   store skips rows >= S.
+// - The log-sum-exp, only when asked (a non-null lse, under autograd): each
+//   row's lse2 = m * scale_log2 + log2(l), in the kernel's own log2 domain,
+//   +inf for a row with no valid key and for the rows of the last tile past
+//   S, into a (B, H, SP) f32 buffer, SP = S rounded up to BQ.  The
+//   backward (flash_bwd_tc.cu) takes p = exp2(s * scale_log2 - lse2) from
+//   it.  With a null lse the output's bits are the same.
 #include <type_traits>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -98,8 +94,6 @@ constexpr int BQ = 128;           // query rows of a CTA
 constexpr int WG_ROWS = 64;       // query rows of a consumer warpgroup
 constexpr int NTHREADS = 384;     // producer + two consumer warpgroups
 constexpr int STAGES = 2;         // K/V ring
-constexpr int CHUNK = 64;         // elements of a 128-byte swizzled row
-constexpr int ROW_BYTES = 128;
 constexpr int CONSUMER_WARPS = 8;
 
 template <int DQK, int DV>
@@ -113,81 +107,7 @@ struct Cfg {
   static constexpr int SMEM = Q_BYTES + STAGES * (K_BYTES + V_BYTES) + 1024;
 };
 
-// -- PTX wrappers -------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// Wait until the barrier has completed the phase of the given parity.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  const long long t0 = clock64();
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (clock64() - t0 > 20000000000LL) __trap();
-  }
-}
-
-// One TMA box of a 4-D tensor map into shared memory, completing on bar.
-__device__ __forceinline__ void tma_load_4d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-        "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of a wgmma operand across
-// the asynchronous instructions that use it.
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// Shared-memory matrix descriptor of a tile in the 128-byte swizzle: start
-// address, leading and stride byte offsets (in 16-byte units), layout 1.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
-         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
+// -- the consumers' turns and softmax -----------------------------------------
 
 // Named barriers between the two consumer warpgroups (id 0 is
 // __syncthreads): a turn starts with bar_sync on one's own barrier and
@@ -201,135 +121,6 @@ __device__ __forceinline__ void bar_arrive(int id) {
   if constexpr (ON) asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory");
 }
 
-// 2^x in one MUFU op (relative error about 2^-22; results below 2^-126 are
-// 0, as they are for every masked key)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi);
-template <>
-__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-template <>
-__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
-  __half2 v = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// -- wgmma ------------------------------------------------------------------
-
-// d (64 x 64, f32) (+)= A (64 x 16) . B (16 x 64), A and B in shared
-// memory, both K-major.
-#define MMA_SS_N64(TY)                                             \
-  asm volatile(                                                    \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                 \
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
-      "%0, %1, %2, %3, %4, %5, %6, %7, "                           \
-      "%8, %9, %10, %11, %12, %13, %14, %15, "                     \
-      "%16, %17, %18, %19, %20, %21, %22, %23, "                   \
-      "%24, %25, %26, %27, %28, %29, %30, %31"                     \
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                           \
-      :                                                            \
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),            \
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),            \
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),          \
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),        \
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),        \
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),        \
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),        \
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])         \
-      : "l"(da), "l"(db), "r"(accumulate))
-template <bool F16>
-__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da,
-                                           uint64_t db, int accumulate) {
-  if constexpr (F16) MMA_SS_N64("f16"); else MMA_SS_N64("bf16");
-}
-#undef MMA_SS_N64
-
-// d (64 x 128, f32) (+)= A (64 x 16) . B (16 x 128), A and B in shared
-// memory, both K-major.
-#define MMA_SS_N128(TY)                                             \
-  asm volatile(                                                     \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                  \
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
-      "%0, %1, %2, %3, %4, %5, %6, %7, "                            \
-      "%8, %9, %10, %11, %12, %13, %14, %15, "                      \
-      "%16, %17, %18, %19, %20, %21, %22, %23, "                    \
-      "%24, %25, %26, %27, %28, %29, %30, %31, "                    \
-      "%32, %33, %34, %35, %36, %37, %38, %39, "                    \
-      "%40, %41, %42, %43, %44, %45, %46, %47, "                    \
-      "%48, %49, %50, %51, %52, %53, %54, %55, "                    \
-      "%56, %57, %58, %59, %60, %61, %62, %63"                      \
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                            \
-      :                                                             \
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),             \
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),             \
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),           \
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),         \
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),         \
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),         \
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),         \
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),         \
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),         \
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),         \
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),         \
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),         \
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),         \
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),         \
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),         \
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])          \
-      : "l"(da), "l"(db), "r"(accumulate))
-template <bool F16>
-__device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t da,
-                                           uint64_t db, int accumulate) {
-  if constexpr (F16) MMA_SS_N128("f16"); else MMA_SS_N128("bf16");
-}
-#undef MMA_SS_N128
-
-// d (64 x 64, f32) (+)= A (64 x 16) . B (16 x 64), A in registers (the
-// 16-bit fragment), B in shared memory MN-major (the transpose bit, which
-// 16-bit wgmma allows).
-#define MMA_RS_N64(TY)                                             \
-  asm volatile(                                                    \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                 \
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
-      "%0, %1, %2, %3, %4, %5, %6, %7, "                           \
-      "%8, %9, %10, %11, %12, %13, %14, %15, "                     \
-      "%16, %17, %18, %19, %20, %21, %22, %23, "                   \
-      "%24, %25, %26, %27, %28, %29, %30, %31"                     \
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"             \
-      :                                                            \
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),            \
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),            \
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),          \
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),        \
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),        \
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),        \
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),        \
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])         \
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),       \
-        "r"(accumulate))
-template <bool F16>
-__device__ __forceinline__ void mma_rs_n64(float (&d)[32],
-                                           const uint32_t (&a)[4], uint64_t db,
-                                           int accumulate) {
-  if constexpr (F16) MMA_RS_N64("f16"); else MMA_RS_N64("bf16");
-}
-#undef MMA_RS_N64
-
-template <bool F16, int N>
-__device__ __forceinline__ void mma_qk(float (&d)[N / 2], uint64_t da,
-                                       uint64_t db, int accumulate) {
-  if constexpr (N == 128) mma_ss_n128<F16>(d, da, db, accumulate);
-  else mma_ss_n64<F16>(d, da, db, accumulate);
-}
-
 // Whether key tile [k0, k0 + BK) holds a key hidden from some row of the
 // warpgroup's 64 rows from r_lo: past T, above the diagonal, or beyond the
 // window.  Only such tiles are masked.
@@ -337,38 +128,6 @@ __device__ __forceinline__ bool is_edge(int k0, int BK, int r_lo, int Tn,
                                         int causal, int window) {
   return k0 + BK > Tn || (causal && k0 + BK - 1 > r_lo) ||
          (window > 0 && r_lo + WG_ROWS - 1 - k0 >= window);
-}
-
-// S = Q K^T of one key tile: DQK / 16 k-steps, 16 elements (32 bytes) each
-// along the 64-element chunks of Q and K.
-template <bool F16, int DQK, int BK>
-__device__ __forceinline__ void qk_tile(float (&sc)[BK / 2], uint32_t q_wg,
-                                         uint32_t kd) {
-#pragma unroll
-  for (int kk = 0; kk < DQK / 16; ++kk) {
-    const uint32_t off = (kk % 4) * 32;
-    mma_qk<F16, BK>(
-        sc, desc_sw128(q_wg + (kk / 4) * BQ * ROW_BYTES + off, 16, 1024),
-        desc_sw128(kd + (kk / 4) * BK * ROW_BYTES + off, 16, 1024), kk > 0);
-  }
-}
-
-// O += P V of one key tile: one m64n64k16 per k-step and 64-wide chunk of
-// DV; V's chunks are BK * 128 bytes apart (the leading byte offset of an
-// MN-major operand), its 8-key groups 1024 (the stride byte offset).
-template <bool F16, int NC, int BK>
-__device__ __forceinline__ void pv_tile(float (&acc)[NC][32],
-                                         const uint32_t (&pa)[BK / 16][4],
-                                         uint32_t vd) {
-#pragma unroll
-  for (int t = 0; t < BK / 16; ++t)
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      mma_rs_n64<F16>(
-          acc[c], pa[t],
-          desc_sw128(vd + c * BK * ROW_BYTES + t * 16 * ROW_BYTES,
-                     BK * ROW_BYTES, 1024),
-          1);
 }
 
 // The online-softmax step of one key tile, in registers.  Masks the scores
@@ -423,26 +182,15 @@ __device__ __forceinline__ void softmax_tile(
   for (int i = 0; i < 2; ++i) l_run[i] = l_run[i] * alpha[i] + rs[i];
 }
 
-// P rounded to the input type: the A fragment of k-step t is the
-// accumulator's 8-wide groups 2t and 2t + 1, packed in pairs.
-template <typename T, int BK>
-__device__ __forceinline__ void pack_p(const float (&sc)[BK / 2],
-                                       uint32_t (&pa)[BK / 16][4]) {
-#pragma unroll
-  for (int t = 0; t < BK / 16; ++t)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      pa[t][i] = pack2<T>(sc[8 * t + 2 * i], sc[8 * t + 2 * i + 1]);
-}
-
 // -- the kernel ---------------------------------------------------------------
 
 template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_tc_fwd(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tk,
-             const __grid_constant__ CUtensorMap tv, T* __restrict__ o, int H,
-             int K, int S, int Tn, int causal, int window, float scale_log2) {
+             const __grid_constant__ CUtensorMap tv, T* __restrict__ o,
+             float* __restrict__ lse, int H, int K, int S, int Tn, int causal,
+             int window, float scale_log2) {
   using C = Cfg<DQK, DV>;
   constexpr int BK = C::BK, NC_QK = C::NC_QK, NC_V = C::NC_V;
   constexpr bool F16 = std::is_same<T, __half>::value;
@@ -606,13 +354,18 @@ flash_tc_fwd(const __grid_constant__ CUtensorMap tq,
       if (lane == 0) mbar_arrive(v_empty + 8 * s);
     }
 
-    // out = O / l, rows >= S skipped; a row with no valid key gives 0
+    // out = O / l, rows >= S skipped; a row with no valid key gives 0.
+    // lse2 (if asked) for every row of the tile, +inf where l = 0 or past S
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       float l = l_run[i];
       l += __shfl_xor_sync(0xffffffffu, l, 1);
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       const int qp = ra + 8 * i;
+      if (lse != nullptr && lane % 4 == 0)
+        lse[(static_cast<long long>(b) * H + h) * (gridDim.y * BQ) + qp] =
+            qp >= S || l == 0.f ? INFINITY
+                                : m_run[i] * scale_log2 + log2f(l);
       if (qp >= S) continue;
       T* orow = o + ((static_cast<long long>(b) * S + qp) * H + h) * DV;
 #pragma unroll
@@ -630,69 +383,22 @@ flash_tc_fwd(const __grid_constant__ CUtensorMap tq,
 
 // -- host ---------------------------------------------------------------------
 
-constexpr int ERR_NO_ENCODE = 20000;   // cuTensorMapEncodeTiled not found
-constexpr int ERR_ENCODE = 10000;      // + the CUresult of a refused map
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 4-D map over (D, heads, rows, B) of a (B, rows, heads, D) tensor whose
-// strides (in elements) are given; boxes of 64 x 1 x box_rows x 1.
-int make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
-             int D, int heads, int rows, int B, long long s_head,
-             long long s_row, long long s_b, int box_rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return ERR_NO_ENCODE;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
-                              (cuuint64_t)rows, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)s_head * 2, (cuuint64_t)s_row * 2,
-                                 (cuuint64_t)s_b * 2};
-  const cuuint32_t box[4] = {CHUNK, 1, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  CUresult r = fn(map, type, 4, const_cast<void*>(ptr), dims, strides, box,
-                  elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                  CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
-}
-
 struct Strides {                 // in elements; the last dim is contiguous
   long long qb, qs, qh, kb, ks, kh, vb, vs, vh;
 };
 
 template <typename T, int DQK, int DV>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int K, int S, int Tn, Strides st, int causal, int window,
-           float scale_log2, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int K, int S, int Tn, Strides st, int causal,
+           int window, float scale_log2, cudaStream_t stream) {
   using C = Cfg<DQK, DV>;
   const CUtensorMapDataType type = std::is_same<T, __half>::value
                                        ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap tq, tk, tv;
-  int rc = make_map(&tq, type, q, DQK, H, S, B, st.qh, st.qs, st.qb, BQ);
+  int rc = current_context();
+  if (rc == 0) rc = make_map(&tq, type, q, DQK, H, S, B, st.qh, st.qs, st.qb,
+                             BQ);
   if (rc == 0) rc = make_map(&tk, type, k, DQK, K, Tn, B, st.kh, st.ks,
                              st.kb, C::BK);
   if (rc == 0) rc = make_map(&tv, type, v, DV, K, Tn, B, st.vh, st.vs, st.vb,
@@ -704,7 +410,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * H, (S + BQ - 1) / BQ);
   flash_tc_fwd<T, DQK, DV><<<grid, NTHREADS, C::SMEM, stream>>>(
-      tq, tk, tv, static_cast<T*>(o), H, K, S, Tn, causal, window,
+      tq, tk, tv, static_cast<T*>(o), lse, H, K, S, Tn, causal, window,
       scale_log2);
   return (int)cudaGetLastError();
 }
@@ -712,14 +418,15 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 // The (DQK, DV) instances: equal head dims 64, 128, 256, and MLA's
 // (192, 128).
 template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, void* o, int B,
-               int H, int K, int S, int Tn, int D, int DV, Strides st,
-               int causal, int window, float scale_log2, cudaStream_t stream) {
+int dispatch_d(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int H, int K, int S, int Tn, int D, int DV,
+               Strides st, int causal, int window, float scale_log2,
+               cudaStream_t stream) {
   switch (D * 1000 + DV) {
-    case 64064: return launch<T, 64, 64>(q, k, v, o, B, H, K, S, Tn, st, causal, window, scale_log2, stream);
-    case 128128: return launch<T, 128, 128>(q, k, v, o, B, H, K, S, Tn, st, causal, window, scale_log2, stream);
-    case 256256: return launch<T, 256, 256>(q, k, v, o, B, H, K, S, Tn, st, causal, window, scale_log2, stream);
-    case 192128: return launch<T, 192, 128>(q, k, v, o, B, H, K, S, Tn, st, causal, window, scale_log2, stream);
+    case 64064: return launch<T, 64, 64>(q, k, v, o, lse, B, H, K, S, Tn, st, causal, window, scale_log2, stream);
+    case 128128: return launch<T, 128, 128>(q, k, v, o, lse, B, H, K, S, Tn, st, causal, window, scale_log2, stream);
+    case 256256: return launch<T, 256, 256>(q, k, v, o, lse, B, H, K, S, Tn, st, causal, window, scale_log2, stream);
+    case 192128: return launch<T, 192, 128>(q, k, v, o, lse, B, H, K, S, Tn, st, causal, window, scale_log2, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -731,11 +438,13 @@ extern "C" {
 // dtype: 1 bf16, 2 f16.  D is the head dim of q and k, DV that of v.
 // Strides in elements, q/k/v last dim contiguous, every other stride and
 // each base address a multiple of 16 bytes (TMA); o is (B, S, H, DV)
-// contiguous.  scale_log2 = log2(e) / sqrt(D).  Returns 0, a cudaError_t,
-// or a code that flash_tc_error explains.
+// contiguous.  scale_log2 = log2(e) / sqrt(D).  lse: null, or a (B, H, SP)
+// f32 buffer, SP = S rounded up to 128, that receives each row's
+// log-sum-exp in the log2 domain (+inf past S and where no key is valid).
+// Returns 0, a cudaError_t, or a code that flash_tc_error explains.
 int flash_tc_launch(const void* q, const void* k, const void* v, void* o,
-                    int dtype, int B, int H, int K, int S, int Tn, int D,
-                    int DV, long long qb, long long qs, long long qh,
+                    void* lse, int dtype, int B, int H, int K, int S, int Tn,
+                    int D, int DV, long long qb, long long qs, long long qh,
                     long long kb, long long ks, long long kh, long long vb,
                     long long vs, long long vh, int causal, int window,
                     float scale_log2, void* stream) {
@@ -744,23 +453,14 @@ int flash_tc_launch(const void* q, const void* k, const void* v, void* o,
     return (int)cudaErrorInvalidValue;
   Strides st{qb, qs, qh, kb, ks, kh, vb, vs, vh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (dtype) {
-    case 1: return dispatch_d<__nv_bfloat16>(q, k, v, o, B, H, K, S, Tn, D, DV, st, causal, window, scale_log2, s);
-    case 2: return dispatch_d<__half>(q, k, v, o, B, H, K, S, Tn, D, DV, st, causal, window, scale_log2, s);
+    case 1: return dispatch_d<__nv_bfloat16>(q, k, v, o, l, B, H, K, S, Tn, D, DV, st, causal, window, scale_log2, s);
+    case 2: return dispatch_d<__half>(q, k, v, o, l, B, H, K, S, Tn, D, DV, st, causal, window, scale_log2, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-const char* flash_tc_error(int code) {
-  static char msg[96];
-  if (code == ERR_NO_ENCODE)
-    return "cuTensorMapEncodeTiled not found";
-  if (code >= ERR_ENCODE) {
-    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled refused a map (CUresult %d)",
-             code - ERR_ENCODE);
-    return msg;
-  }
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
+const char* flash_tc_error(int code) { return launch_error(code); }
 
 }  // extern "C"

@@ -25,12 +25,22 @@ version.
 
 Under autograd (grad enabled and an input that requires grad) the call is
 a :class:`torch.autograd.Function` whose forward is the same dispatch and
-whose backward is :func:`flash_attention_bwd`: on CUDA the hand-written
-``csrc/flash_bwd.cu`` (dq, dk and dv for every case the forward takes,
-f32 sums on the CUDA cores, two launches a call and no atomics), on the
-CPU its plain version :func:`.ref.flash_attention_bwd_ref`.
-``flash_attention.bwd_launches`` counts backward calls on the card;
-:func:`bwd_tolerance` states how far the kernel's gradients may lie from
+whose backward is :func:`flash_attention_bwd`: on the CPU the plain
+version :func:`.ref.flash_attention_bwd_ref`; on CUDA one of two
+hand-written kernels, by a rule on the type and the head dims alone
+(:func:`bwd_variant`):
+
+- ``"flash_bwd_tc"`` (``csrc/flash_bwd_tc.cu``, every product on wgmma,
+  tiles fed by TMA, no atomics): bf16 and f16 at (64, 64), (128, 128)
+  and (192, 128).  It takes p from the forward's log-sum-exp, which the
+  Function's forward asks ``flash_tc.cu`` for and saves.
+- ``"flash_bwd"`` (``csrc/flash_bwd.cu``, f32 sums on the CUDA cores, two
+  launches a call and no atomics): every other case the forward takes.
+
+No backward call gives way from one kernel to the other, or to the plain
+version.  ``flash_attention.bwd_launches`` counts backward calls on the
+card and ``flash_attention.bwd_variant_launches`` counts them by variant;
+:func:`bwd_tolerance` states how far each kernel's gradients may lie from
 the plain version's.
 """
 from __future__ import annotations
@@ -43,7 +53,8 @@ import torch
 
 from repro_torch import _build
 from repro_torch.kernels import KernelError
-from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+from repro_torch.kernels.flash_attention.ref import (BQ_LSE,
+                                                    flash_attention_bwd_ref,
                                                     flash_attention_ref)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -57,9 +68,14 @@ TC_HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
 
 #: unit roundoff of the type P is rounded to before the tensor cores' PV
 UNIT_ROUNDOFF = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
-BWD_SOURCE = CSRC / "flash_bwd.cu"
-#: the backward kernel's (q/k, v) head dims, in each of the three types
+BWD_SOURCES = {"flash_bwd_tc": CSRC / "flash_bwd_tc.cu",
+               "flash_bwd": CSRC / "flash_bwd.cu"}
+#: the CUDA-core backward, which takes every case the forward takes
+BWD_SOURCE = BWD_SOURCES["flash_bwd"]
+#: the CUDA-core backward's (q/k, v) head dims, in each of the three types
 BWD_HEAD_DIMS = tuple((D, D) for D in HEAD_DIMS) + ((192, 128),)
+#: the tensor-core backward's (q/k, v) head dims, bf16 and f16
+BWD_TC_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -70,6 +86,23 @@ def variant(dtype: torch.dtype, dqk: int, dv: int | None = None) -> str:
     if dtype in TC_DTYPES and (dqk, dqk if dv is None else dv) in TC_HEAD_DIMS:
         return "flash_tc"
     return "flash"
+
+
+def bwd_variant(dtype: torch.dtype, dqk: int, dv: int | None = None) -> str:
+    """The backward kernel a CUDA call of this type and these head dims
+    launches: ``"flash_bwd_tc"`` for bf16 / f16 at
+    :data:`BWD_TC_HEAD_DIMS`, ``"flash_bwd"`` for every other case.
+
+    (256, 256) stays on ``flash_bwd.cu``: a warpgroup of the tensor-core
+    kernel's dK/dV launch holds dK and dV of its 64 keys in f32 across the
+    whole query loop beside its S^T and dP^T fragments (32 registers
+    each), 128 + 128 + 64 registers a thread at (256, 256), beyond the 255
+    a thread may have.  f32 (no TF32 enters) and D 16/32 stay there as
+    they stay on ``flash.cu`` in the forward."""
+    if (dtype in TC_DTYPES
+            and (dqk, dqk if dv is None else dv) in BWD_TC_HEAD_DIMS):
+        return "flash_bwd_tc"
+    return "flash_bwd"
 
 
 def tolerance(variant_name: str, dtype: torch.dtype, v) -> dict:
@@ -114,9 +147,10 @@ def library(variant_name: str = "flash_tc") -> ctypes.CDLL:
         lib = _build.load(SOURCES[variant_name])
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         launch = getattr(lib, ENTRY[variant_name] + "_launch")
-        dims = 8 if variant_name == "flash_tc" else 7    # flash_tc takes DV
-        launch.argtypes = ([ptr] * 4 + [i32] * dims + [i64] * 9
-                           + [i32, i32, ctypes.c_float, ptr])
+        # flash_tc also takes the log-sum-exp's buffer and DV
+        tc = variant_name == "flash_tc"
+        launch.argtypes = ([ptr] * (5 if tc else 4) + [i32] * (8 if tc else 7)
+                           + [i64] * 9 + [i32, i32, ctypes.c_float, ptr])
         launch.restype = i32
         error = getattr(lib, ENTRY[variant_name] + "_error")
         error.argtypes = [i32]
@@ -125,20 +159,39 @@ def library(variant_name: str = "flash_tc") -> ctypes.CDLL:
     return lib
 
 
-def bwd_tolerance(dtype: torch.dtype) -> float:
+def bwd_tolerance(variant_name: str, dtype: torch.dtype) -> float:
     """The relative L2 distance (``||a - b|| / ||b||``, each of dq, dk and
-    dv) within which ``csrc/flash_bwd.cu`` equals
+    dv) within which the backward kernel ``variant_name`` equals
     :func:`.ref.flash_attention_bwd_ref` on the same inputs.
 
-    Both compute every product and sum in f32 from the same inputs and the
-    same forward output, and differ only in the order of their sums; then
-    each rounds its gradients to the inputs' type.  A rounding to nearest
-    moves an element by at most u times its size (u = 2**-8 bf16, 2**-11
-    f16), and the two may round to neighbours on either side: 2u, 2**-7
-    for bf16 and 2**-10 for f16.  In f32 only the sums' orders differ: at
-    most about sqrt(n) u32 times a gradient's condition (the sum of its
-    terms' sizes over its size), 1e-4 for n up to 2**14 terms at a
-    condition up to 200 (u32 = 2**-24)."""
+    ``flash_bwd`` (``csrc/flash_bwd.cu``): both compute every product and
+    sum in f32 from the same inputs and the same forward output, and differ
+    only in the order of their sums; then each rounds its gradients to the
+    inputs' type.  A rounding to nearest moves an element by at most u
+    times its size (u = 2**-8 bf16, 2**-11 f16), and the two may round to
+    neighbours on either side: 2u, 2**-7 for bf16 and 2**-10 for f16.  In
+    f32 only the sums' orders differ: at most about sqrt(n) u32 times a
+    gradient's condition (the sum of its terms' sizes over its size), 1e-4
+    for n up to 2**14 terms at a condition up to 200 (u32 = 2**-24).
+
+    ``flash_bwd_tc`` (``csrc/flash_bwd_tc.cu``, bf16 and f16): 4u, 2**-6
+    for bf16 and 2**-9 for f16.  Beyond the 2u of the outputs' roundings it
+    rounds two operands to the input type before their products, as every
+    tensor-core flash backward does: P before dV = P^T dO, and dS before
+    dQ = dS K and dK = dS^T Q.  Each rounded element moves by at most u of
+    itself, by roundings to nearest that are independent and of mean 0, so
+    a gradient y = sum_t a_t b_t whose a_t are rounded moves by a root mean
+    square of at most u * ||(sum_t (a_t b_t)**2)**0.5|| / ||y||: u times
+    the ratio of its terms' root sum of squares to its size, 1 for terms of
+    independent signs (dS sums to 0 along a row, and dO, Q and K carry no
+    sign), taken here up to 2: 2u.  p itself comes from the forward's
+    log-sum-exp through ex2.approx (2**-22 relative) and the f32 rounding
+    of s * scale_log2 - lse2 (|lse2| 2**-24, below 2**-18 while |lse2| <
+    64): far below u.  In f16, dS is rounded to f16, whose normal range
+    starts at 2**-14: a backward whose dS lies below it (f16 without loss
+    scaling) loses those terms; bf16 keeps f32's range."""
+    if variant_name == "flash_bwd_tc":
+        return 4 * UNIT_ROUNDOFF[dtype]
     return {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7,
             torch.float16: 2.0 ** -10}[dtype]
 
@@ -151,23 +204,31 @@ def _forward(q, k, v, causal, window):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K5 under autograd: the forward's dispatch, and the backward kernel
-    (its plain version on the CPU) for the gradient."""
+    """K5 under autograd: the forward's dispatch (on the card with the
+    log-sum-exp where the backward's rule picks ``flash_bwd_tc``), and the
+    backward kernel (its plain version on the CPU) for the gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        out = _forward(q, k, v, causal, window)
-        ctx.save_for_backward(q, k, v, out)
+        lse = None
+        if (q.device.type != "cpu"
+                and bwd_variant(q.dtype, q.shape[-1], v.shape[-1])
+                == "flash_bwd_tc"):
+            out, lse = launch("flash_tc", q, k, v, causal=causal,
+                              window=window, with_lse=True)
+        else:
+            out = _forward(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = (causal, window)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         causal, window = ctx.mask
         dout = dout.contiguous()         # autograd's layout, not the caller's
         dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, causal=causal,
-                                         window=window)
+                                         window=window, lse=lse)
         return dq, dk, dv, None, None
 
 
@@ -186,16 +247,27 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
 
 
 def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
-                        window: int = 0):
+                        window: int = 0, lse=None):
     """The gradient of :func:`flash_attention` at ``(q, k, v)``, whose
     output was ``out``, for the output's gradient ``dout`` -> (dq, dk, dv)
-    in the inputs' types.  CPU tensors: the plain version.  CUDA tensors:
-    ``csrc/flash_bwd.cu`` (f32, bf16 or f16 at (D, DV) in
-    :data:`BWD_HEAD_DIMS`), or :class:`KernelError`; nothing gives way to
-    the plain version."""
+    in the inputs' types.  CPU tensors: the plain version (``lse`` unused).
+    CUDA tensors: the kernel that :func:`bwd_variant` names, or
+    :class:`KernelError`; nothing gives way to the other kernel or to the
+    plain version.  ``lse``: the forward's log-sum-exp
+    (``launch("flash_tc", ..., with_lse=True)``), which ``flash_bwd_tc``
+    needs and ``flash_bwd`` does not read."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, dout, causal=causal,
                                        window=window)
+    return bwd_launch(bwd_variant(q.dtype, q.shape[-1], v.shape[-1]), q, k,
+                      v, out, dout, causal=causal, window=window, lse=lse)
+
+
+def bwd_launch(variant_name: str, q, k, v, out, dout, *, causal: bool = True,
+               window: int = 0, lse=None):
+    """Launch the backward kernel ``variant_name`` on CUDA tensors (the
+    entry :func:`flash_attention_bwd` takes; called directly only to time
+    or test the CUDA-core kernel where the rule picks the other)."""
     dev = q.device
     ins = (q, k, v, out, dout)
     if dev.type != "cuda" or any(t.device != dev for t in ins):
@@ -216,52 +288,95 @@ def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
         raise KernelError(f"flash_attention_bwd: unsupported shapes "
                           f"{[tuple(t.shape) for t in ins]} (H % K == 0, "
                           f"B*H <= 65535, out and dout (B,S,H,DV))")
-    if (D, DV) not in BWD_HEAD_DIMS:
-        raise KernelError(f"flash_attention_bwd: (D, DV) = ({D}, {DV}) is "
-                          f"not among {BWD_HEAD_DIMS}")
     if any(t.stride(3) != 1 for t in ins):
         raise KernelError("flash_attention_bwd: the head dim must be "
                           "contiguous")
+    if variant_name not in BWD_SOURCES:
+        raise KernelError(f"flash_attention_bwd: no backward kernel "
+                          f"{variant_name!r} (one of {tuple(BWD_SOURCES)})")
+    f32 = dict(dtype=torch.float32, device=dev)
     dq = torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
     dk = torch.empty((B, T, K, D), dtype=q.dtype, device=dev)
     dv = torch.empty((B, T, K, DV), dtype=q.dtype, device=dev)
-    m, l, di = torch.empty((3, B, H, S), dtype=torch.float32, device=dev)
-    lib = bwd_library()
+    if variant_name == "flash_bwd_tc":
+        if q.dtype not in TC_DTYPES or (D, DV) not in BWD_TC_HEAD_DIMS:
+            raise KernelError(f"flash_attention_bwd: flash_bwd_tc takes bf16 "
+                              f"or f16 at (D, DV) in {BWD_TC_HEAD_DIMS} (got "
+                              f"{q.dtype}, D={D}, DV={DV})")
+        for name, t in zip(("q", "k", "v", "out", "dout"), ins):
+            why = tma_misalignment(t)
+            if why:
+                raise KernelError(f"flash_attention_bwd: flash_bwd_tc cannot "
+                                  f"read {name}: {why}")
+        SP = -(-S // BQ_LSE) * BQ_LSE
+        if (lse is None or lse.device != dev or lse.dtype != torch.float32
+                or lse.shape != (B, H, SP) or not lse.is_contiguous()
+                or lse.data_ptr() % 16):          # the bulk copies' alignment
+            raise KernelError(
+                f"flash_attention_bwd: flash_bwd_tc needs the forward's "
+                f"log-sum-exp, a contiguous (B, H, {SP}) f32 tensor on {dev} "
+                f"(launch('flash_tc', ..., with_lse=True)); got "
+                + ("none" if lse is None else
+                   f"{tuple(lse.shape)} {lse.dtype} on {lse.device}"))
+        # the log-sum-exp, the gradients, then Di and each query head's
+        # f32 partials of dK and dV
+        bufs = (lse, dq, dk, dv, torch.empty((B, H, SP), **f32),
+                torch.empty((B, T, H, D), **f32),
+                torch.empty((B, T, H, DV), **f32))
+        scales = (math.log2(math.e) / math.sqrt(D), 1.0 / math.sqrt(D))
+    else:
+        if (D, DV) not in BWD_HEAD_DIMS:
+            raise KernelError(f"flash_attention_bwd: (D, DV) = ({D}, {DV}) "
+                              f"is not among {BWD_HEAD_DIMS}")
+        # the gradients, then each row's m, l and Di
+        bufs = (dq, dk, dv, *torch.empty((3, B, H, S), **f32))
+        scales = (1.0 / math.sqrt(D),)
+    lib = bwd_library(variant_name)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.flash_bwd_launch(
-            *(t.data_ptr() for t in (q, k, v, out, dout, dq, dk, dv, m, l,
-                                     di)),
-            DTYPES[q.dtype], B, H, K, S, T, D, DV,
-            *(t.stride(i) for t in ins for i in range(3)),
-            int(bool(causal)), int(window), 1.0 / math.sqrt(D), stream)
+        rc = getattr(lib, variant_name + "_launch")(
+            *(t.data_ptr() for t in (*ins, *bufs)), DTYPES[q.dtype], B, H,
+            K, S, T, D, DV, *(t.stride(i) for t in ins for i in range(3)),
+            int(bool(causal)), int(window), *scales, stream)
     if rc != 0:
-        raise KernelError("flash_attention_bwd launch failed: "
-                          + lib.flash_bwd_error(rc).decode())
+        raise KernelError(f"flash_attention_bwd ({variant_name}) launch "
+                          f"failed: "
+                          + getattr(lib, variant_name + "_error")(rc).decode())
     flash_attention.bwd_launches += 1
+    flash_attention.bwd_variant_launches[variant_name] += 1
     return dq, dk, dv
 
 
-def bwd_library() -> ctypes.CDLL:
+def bwd_library(variant_name: str = "flash_bwd") -> ctypes.CDLL:
     """The built backward kernel (nvcc runs on the first call)."""
-    lib = _LIBS.get("flash_bwd")
+    lib = _LIBS.get(variant_name)
     if lib is None:
-        lib = _build.load(BWD_SOURCE)
+        lib = _build.load(BWD_SOURCES[variant_name])
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.flash_bwd_launch.argtypes = ([ptr] * 11 + [i32] * 8 + [i64] * 15
-                                         + [i32, i32, ctypes.c_float, ptr])
-        lib.flash_bwd_launch.restype = i32
-        lib.flash_bwd_error.argtypes = [i32]
-        lib.flash_bwd_error.restype = ctypes.c_char_p
-        _LIBS["flash_bwd"] = lib
+        # flash_bwd_tc also takes the log-sum-exp, Di's and the partials'
+        # buffers in place of m, l and Di, and scale_log2 beside the scale
+        tc = variant_name == "flash_bwd_tc"
+        fn = getattr(lib, variant_name + "_launch")
+        fn.argtypes = ([ptr] * (12 if tc else 11) + [i32] * 8 + [i64] * 15
+                       + [i32, i32] + [ctypes.c_float] * (2 if tc else 1)
+                       + [ptr])
+        fn.restype = i32
+        error = getattr(lib, variant_name + "_error")
+        error.argtypes = [i32]
+        error.restype = ctypes.c_char_p
+        _LIBS[variant_name] = lib
     return lib
 
 
 def launch(variant_name: str, q, k, v, *, causal: bool = True,
-           window: int = 0):
+           window: int = 0, with_lse: bool = False):
     """Launch the kernel ``variant_name`` on CUDA tensors (the entry
     :func:`flash_attention` takes; called directly only to time the
-    CUDA-core kernel where the rule picks the other)."""
+    CUDA-core kernel where the rule picks the other).  ``with_lse`` (on
+    ``flash_tc`` only) -> (out, lse): lse (B, H, S rounded up to
+    :data:`.ref.BQ_LSE`) f32, each row's log-sum-exp in the log2 domain, as
+    :func:`.ref.flash_attention_lse_ref` states it (+inf on the rows past
+    S); the output's bits are those of the call without it."""
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise KernelError(f"flash_attention: q, k, v must share one CUDA "
@@ -284,6 +399,10 @@ def launch(variant_name: str, q, k, v, *, causal: bool = True,
                           f"B*H <= 65535)")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise KernelError("flash_attention: the head dim must be contiguous")
+    if with_lse and variant_name != "flash_tc":
+        raise KernelError(f"flash_attention: {variant_name} writes no "
+                          f"log-sum-exp")
+    lse = None
     if variant_name == "flash_tc":
         if q.dtype not in TC_DTYPES or (D, DV) not in TC_HEAD_DIMS:
             raise KernelError(f"flash_attention: flash_tc takes bf16 or f16 "
@@ -296,6 +415,9 @@ def launch(variant_name: str, q, k, v, *, causal: bool = True,
                                   f"{why}")
         scale = math.log2(math.e) / math.sqrt(D)
         dims = (D, DV)
+        if with_lse:
+            lse = torch.empty((B, H, -(-S // BQ_LSE) * BQ_LSE),
+                              dtype=torch.float32, device=dev)
     else:
         if D not in HEAD_DIMS or DV != D:
             raise KernelError(f"flash_attention: flash takes D in {HEAD_DIMS} "
@@ -306,11 +428,13 @@ def launch(variant_name: str, q, k, v, *, causal: bool = True,
     out = torch.empty((B, S, H, DV), dtype=q.dtype, device=dev)
     lib = library(variant_name)
     entry = ENTRY[variant_name]
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    if variant_name == "flash_tc":
+        ptrs.append(None if lse is None else lse.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, entry + "_launch")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            DTYPES[q.dtype], B, H, K, S, T, *dims,
+            *ptrs, DTYPES[q.dtype], B, H, K, S, T, *dims,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
@@ -320,9 +444,10 @@ def launch(variant_name: str, q, k, v, *, causal: bool = True,
                           + getattr(lib, entry + "_error")(rc).decode())
     flash_attention.launches += 1
     flash_attention.variant_launches[variant_name] += 1
-    return out
+    return out if lse is None else (out, lse)
 
 
 flash_attention.launches = 0
 flash_attention.variant_launches = dict.fromkeys(SOURCES, 0)
 flash_attention.bwd_launches = 0
+flash_attention.bwd_variant_launches = dict.fromkeys(BWD_SOURCES, 0)

@@ -46,8 +46,9 @@ def faulty(fault):
     to its gradients."""
     real = ops.flash_attention_bwd
 
-    def bwd(*args, causal=True, window=0):
-        return fault(causal, *real(*args, causal=causal, window=window))
+    def bwd(*args, causal=True, window=0, **kw):
+        return fault(causal, *real(*args, causal=causal, window=window,
+                                   **kw))
     return bwd
 
 

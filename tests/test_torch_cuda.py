@@ -1746,9 +1746,11 @@ BWD_CASES = [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16], ids=["f32", "bf16", "f16"])
 def test_flash_bwd_kernel_equals_plain(dev, case, dtype):
-    """``flash_bwd.cu`` against ``flash_attention_bwd_ref`` on the same CUDA
-    tensors: dq, dk, dv within ``ops.bwd_tolerance`` (relative L2), two
-    runs the same bits, one launch counted a call."""
+    """``flash_bwd.cu`` (launched by name: the rule sends bf16 and f16 at
+    (64, 64), (128, 128) and (192, 128) to ``flash_bwd_tc``) against
+    ``flash_attention_bwd_ref`` on the same CUDA tensors: dq, dk, dv within
+    ``ops.bwd_tolerance`` (relative L2), two runs the same bits, one
+    launch counted a call."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_attention_ref)
@@ -1762,15 +1764,134 @@ def test_flash_bwd_kernel_equals_plain(dev, case, dtype):
     dout = torch.randn(out.shape, generator=g, device=dev).to(dtype)
     kw = dict(causal=causal, window=window)
     n0 = ops.flash_attention.bwd_launches
-    got = ops.flash_attention_bwd(q, k, v, out, dout, **kw)
-    again = ops.flash_attention_bwd(q, k, v, out, dout, **kw)
+    by0 = ops.flash_attention.bwd_variant_launches["flash_bwd"]
+    got = ops.bwd_launch("flash_bwd", q, k, v, out, dout, **kw)
+    again = ops.bwd_launch("flash_bwd", q, k, v, out, dout, **kw)
     torch.cuda.synchronize()
     assert ops.flash_attention.bwd_launches == n0 + 2
+    assert ops.flash_attention.bwd_variant_launches["flash_bwd"] == by0 + 2
     want = flash_attention_bwd_ref(q, k, v, out, dout, **kw)
     for a, b, w in zip(got, again, want):
         assert a.dtype == dtype and a.shape == w.shape
         assert torch.equal(a, b)
-        assert _rel_l2(a, w) <= ops.bwd_tolerance(dtype)
+        assert _rel_l2(a, w) <= ops.bwd_tolerance("flash_bwd", dtype)
+
+
+#: the tensor-core backward's cases: B, H, K, S, T, D, DV, causal, window
+BWD_TC_CASES = [
+    (2, 12, 2, 200, 200, 128, 128, True, 0),     # qwen2's heads, ragged
+    (1, 3, 1, 70, 50, 128, 128, True, 0),        # causal, S > T
+    (1, 6, 2, 33, 80, 64, 64, False, 0),         # non-causal, T != S
+    (1, 4, 4, 100, 100, 192, 128, True, 0),      # MLA's head dims
+    (2, 16, 4, 333, 333, 192, 128, True, 48),    # MLA, GQA, window
+    (1, 4, 2, 300, 300, 64, 64, True, 100),      # sliding window
+    (2, 8, 2, 257, 513, 128, 128, False, 70),    # non-causal window
+    (1, 2, 1, 48, 16, 64, 64, True, 5),          # rows that see no key
+    (1, 6, 6, 640, 640, 128, 128, True, 0),      # five 128-row tiles
+]
+
+
+def _bwd_tc_inputs(dev, case, dtype, views=False):
+    """-> (q, k, v, dout) of a case; with ``views`` q, k and v are views
+    of one packed (B, S, H + 2K, D) tensor, as a fused projection gives
+    them (S == T, D == DV)."""
+    B, H, K, S, T, D, DV, causal, window = case
+    g = torch.Generator(dev).manual_seed(S * T + D + H)
+    if views:
+        qkv = torch.randn((B, S, H + 2 * K, D), generator=g, device=dev)
+        q, k, v = qkv.to(dtype).split([H, K, K], dim=2)
+    else:
+        q = torch.randn((B, S, H, D), generator=g, device=dev).to(dtype)
+        k = torch.randn((B, T, K, D), generator=g, device=dev).to(dtype)
+        v = torch.randn((B, T, K, DV), generator=g, device=dev).to(dtype)
+    dout = torch.randn((B, S, H, DV), generator=g, device=dev).to(dtype)
+    return q, k, v, dout
+
+
+@pytest.mark.parametrize("views", [False, True], ids=["contiguous", "views"])
+@pytest.mark.parametrize("case", BWD_TC_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+def test_flash_bwd_tc_kernel_equals_plain(dev, case, dtype, views):
+    """``flash_bwd_tc.cu`` behind the forward kernel's output and
+    log-sum-exp against ``flash_attention_bwd_ref`` on the same tensors:
+    dq, dk, dv within ``ops.bwd_tolerance("flash_bwd_tc", ...)`` (relative
+    L2), two runs the same bits, one launch counted a call on its variant;
+    a row that sees no key gets dq = 0."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_mask, flash_attention_bwd_ref)
+
+    B, H, K, S, T, D, DV, causal, window = case
+    if views and (S != T or D != DV):
+        pytest.skip("a packed qkv tensor has S == T and D == DV")
+    assert ops.bwd_variant(dtype, D, DV) == "flash_bwd_tc"
+    q, k, v, dout = _bwd_tc_inputs(dev, case, dtype, views)
+    kw = dict(causal=causal, window=window)
+    out, lse = ops.launch("flash_tc", q, k, v, with_lse=True, **kw)
+    n0 = dict(ops.flash_attention.bwd_variant_launches)
+    got = ops.flash_attention_bwd(q, k, v, out, dout, lse=lse, **kw)
+    again = ops.flash_attention_bwd(q, k, v, out, dout, lse=lse, **kw)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.bwd_variant_launches == dict(
+        n0, flash_bwd_tc=n0["flash_bwd_tc"] + 2)
+    want = flash_attention_bwd_ref(q, k, v, out, dout, **kw)
+    tol = ops.bwd_tolerance("flash_bwd_tc", dtype)
+    for name, a, b, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        assert torch.equal(a, b), name
+        assert torch.isfinite(a).all(), name
+        assert _rel_l2(a, w) <= tol, (name, _rel_l2(a, w))
+    empty = ~attention_mask(S, T, causal, window, dev).any(-1)
+    assert (got[0][:, empty] == 0).all()
+
+
+def test_flash_bwd_tc_needs_the_log_sum_exp(dev):
+    """Without the forward's log-sum-exp (or with one of another shape)
+    the tensor-core backward raises and launches nothing."""
+    from repro_torch.kernels import KernelError
+    from repro_torch.kernels.flash_attention import ops
+
+    q, k, v, dout = _bwd_tc_inputs(dev, BWD_TC_CASES[0], torch.bfloat16)
+    out, lse = ops.launch("flash_tc", q, k, v, causal=True, with_lse=True)
+    n0 = ops.flash_attention.bwd_launches
+    for bad in (None, lse[..., :200].contiguous(), lse.double()):
+        with pytest.raises(KernelError, match="log-sum-exp"):
+            ops.flash_attention_bwd(q, k, v, out, dout, lse=bad)
+    assert ops.flash_attention.bwd_launches == n0
+
+
+@pytest.mark.parametrize("case", [
+    (2, 12, 2, 200, 200, 128, 128, True, 0),
+    (1, 2, 1, 48, 16, 64, 64, True, 5),          # rows that see no key
+    (2, 8, 2, 257, 513, 128, 128, False, 70),
+    (1, 4, 4, 100, 100, 192, 128, True, 0),
+    (1, 2, 1, 70, 66, 256, 256, True, 9),
+], ids=lambda c: "-".join(map(str, c)))
+def test_flash_tc_lse_leaves_the_output_bits(dev, case):
+    """``flash_tc.cu`` with and without its log-sum-exp: the output bit for
+    bit the same; the log-sum-exp within f32 rounding of
+    ``flash_attention_lse_ref`` (rtol 1e-5, atol 1e-4 on values up to a
+    few tens: the kernel's sums run in another order through ex2.approx),
+    +inf on a row with no valid key and on the rows past S."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (
+        BQ_LSE, flash_attention_lse_ref)
+
+    B, H, K, S, T, D, DV, causal, window = case
+    q, k, v, _ = _bwd_tc_inputs(dev, case, torch.bfloat16)
+    kw = dict(causal=causal, window=window)
+    plain = ops.launch("flash_tc", q, k, v, **kw)
+    out, lse = ops.launch("flash_tc", q, k, v, with_lse=True, **kw)
+    assert torch.equal(out, plain)
+    assert lse.shape == (B, H, -(-S // BQ_LSE) * BQ_LSE)
+    want = flash_attention_lse_ref(q, k, v, **kw)
+    assert torch.isposinf(lse[..., S:]).all()
+    got = lse[..., :S]
+    assert torch.equal(torch.isposinf(got), torch.isposinf(want))
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-4)
 
 
 def test_flash_attention_under_grad_runs_the_backward_kernel(dev):
@@ -1783,12 +1904,17 @@ def test_flash_attention_under_grad_runs_the_backward_kernel(dev):
                .requires_grad_(True) for shape in
                ((2, 96, 12, 128), (2, 96, 2, 128), (2, 96, 2, 128)))
     n0 = ops.flash_attention.bwd_launches
+    tc0 = ops.flash_attention.bwd_variant_launches["flash_bwd_tc"]
     out = ops.flash_attention(q, k, v, causal=True)
     dout = torch.randn(out.shape, generator=g, device=dev).to(out.dtype)
     out.backward(dout)
     assert ops.flash_attention.bwd_launches == n0 + 1
+    assert ops.flash_attention.bwd_variant_launches["flash_bwd_tc"] == tc0 + 1
+    plain, lse = ops.launch("flash_tc", q.detach(), k.detach(), v.detach(),
+                            causal=True, with_lse=True)
+    assert torch.equal(plain, out.detach())
     want = ops.flash_attention_bwd(q.detach(), k.detach(), v.detach(),
-                                   out.detach(), dout, causal=True)
+                                   out.detach(), dout, causal=True, lse=lse)
     for a, w in zip((q.grad, k.grad, v.grad), want):
         assert torch.equal(a, w)
 
@@ -1923,7 +2049,9 @@ def test_train_step_on_card_equals_plain(dev, arch):
     assert mixed[2] == (card[2][0], 0) and cpu[2] == (0, 0)
     assert mixed[0] == card[0]
     tol = (TRAIN_CARD_REL_L2 if cfg.compute_dtype == "float32"
-           else ops.bwd_tolerance(torch.bfloat16))
+           else ops.bwd_tolerance(ops.bwd_variant(
+               torch.bfloat16, cfg.head_dim, cfg.v_head_dim or cfg.head_dim),
+               torch.bfloat16))
     for key, want in mixed[1].items():
         assert _rel_l2(card[1][key], want) <= tol, ("backward", key)
     if not cfg.use_mla:
@@ -1937,6 +2065,36 @@ def test_train_step_on_card_equals_plain(dev, arch):
     for key, want in truth.items():
         assert (_rel_l2(card[1][key], want)
                 <= 2 * _rel_l2(cpu[1][key], want) + 2e-2), key
+
+
+@pytest.mark.parametrize("compute", ["bfloat16", "float32"])
+def test_train_step_backward_launches_by_variant(dev, compute):
+    """qwen2's smoke config at head dim 64, one train step of 2
+    micro-batches: in bf16 compute every K5 backward (2 layers x 2
+    micro-batches) on ``flash_bwd_tc`` behind a forward that wrote its
+    log-sum-exp, none on ``flash_bwd``; in f32 compute every one on
+    ``flash_bwd``; the loss and every gradient finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models.common import get_family
+    from repro_torch.nn.param import init_params
+
+    cfg = dataclasses.replace(get_config("qwen2_1_5b", smoke=True),
+                              head_dim=64, compute_dtype=compute)
+    tree = init_params(get_family(cfg).template(cfg),
+                       torch.Generator().manual_seed(0))
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 97))
+    batch = {"tokens": toks[:, :-1].astype(np.int32),
+             "labels": toks[:, 1:].astype(np.int32)}
+    n0 = dict(ops.flash_attention.bwd_variant_launches)
+    loss, grads, (fwd, bwd) = _train_run(cfg, tree, batch, dev)
+    n1 = ops.flash_attention.bwd_variant_launches
+    on = "flash_bwd_tc" if compute == "bfloat16" else "flash_bwd"
+    assert bwd == cfg.n_layers * 2 and fwd >= 2 * bwd
+    assert {k: n1[k] - n0[k] for k in n1} == dict(
+        dict.fromkeys(n1, 0), **{on: bwd})
+    assert np.isfinite(loss)
+    assert all(torch.isfinite(g).all() for g in grads.values())
 
 
 def test_rwkv6_train_step_on_card_raises(dev):
