@@ -190,14 +190,28 @@ kernel from the sources in the checkout (nvcc into ``build/``).  Phases:
    plain backward (the same loss bits, each layer's gradient within 0.1,
    and at two layers within the backward kernel's tolerance), and on the
    config cut to two layers in f32 against the plain versions (printed:
-   the kernels against the plain versions in bf16).  Then the training entry
-   point, ``repro_torch.launch.train.train``, on qwen2-1.5b at full width
-   and depth (28 layers, f32 master weights and AdamW moments, bf16
-   compute, remat "full"), cut from train_4k's global batch of 256 to 8
-   sequences of 4096 tokens in 4 micro-batches, for 5 steps: every loss
-   and grad norm finite, K5 launched 28 x 4 x 2 times forward (remat runs
-   each layer's forward twice) and 28 x 4 backward a step, every backward
-   on ``flash_bwd_tc`` and none on ``flash_bwd``, peak memory
+   the kernels against the plain versions in bf16).  K6's backward
+   (``wkv6_bwd.cu``: four launches reading the forward kernel's saved
+   chunk states) against its plain backward (``ref.wkv6_bwd_ref``) at
+   rwkv6-3b's training shape (2, 4096, 40, 64), at S = 2000 (a padded
+   tail) and under strong decay with a state0 and a final state's
+   cotangent, every gradient (dr, dk, dv, dlogw, du, dstate0) within
+   1e-4 relative L2 (1e-3 under strong decay) and two runs the same bits;
+   timed at the training shape beside its bound, by launch, the plain
+   backward and autograd through the plain forward.  rwkv6-3b's first
+   micro-batch's gradients the same way as qwen2's, K6's backward kernel
+   against its plain backward behind the forward kernel (full depth within
+   0.1, two layers within 2**-6, f32 at two layers against the plain
+   versions within 1e-3).  Then the training entry
+   point, ``repro_torch.launch.train.train``, on qwen2-1.5b and on
+   rwkv6-3b at full width and depth (28 and 32 layers, f32 master weights
+   and AdamW moments, bf16 compute, remat "full"), cut from train_4k's
+   global batch of 256 to 8 sequences of 4096 tokens in 4 micro-batches,
+   for 5 steps each: every loss and grad norm finite, qwen2's K5 launched
+   28 x 4 x 2 times forward (remat runs each layer's forward twice) and
+   28 x 4 backward a step, every backward on ``flash_bwd_tc`` and none on
+   ``flash_bwd``, rwkv6's K6 32 x 4 x 2 forward and 32 x 4 backward a
+   step, neither model launching the other's kernel, peak memory
    under 80 GB; one more step under torch.profiler moves the weights
    beyond weight decay (an Adam step of at least 0.1 somewhere in the
    embedding and the first and last layers); printed: ms a step,
@@ -212,7 +226,9 @@ graph's launches to the counters, a capture adds none),
 K4 over the fleet serve on the per-grant backend, K5 (qwen2-1.5b,
 granite-moe-3b-a800m, deepseek-v2-236b, hymba-1.5b, whisper-large-v3 and
 llama-3.2-vision-90b) and K6 (rwkv6-3b) over the prefills of their model
-serves, K5's backward over the training steps, K3 over each
+serves, K5's backward over qwen2-1.5b's training steps and K6's over
+rwkv6-3b's (K6's forward there too, the K6 row's ``train_launches``), K3
+over each
 pooled fill (once a fill,
 the K3 row's ``fill_launches`` in the JSON); each must have launched.  The
 last lines are the kernels JSON, the ``nvidia-smi`` name and power limit,
@@ -2887,23 +2903,35 @@ def models_phase(dev, seed):
 
 # -- phase 9: training ----------------------------------------------------
 
-TRAIN_ARCH = "qwen2-1.5b"
+#: the train cells: a dense LM (K5's forward and backward) and RWKV6 (K6's)
+TRAIN_ARCHS = ("qwen2-1.5b", "rwkv6-3b")
 #: the one cut of train_4k (seq 4096, global batch 256): batch 8, as 4
 #: micro-batches of 2, for 5 steps
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS = 8, 4096, 4, 5
 #: relative L2 of the first micro-batch's gradients (the embedding, layers
-#: 0 and 1) on K5's kernels against K5's plain versions in f32 compute, two
+#: 0 and 1) on the kernels against their plain versions in f32 compute, two
 #: layers at full width (see train_grad_check): f32 sums in other orders
 TRAIN_GRAD_TOL_F32 = 1e-3
 #: relative L2, each layer's, of the first micro-batch's bf16 gradients at
-#: full depth on K5's backward kernel against its plain backward (one
+#: full depth on the backward kernel against its plain backward (one
 #: forward): once two bf16 backwards round one element apart they part to
 #: the level of bf16 rounding carried through the layers below, measured
 #: (``flash_bwd.cu``) 2.6e-4 at layer 27 (where the backward starts) and
 #: 1.5e-2 to 3.1e-2 from layer 20 down; a zero or dropped gradient reads
-#: 1.0.  At two layers the gate is the backward kernel's own tolerance
+#: 1.0.  At two layers the gate is K5's backward kernel's own tolerance
 #: (``ops.bwd_tolerance`` of the variant the training shape takes)
 TRAIN_GRAD_TOL_BF16_DEEP = 0.1
+#: the same gate for RWKV6 (32 layers), whose embedding gradient parts
+#: furthest: measured on K6's backward kernel (H100) 1.8e-5 at layer 31,
+#: 6.7e-4 to 5.0e-2 below it and 0.125 at the embedding, whose rows sum a
+#: token's few positions where a weight's gradient averages them all
+TRAIN_GRAD_TOL_BF16_DEEP_SSM = 0.25
+#: the two-layer gate of RWKV6's bf16 gradients on K6's backward kernel
+#: against its plain backward: the one K5's takes there (``flash_bwd_tc``'s
+#: 4u, u = 2**-8).  K6 runs in f32, so the two backwards part by f32
+#: rounding (1e-7 to 1e-6) until the gradients' bf16 casts round an
+#: element apart
+K6_TRAIN_GRAD_TOL_BF16 = 2.0 ** -6
 #: K5's backward against its plain version: name, q, k/v, DV, type,
 #: causal, window
 K5_BWD_CASES = (
@@ -2917,6 +2945,18 @@ K5_BWD_CASES = (
     ("ragged", (1, 333, 6, 128), (1, 517, 2, 128), 128, "float16", True, 0),
     ("d256", (2, 1024, 8, 256), (2, 1024, 4, 256), 256, "bfloat16", True, 0),
 )
+#: K6's backward against its plain backward: label, (B, S, H, D), strong
+#: decay (then also a state0 and a final state's cotangent).  The training
+#: shape is rwkv6-3b's micro-batch, 2 x 4096 tokens of 40 heads of 64
+K6_BWD_CASES = (("train", (2, 4096, 40, 64), False),
+                ("S = 2000, padded", (2, 2000, 40, 64), False),
+                ("strong decay", (2, 1024, 40, 64), True))
+#: relative L2 a gradient of K6's backward kernel against its plain
+#: backward: f32 sums in other orders (the CPU emulation of its algorithm
+#: reads 3e-8 to 5e-7 from the plain backward); under strong decay the
+#: exponents are differences of cumulative log-decays near -1e3 to -1e4
+K6_BWD_TOL, K6_BWD_TOL_STRONG = 1e-4, 1e-3
+K6_NAMES = ("dr", "dk", "dv", "dlogw", "du", "dstate0")
 
 
 class SeamK5:
@@ -3091,22 +3131,183 @@ def k5_bwd_checks(dev):
     row["cases"] = cases
     return row
 
+class PlainK6:
+    """K6's plain version under autograd, forward and backward, in the
+    wrapper's place (``ssm._k6``)."""
 
-def first_grads(model, cfg, tokens, labels, seam):
-    """-> (loss, {parameter name: gradient}) of one micro-batch with K5
-    through ``seam``; every gradient present and finite."""
+    @staticmethod
+    def wkv6(r, k, v, logw, u, *, chunk=64, state0=None):
+        from repro_torch.kernels.rwkv6.ref import wkv6_ref
+
+        return wkv6_ref(r, k, v, logw, u, chunk=chunk, state0=state0)
+
+
+def plain_wkv6_bwd(*args, starts=None, **kw):
+    """K6's plain backward in ``ops.wkv6_bwd``'s place: the forward kernel's
+    saved states unread."""
+    from repro_torch.kernels.rwkv6.ref import wkv6_bwd_ref
+
+    return wkv6_bwd_ref(*args, **kw)
+
+
+def grad_seams(cfg):
+    """-> ({seam: a factory of the context manager that swaps it in}, the
+    two-layer bf16 gate) of ``cfg``'s family.  "kernel": the kernels, no
+    swap; "mixed": the forward kernel with the plain backward; "plain":
+    both plain versions.  K5's through ``layers._k5`` (:func:`k5_seams`)
+    for an LM; K6's for RWKV6, the plain backward in ``ops.wkv6_bwd``'s
+    place and the plain forward under autograd in ``ssm._k6``'s."""
     from unittest import mock
 
     import torch
 
+    from repro_torch.kernels.flash_attention import ops as k5
+    from repro_torch.kernels.rwkv6 import ops as k6
+    from repro_torch.nn import layers, ssm
+
+    if cfg.family == "ssm":
+        return ({"kernel": contextlib.nullcontext,
+                 "mixed": lambda: mock.patch.object(k6, "wkv6_bwd",
+                                                    plain_wkv6_bwd),
+                 "plain": lambda: mock.patch.object(ssm, "_k6", PlainK6)},
+                K6_TRAIN_GRAD_TOL_BF16)
+    seams = k5_seams()
+    return ({"kernel": contextlib.nullcontext,
+             "mixed": lambda: mock.patch.object(layers, "_k5",
+                                                seams["mixed"]),
+             "plain": lambda: mock.patch.object(layers, "_k5",
+                                                seams["plain"])},
+            k5.bwd_tolerance(k5.bwd_variant(torch.bfloat16, cfg.head_dim),
+                             torch.bfloat16))
+
+
+def k6_bwd_bound(B, S, H, D, C=64):
+    """-> (ms, what bounds it, {what: ms}) of K6's backward at (B, S, H, D)
+    with no state0 and no final-state cotangent, the largest of: the bytes
+    that must move (r, k, v, logw and dy read once, dr, dk, dv and dlogw
+    written once, u and du), the f32 operations and the exponentials (at
+    the SFU's 16 a clock a SM).  A chunk of C tokens (P = C(C-1)/2 pairs)
+    takes the scores (difference, exp, two products and a sum a pair and
+    channel, as :func:`wkv6_phase` counts the forward's), d_att = dy v^T
+    and att^T dy (2 each a pair with the diagonal and channel), dr' and
+    dk'' through the decays (5 a pair and channel: one product shared, two
+    multiply-adds), the four (C, D) x (D, D) products of the state's
+    shares (8·C·D^2) and the adjoint's update (2·D^2); exponentials: the
+    pair decays, exp(cum_prev) and exp(total - cum) a token and channel,
+    exp(total) a channel."""
+    nC = -(-S // C)
+    P = C * (C - 1) // 2
+    n = B * S * H * D
+    nbytes = 9 * n * 4 + 2 * H * D * 4
+    ops = B * H * nC * (9 * P * D + 4 * (P + C) * D + 8 * C * D * D
+                        + 2 * D * D)
+    exps = B * H * nC * (P * D + 2 * C * D + D)
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": ops / F32_OPS_PER_S * 1e3,
+             "exponentials": exps / SFU_PER_S * 1e3}
+    what = max(times, key=times.get)
+    return times[what], what, times
+
+
+def k6_bwd_checks(dev):
+    """K6's backward kernel (``wkv6_bwd.cu``) against its plain backward
+    (``ref.wkv6_bwd_ref``) on the card at :data:`K6_BWD_CASES`, with the
+    draws of :func:`wkv6_phase` (r, k, v, u at 0.5 sigma, log-decays
+    -exp(0.5 z), under strong decay -exp(2 z + 2)) and a cotangent dy of
+    one sigma, on identical inputs and the forward kernel's saved starting
+    states: each gradient within :data:`K6_BWD_TOL` (relative L2), two runs
+    the same bits, one launch counted each.  At the training shape it is
+    timed beside its bound (:func:`k6_bwd_bound`), by launch, beside the
+    plain backward and autograd through the plain forward (``wkv6_ref``)
+    on the card.  -> the kernels row (the training shape's numbers, each
+    case's distances under ``cases``)."""
+    import torch
+
+    from repro_torch.kernels.rwkv6 import ops as k6
+
+    g = torch.Generator(dev).manual_seed(6)
+    row, cases = {}, {}
+    for label, shape, strong in K6_BWD_CASES:
+        B, S, H, D = shape
+        r, k, v = (torch.randn(shape, generator=g, device=dev) * 0.5
+                   for _ in range(3))
+        z = torch.randn(shape, generator=g, device=dev)
+        lw = -torch.exp(z * 2.0 + 2.0 if strong else z * 0.5)
+        u = torch.randn((H, D), generator=g, device=dev) * 0.5
+        dy = torch.randn(shape, generator=g, device=dev)
+        s0 = ds = None
+        if strong:
+            s0, ds = (torch.randn((B, H, D, D), generator=g, device=dev)
+                      for _ in range(2))
+        args, kw = (r, k, v, lw, u, dy), dict(state0=s0, ds_end=ds)
+        with torch.no_grad():
+            starts = k6._launch(r, k, v, lw, u, s0, 64)[2]
+        n0 = k6.wkv6.bwd_launches
+        got = k6.wkv6_bwd(*args, starts=starts, **kw)
+        again = k6.wkv6_bwd(*args, starts=starts, **kw)
+        torch.cuda.synchronize()
+        check(k6.wkv6.bwd_launches == n0 + 2,
+              f"K6 backward {label}: the kernel did not launch")
+        want = k6.wkv6_bwd_ref(*args, **kw)
+        tol = K6_BWD_TOL_STRONG if strong else K6_BWD_TOL
+        errs = [_rel_l2(a, b) for a, b in zip(got, want)]
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        log(f"K6 backward {label} {shape}"
+            + (" with state0 and ds_end" if strong else "")
+            + ": relative L2 " + ", ".join(
+                f"{n} {e:.3e}" for n, e in zip(K6_NAMES, errs))
+            + f" (gate {tol:.0e}), max abs {err:.3e}, finite {finite}")
+        check(finite and all(e <= tol for e in errs),
+              f"K6 backward {label} differs from its plain backward: {errs}")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K6 backward {label}: two runs differ")
+        cases[label] = dict(zip(K6_NAMES, errs), max_abs_err=err)
+        del got, again, want
+        if label != "train":
+            continue
+        ms = cuda_ms(lambda: k6.wkv6_bwd(*args, starts=starts), 10)
+        per_launch, why = device_us(
+            lambda: k6.wkv6_bwd(*args, starts=starts),
+            r"wkv6_bwd_(intra|scan|inter|du)", calls=10)
+        plain_bwd = cuda_ms(lambda: k6.wkv6_bwd_ref(*args), 3, warmup=1)
+        ins = [t.clone().requires_grad_(True) for t in args[:5]]
+        y, _ = k6.wkv6_ref(*ins)
+        plain = cuda_ms(lambda: torch.autograd.grad(y, ins, dy,
+                                                    retain_graph=True),
+                        3, warmup=1)
+        del y, ins
+        torch.cuda.empty_cache()
+        bound, by, times = k6_bwd_bound(B, S, H, D)
+        log(f"K6 backward {shape} f32: {ms:.4f} ms a call, bound "
+            f"{bound:.4f} ms ({by}; {bound / ms:.1%} of it; "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+            + "); device a call: "
+            + (f"{per_launch:.1f} us ({why})" if per_launch
+               else f"not measured ({why})")
+            + f"; plain backward {plain_bwd:.4f} ms, autograd through the "
+            f"plain forward {plain:.4f} ms")
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                   plain_bwd_ms=plain_bwd, bound_ms=bound,
+                   bound_by="bytes" if by == "bytes" else "operations",
+                   library_ms=None, device_us=per_launch)
+    row["cases"] = cases
+    return row
+
+
+def first_grads(model, cfg, tokens, labels, seam):
+    """-> (loss, {parameter name: gradient}) of one micro-batch with the
+    kernels swapped as ``seam()`` (a context manager, :func:`grad_seams`)
+    swaps them; every gradient present and finite."""
+    import torch
+
     from repro_torch.models import common as C
-    from repro_torch.models import lm
-    from repro_torch.nn import layers
 
     for p in model.parameters():
         p.grad = None
-    with mock.patch.object(layers, "_k5", seam):
-        loss = C.lm_loss(lm.forward(model, cfg, tokens), labels)
+    with seam():
+        loss = C.lm_loss(C.get_family(cfg).forward(model, cfg, tokens),
+                         labels)
         loss.backward()
     missing = [n for n, p in model.named_parameters()
                if p.grad is None or not torch.isfinite(p.grad).all()]
@@ -3133,45 +3334,47 @@ def rel_by_layer(got, want) -> dict:
 
 def train_grad_check(dev, cfg, tokens, labels):
     """The first micro-batch's gradients (the f32 parameters', relative L2
-    by layer) on K5's kernels (forward and backward) against the seams of
-    :func:`k5_seams`, from one set of weights a config.
+    by layer) on the kernels (forward and backward: K5's for an LM, K6's
+    for RWKV6) against the seams of :func:`grad_seams`, from one set of
+    weights a config.
 
     Gated in the training type, bf16: the kernels against the forward
     kernel with the plain backward ("mixed").  Their forwards are the same
     launches, so the losses must be the same bits and the gradients differ
     only by the backward's rounding, carried back through the layers: on
-    the config cut to two layers at full width each layer's within
-    ``ops.bwd_tolerance`` of the variant the config's head dims take in
-    bf16, the backward kernel's own (``flash_bwd_tc``: 2**-6); at full
-    depth within :data:`TRAIN_GRAD_TOL_BF16_DEEP`.  A zero or dropped gradient
-    reads 1.0 and fails both.  Gated in f32 compute, on the two layers
-    (``flash.cu`` forward, the backward's f32 instance): the embedding's
-    and layers 0-1's gradients on the kernels within
-    :data:`TRAIN_GRAD_TOL_F32` of the plain versions'.  Printed, not
-    gated: the kernels against the plain versions in bf16, at full depth
-    and at two layers, and the two layers' bf16 gradients against the f32
-    plain ones.  There the forwards round apart, and under the reference's
-    init a one-ulp difference grows about 10x a layer, so two bf16 runs
-    differ by O(1): the JAX package's own bf16 gradient at two layers lies
-    1.39-1.67 from its f32 one, and the port's on the CPU 1.21-1.47 from
-    its own and 0.87-1.24 from the JAX package's bf16 one
+    the config cut to two layers at full width each layer's within the
+    seam's two-layer gate (K5: ``ops.bwd_tolerance`` of the variant the
+    config's head dims take in bf16, the backward kernel's own,
+    ``flash_bwd_tc``: 2**-6; K6: :data:`K6_TRAIN_GRAD_TOL_BF16`); at full
+    depth within :data:`TRAIN_GRAD_TOL_BF16_DEEP` (RWKV6:
+    :data:`TRAIN_GRAD_TOL_BF16_DEEP_SSM`).  A zero or dropped
+    gradient reads 1.0 and fails both.  Gated in f32 compute, on the two
+    layers (K5's ``flash.cu`` forward and the backward's f32 instance; K6
+    is f32 in either type): the embedding's and layers 0-1's gradients on
+    the kernels within :data:`TRAIN_GRAD_TOL_F32` of the plain versions'.
+    Printed, not gated: the kernels against the plain versions in bf16, at
+    full depth (not RWKV6's: autograd through K6's plain forward holds
+    about 20 GB a layer at the training shape) and at two layers, and the
+    two layers' bf16 gradients against the f32 plain ones.  There the
+    forwards round apart, and under the reference's init a one-ulp
+    difference grows about 10x a layer, so two bf16 runs differ by O(1):
+    the JAX package's own bf16 gradient at two layers lies 1.39-1.67 from
+    its f32 one, and the port's on the CPU 1.21-1.47 from its own and
+    0.87-1.24 from the JAX package's bf16 one
     (``tests/_torch_bf16_witness.py``)."""
     import torch
 
-    from repro_torch.kernels.flash_attention import ops as k5
     from repro_torch.models import common as C
-    from repro_torch.models import lm
-    from repro_torch.nn import layers
 
-    seams = {"kernel": layers._k5, **k5_seams()}
-    tol = k5.bwd_tolerance(k5.bwd_variant(torch.bfloat16, cfg.head_dim),
-                           torch.bfloat16)
+    seams, tol = grad_seams(cfg)
     cut = dataclasses.replace(cfg, n_layers=2)
     cut32 = dataclasses.replace(cut, compute_dtype="float32")
-    for c, names in ((cfg, ("kernel", "mixed", "plain")),
-                     (cut, ("kernel", "mixed", "plain")),
+    deep = (("kernel", "mixed") if cfg.family == "ssm"
+            else ("kernel", "mixed", "plain"))
+    for c, names in ((cfg, deep), (cut, ("kernel", "mixed", "plain")),
                      (cut32, ("kernel", "plain"))):
-        model = C.init_model(lm, c, torch.Generator(dev).manual_seed(0))
+        model = C.init_model(C.get_family(c), c,
+                             torch.Generator(dev).manual_seed(0))
         model.requires_grad_(True)
         runs = {k: first_grads(model, c, tokens, labels, seams[k])
                 for k in names}
@@ -3179,33 +3382,37 @@ def train_grad_check(dev, cfg, tokens, labels):
         rels = {k: rel_by_layer(runs["kernel"][1], runs[k][1])
                 for k in names[1:]}
         for k, rel in rels.items():
-            log(f"train, {c.n_layers} layers, {c.compute_dtype}: first "
-                f"micro-batch loss {runs['kernel'][0]:.6f} on the kernels, "
-                f"{runs[k][0]:.6f} on the {k} seam; gradient relative L2 "
-                f"by layer: " + ", ".join(f"{w} {rel[w]:.3e}" for w in where))
+            log(f"train {c.name}, {c.n_layers} layers, {c.compute_dtype}: "
+                f"first micro-batch loss {runs['kernel'][0]:.6f} on the "
+                f"kernels, {runs[k][0]:.6f} on the {k} seam; gradient "
+                f"relative L2 by layer: "
+                + ", ".join(f"{w} {rel[w]:.3e}" for w in where))
         if c is cfg:
             norm = sum(float(g.double().square().sum())
                        for g in runs["kernel"][1].values()) ** 0.5
-            log(f"train, {c.n_layers} layers: the first micro-batch's "
-                f"gradient norm (f64) {norm:.4e}")
+            log(f"train {c.name}, {c.n_layers} layers: the first "
+                f"micro-batch's gradient norm (f64) {norm:.4e}")
         if c is not cut32:
-            limit = tol if c is cut else TRAIN_GRAD_TOL_BF16_DEEP
+            limit = (tol if c is cut else TRAIN_GRAD_TOL_BF16_DEEP_SSM
+                     if c.family == "ssm" else TRAIN_GRAD_TOL_BF16_DEEP)
             check(runs["kernel"][0] == runs["mixed"][0], "train (bf16): the "
                   "forward kernel gives other losses under the two seams")
             bad = {w: r for w, r in rels["mixed"].items() if not r <= limit}
-            check(not bad, f"train (bf16, {c.n_layers} layers): gradients on "
-                  f"K5's backward kernel differ from those on its plain "
-                  f"version by more than {limit:.3e}: {bad}")
+            check(not bad, f"train {c.name} (bf16, {c.n_layers} layers): "
+                  f"gradients on the backward kernel differ from those on "
+                  f"its plain version by more than {limit:.3e}: {bad}")
         if c is cut:
             bf16 = {k: runs[k][1] for k in ("kernel", "plain")}
         elif c is cut32:
             check(all(rels["plain"][w] <= TRAIN_GRAD_TOL_F32 for w in where),
-                  f"train (f32): gradients differ from the plain versions' "
-                  f"by more than {TRAIN_GRAD_TOL_F32}: {rels['plain']}")
+                  f"train {c.name} (f32): gradients differ from the plain "
+                  f"versions' by more than {TRAIN_GRAD_TOL_F32}: "
+                  f"{rels['plain']}")
             truth = runs["plain"][1]
             kern = rel_by_layer(bf16["kernel"], truth)
             plain = rel_by_layer(bf16["plain"], truth)
-            log("train, 2 layers, bf16 against the f32 plain gradient: "
+            log(f"train {c.name}, 2 layers, bf16 against the f32 plain "
+                f"gradient: "
                 + ", ".join(f"{w} kernels {kern[w]:.3e}, plain versions "
                             f"{plain[w]:.3e}" for w in where))
             del bf16, truth
@@ -3244,79 +3451,72 @@ def adam_steps(metrics, opt, after, before):
           f"no weight beyond weight decay (largest Adam step {top:.3e})")
 
 
-def train_phase(dev, seed):
-    """K5's backward checked and timed (:func:`k5_bwd_checks`), then the
-    training entry point ``repro_torch.launch.train.train`` on qwen2-1.5b at
-    full width and depth (f32 master weights and moments, bf16 compute,
-    remat "full"): the first micro-batch's gradients
-    (:func:`train_grad_check`), :data:`TRAIN_STEPS` steps of
-    :data:`TRAIN_BATCH` x :data:`TRAIN_SEQ` tokens in
-    :data:`TRAIN_ACCUM` micro-batches with K5's launches counted and gated
-    (forward twice a layer and micro-batch under remat, backward once) and
-    every loss and grad norm finite, one more step under torch.profiler
-    for the busy share and its update (:func:`adam_steps`); printed: ms a
-    step, tokens/s, the model-FLOP share, the loss trajectory and peak
-    memory.
-    -> (kernels row, K5 backward launches)."""
+def train_cell(dev, cfg, loader):
+    """The training entry point ``repro_torch.launch.train.train`` on
+    ``cfg`` at full width and depth (f32 master weights and moments, bf16
+    compute, remat "full"): :data:`TRAIN_STEPS` steps of
+    :data:`TRAIN_BATCH` x :data:`TRAIN_SEQ` tokens in :data:`TRAIN_ACCUM`
+    micro-batches, the kernels' launches counted and gated (an LM's K5,
+    RWKV6's K6: forward twice a layer and micro-batch under remat, backward
+    once; the other kernel none; K5's backward all on ``flash_bwd_tc``),
+    every loss and grad norm finite, peak memory under 80 GB; one more step
+    under torch.profiler for the busy share, the kernel's forward and
+    backward device time and the update (:func:`adam_steps`); printed: ms
+    a step, tokens/s, the model-FLOP share (6·N·tokens, an LM's attention
+    added, at the bf16 peak), the loss trajectory and peak memory.
+    ``loader`` yields the batches after the first.  -> ({kernels row:
+    backward launches}, {kernels row: forward launches})."""
     import torch
 
-    from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import DataConfig, HostDataLoader
     from repro_torch.kernels.flash_attention import ops as k5
+    from repro_torch.kernels.rwkv6 import ops as k6
     from repro_torch.launch import train as T
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.steps import TrainConfig, make_train_step
     from repro_torch.tree import leaves_with_paths
 
-    row = k5_bwd_checks(dev)
-    cfg = get_config(TRAIN_ARCH)
-    check(cfg.remat == "full" and cfg.param_dtype == "float32"
-          and cfg.compute_dtype == "bfloat16", f"train config {cfg}")
-    loader = HostDataLoader(DataConfig(vocab_size=cfg.vocab_size,
-                                       seq_len=TRAIN_SEQ,
-                                       global_batch=TRAIN_BATCH))
-    first = next(loader)
-    mb = TRAIN_BATCH // TRAIN_ACCUM
-    t0 = time.perf_counter()
-    train_grad_check(dev, cfg, *(torch.as_tensor(first[k][:mb], device=dev)
-                                 for k in ("tokens", "labels")))
-    log(f"train: gradient checks {time.perf_counter() - t0:.1f} s")
-
+    wkv = cfg.family == "ssm"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     k5.flash_attention.launches = k5.flash_attention.bwd_launches = 0
     k5.flash_attention.bwd_variant_launches = dict.fromkeys(k5.BWD_SOURCES,
                                                             0)
+    k6.wkv6.launches = k6.wkv6.bwd_launches = 0
     t0 = time.perf_counter()
     r = T.train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                 log_every=1, device="cuda", accum_steps=TRAIN_ACCUM)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    fwd, bwd = k5.flash_attention.launches, k5.flash_attention.bwd_launches
+    k5n = (k5.flash_attention.launches, k5.flash_attention.bwd_launches)
+    k6n = (k6.wkv6.launches, k6.wkv6.bwd_launches)
     by_variant = dict(k5.flash_attention.bwd_variant_launches)
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     want = cfg.n_layers * TRAIN_ACCUM * TRAIN_STEPS
-    log(f"train {cfg.name}: {TRAIN_STEPS} steps in {wall:.1f} s (model "
-        f"init included); K5 launches forward {fwd} (expected {2 * want}: "
-        f"remat runs each layer's forward twice), backward {bwd} (expected "
-        f"{want}), by variant {by_variant}; peak memory {peak:.3f} GB")
+    fwd, bwd = k6n if wkv else k5n
+    log(f"train {cfg.name}: {TRAIN_STEPS} steps in {wall:.1f} s (model init "
+        f"included); {'K6' if wkv else 'K5'} launches forward {fwd} "
+        f"(expected {2 * want}: remat runs each layer's forward twice), "
+        f"backward {bwd} (expected {want}); K5 {k5n}, by variant "
+        f"{by_variant}, K6 {k6n}; peak memory {peak:.3f} GB")
     check(fwd == 2 * want and bwd == want,
-          f"train: K5 launches forward {fwd}, backward {bwd}")
-    check(by_variant == dict(flash_bwd_tc=want, flash_bwd=0),
-          f"train: K5 backward launches by variant {by_variant}")
+          f"train {cfg.name}: launches forward {fwd}, backward {bwd}")
+    check((k5n if wkv else k6n) == (0, 0),
+          f"train {cfg.name}: K5 launches {k5n}, K6 launches {k6n}")
+    if not wkv:
+        check(by_variant == dict(flash_bwd_tc=want, flash_bwd=0),
+              f"train: K5 backward launches by variant {by_variant}")
     check(all(np.isfinite(r["losses"])), f"train: losses {r['losses']}")
     check(all(np.isfinite(r["grad_norms"])),
           f"train: grad norms {r['grad_norms']}")
-    check(peak < 80.0, f"train: peak memory {peak:.3f} GB")
+    check(peak < 80.0, f"train {cfg.name}: peak memory {peak:.3f} GB")
     state = r["state"]
     n_params = sum(p.numel() for p in state["model"].parameters())
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    H, D = cfg.n_heads, cfg.head_dim
-    attn = 3 * (TRAIN_BATCH * H * TRAIN_SEQ * TRAIN_SEQ * 2 * D) \
-        * cfg.n_layers
+    attn = 0 if wkv else 3 * (TRAIN_BATCH * cfg.n_heads * TRAIN_SEQ
+                              * TRAIN_SEQ * 2 * cfg.head_dim) * cfg.n_layers
     flops = 6 * n_params * tokens + attn
     for i, (loss, s) in enumerate(zip(r["losses"], r["step_s"])):
-        log(f"train step {i}: loss {loss:.6f}, gnorm "
+        log(f"train {cfg.name} step {i}: loss {loss:.6f}, gnorm "
             f"{r['grad_norms'][i]:.4f}, lr {r['lrs'][i]:.3e}, {s * 1e3:.1f} "
             f"ms, {tokens / s:.0f} tokens/s, model-FLOP share "
             f"{flops / s / BF16_OPS_PER_S:.2%}")
@@ -3343,23 +3543,64 @@ def train_phase(dev, seed):
     if times:
         busy = sum(times.values()) / 1e6
         top = sorted(times.items(), key=lambda kv: -kv[1])[:4]
-        log(f"train step under torch.profiler: {wall['s'] * 1e3:.1f} ms, "
-            f"device busy {busy * 1e3:.1f} ms ({busy / wall['s']:.2%}); "
-            f"top kernels " + "; ".join(f"{k[:60]} {v / 1e3:.1f} ms"
-                                        for k, v in top))
-        k5_us = {part: sum(v for k, v in times.items() if key in k)
-                 for part, key in (("forward", "flash_tc_fwd"),
-                                   ("backward", "flash_bwd_tc_"))}
-        log("train step under torch.profiler: K5 " + ", ".join(
-            f"{part} {us / 1e3:.1f} ms ({us / 1e6 / busy:.1%} of the device "
-            f"time)" for part, us in k5_us.items()))
+        log(f"train {cfg.name} step under torch.profiler: "
+            f"{wall['s'] * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
+            f"({busy / wall['s']:.2%}); top kernels "
+            + "; ".join(f"{k[:60]} {v / 1e3:.1f} ms" for k, v in top))
+        parts = ((("forward", r"wkv6_(intra|scan|inter)\b"),
+                  ("backward", r"wkv6_bwd_")) if wkv else
+                 (("forward", "flash_tc_fwd"), ("backward", "flash_bwd_tc_")))
+        us = {part: sum(v for k, v in times.items() if re.search(pat, k))
+              for part, pat in parts}
+        log(f"train {cfg.name} step under torch.profiler: "
+            f"{'K6' if wkv else 'K5'} " + ", ".join(
+                f"{part} {t / 1e3:.1f} ms ({t / 1e6 / busy:.1%} of the "
+                f"device time)" for part, t in us.items()))
     else:
-        log(f"train step busy share not measured: {why}")
-    log(f"train: {n_params} parameters, {6 * n_params * tokens / 1e12:.1f} "
-        f"TFLOP (6·N·tokens) + {attn / 1e12:.1f} TFLOP of attention a step")
+        log(f"train {cfg.name} step busy share not measured: {why}")
+    log(f"train {cfg.name}: {n_params} parameters, "
+        f"{6 * n_params * tokens / 1e12:.1f} TFLOP (6·N·tokens) + "
+        f"{attn / 1e12:.1f} TFLOP of attention a step")
     del state, r
     torch.cuda.empty_cache()
-    return row, bwd
+    name = "wkv6" if wkv else "flash_attention"
+    return {name + "_bwd": bwd}, {name: fwd}
+
+
+def train_phase(dev, seed):
+    """K5's and K6's backward kernels checked and timed
+    (:func:`k5_bwd_checks`, :func:`k6_bwd_checks`), then for each of
+    :data:`TRAIN_ARCHS` the first micro-batch's gradients
+    (:func:`train_grad_check`) and the train cell (:func:`train_cell`).
+    -> (kernels rows, {row: backward launches}, {row: forward launches
+    in training})."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, HostDataLoader
+
+    rows = {"flash_attention_bwd": k5_bwd_checks(dev),
+            "wkv6_bwd": k6_bwd_checks(dev)}
+    bwd, fwd = {}, {}
+    for arch in TRAIN_ARCHS:
+        cfg = get_config(arch)
+        check(cfg.remat == "full" and cfg.param_dtype == "float32"
+              and cfg.compute_dtype == "bfloat16", f"train config {cfg}")
+        loader = HostDataLoader(DataConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=TRAIN_SEQ,
+                                           global_batch=TRAIN_BATCH))
+        first = next(loader)
+        mb = TRAIN_BATCH // TRAIN_ACCUM
+        t0 = time.perf_counter()
+        train_grad_check(dev, cfg, *(torch.as_tensor(first[k][:mb],
+                                                     device=dev)
+                                     for k in ("tokens", "labels")))
+        log(f"train {cfg.name}: gradient checks "
+            f"{time.perf_counter() - t0:.1f} s")
+        b, f = train_cell(dev, cfg, loader)
+        bwd.update(b)
+        fwd.update(f)
+    return rows, bwd, fwd
 
 
 # -- phase 7: progressive filling, the paper's Section 2 --------------------
@@ -3678,7 +3919,7 @@ def main(argv=None):
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     sources = [tiles.SOURCE, k3.SOURCE, *k5.SOURCES.values(),
-               *k5.BWD_SOURCES.values(), k6.SOURCE]
+               *k5.BWD_SOURCES.values(), k6.SOURCE, k6.BWD_SOURCE]
     with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc each
         builds = [pool.submit(_build.build, src) for src in sources]
         for b in builds:
@@ -3690,6 +3931,7 @@ def main(argv=None):
     for name in k5.BWD_SOURCES:
         k5.bwd_library(name)
     k6.library()
+    k6.bwd_library()
     log(f"built {', '.join(src.name for src in sources)} in "
         f"{time.perf_counter() - t0:.1f} s")
     for src in sources:
@@ -3742,15 +3984,18 @@ def main(argv=None):
               "persistent_epoch")
     if "mesh" in phases:
         mesh_phase(dev, agents, fws, args.seed)
+    train_fwd = {}
     if "train" in phases:
         t0 = time.perf_counter()
-        rows["flash_attention_bwd"], launches["flash_attention_bwd"] = (
-            train_phase(dev, args.seed))
-        log(f"launches (K5's backward over the {TRAIN_ARCH} training "
-            f"steps): {launches['flash_attention_bwd']}; train phase "
+        train_rows, train_bwd, train_fwd = train_phase(dev, args.seed)
+        rows.update(train_rows)
+        launches.update(train_bwd)
+        log(f"launches (the backward kernels over the "
+            f"{' and '.join(TRAIN_ARCHS)} training steps): {train_bwd}; "
+            f"the forward kernels' {train_fwd}; train phase "
             f"{time.perf_counter() - t0:.1f} s")
-        check(launches["flash_attention_bwd"] > 0, "the train path never "
-              "launched flash_attention_bwd")
+        for name, n in {**train_bwd, **train_fwd}.items():
+            check(n > 0, f"the train path never launched {name}")
     meta = {
         "masked_argmin1d": dict(
             route="cuda",
@@ -3783,6 +4028,12 @@ def main(argv=None):
             source="src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_bwd_tc.cu",
             replaces="src/repro/nn/layers.py:104"),
+        # no Pallas counterpart: the reference differentiates the chunked
+        # XLA twin of its WKV6 kernel
+        "wkv6_bwd": dict(
+            route="cuda",
+            source="src/repro_torch/kernels/rwkv6/csrc/wkv6_bwd.cu",
+            replaces="src/repro/nn/ssm.py:118"),
     }
     log(f"chip_smoke phases {','.join(sorted(phases))}: "
         f"{time.perf_counter() - t_start:.1f} s, the builds included")
@@ -3792,6 +4043,8 @@ def main(argv=None):
         if fill_launches is not None:   # the fill path's own K3 count
             out[list(meta).index("persistent_epoch")]["fill_launches"] = (
                 fill_launches)
+        for name, n in train_fwd.items():   # the train path's forwards
+            out[list(meta).index(name)]["train_launches"] = n
         log(json.dumps({"kernels": out}))
     log(card)
     print(json.dumps({"ok": True, "device": {

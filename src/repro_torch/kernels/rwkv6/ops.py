@@ -1,4 +1,4 @@
-"""Wrapper of the WKV6 kernel (K6).
+"""Wrapper of the WKV6 kernel (K6) and its backward.
 
 For tensors on the CPU :func:`wkv6` runs the kernel's plain version
 (:func:`.ref.wkv6_ref`); for CUDA tensors it launches ``csrc/wkv6.cu``
@@ -9,10 +9,14 @@ over the chunks, the chunks' inter-chunk parts) into a scratch of one
 (D, D) increment a chunk that the wrapper allocates; ``wkv6.launches``
 counts calls, one a layer of the prefill.
 
-K6 has no backward kernel yet: a CUDA call under autograd (grad enabled
-and an input that requires grad) raises instead of returning an output
-whose inputs would silently get no gradient.  The plain version on the CPU
-stays differentiable.
+Under autograd (grad enabled and an input that requires grad) the call is
+a :class:`torch.autograd.Function` on f32 copies of the inputs (so each
+input's gradient comes back in its own type) whose forward is the same
+dispatch and whose backward is :func:`wkv6_bwd`: on the CPU the plain
+version :func:`.ref.wkv6_bwd_ref`; on CUDA ``csrc/wkv6_bwd.cu``, four
+launches that read the forward's scratch, which then holds each chunk's
+starting state and which the Function keeps.  No call on CUDA gives way to
+a plain version; ``wkv6.bwd_launches`` counts backward calls on the card.
 """
 from __future__ import annotations
 
@@ -23,43 +27,46 @@ import torch
 
 from repro_torch import _build
 from repro_torch.kernels import KernelError
-from repro_torch.kernels.rwkv6.ref import wkv6_ref
+from repro_torch.kernels.rwkv6.ref import wkv6_bwd_ref, wkv6_ref
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv6.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "wkv6.cu"
+BWD_SOURCE = CSRC / "wkv6_bwd.cu"
 MAX_D = 64
 MAX_CHUNK = 64
 
-_LIB = None
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _load(source: Path, entry: str, n_ptrs: int) -> ctypes.CDLL:
+    lib = _LIBS.get(entry)
+    if lib is None:
+        lib = _build.load(source)
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        launch = getattr(lib, entry + "_launch")
+        launch.argtypes = [ptr] * n_ptrs + [i32] * 5 + [ptr]
+        launch.restype = i32
+        error = getattr(lib, entry + "_error")
+        error.argtypes = [i32]
+        error.restype = ctypes.c_char_p
+        _LIBS[entry] = lib
+    return lib
 
 
 def library() -> ctypes.CDLL:
-    """The built kernel library (nvcc runs on the first call)."""
-    global _LIB
-    if _LIB is None:
-        lib = _build.load(SOURCE)
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.wkv6_launch.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
-        lib.wkv6_launch.restype = i32
-        lib.wkv6_error.argtypes = [i32]
-        lib.wkv6_error.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+    """The built forward kernel library (nvcc runs on the first call)."""
+    return _load(SOURCE, "wkv6", 10)
 
 
-def wkv6(r, k, v, logw, u, *, chunk: int = 64, state0=None):
-    """r/k/v/logw: (B,S,H,D); u: (H,D); state0: (B,H,D,D) or None (zeros)
-    -> (y (B,S,H,D) f32, the state after the last token (B,H,D,D) f32).
-    Inputs of any float type are read as f32.  S needs no padding: the tail
-    of the last chunk counts as zero k and zero log-decay, as the
-    reference's padding makes it.  On CUDA, D <= 64 and chunk <= 64."""
-    if r.device.type == "cpu":
-        return wkv6_ref(r, k, v, logw, u, chunk=chunk, state0=state0)
-    dev = r.device
+def bwd_library() -> ctypes.CDLL:
+    """The built backward kernel library (nvcc runs on the first call)."""
+    return _load(BWD_SOURCE, "wkv6_bwd", 17)
+
+
+def _check(r, k, v, logw, u, state0, chunk) -> None:
+    """Raise unless the inputs are in the CUDA kernels' contract."""
     ins = (r, k, v, logw, u) + (() if state0 is None else (state0,))
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
-        raise KernelError("wkv6: K6 has no backward kernel yet, so it cannot "
-                          "run under autograd on CUDA (RWKV6 trains on the "
-                          "CPU's plain version)")
+    dev = r.device
     if dev.type != "cuda" or any(t.device != dev for t in ins):
         raise KernelError("wkv6: inputs must share one CUDA device (got "
                           + ", ".join(str(t.device) for t in ins) + ")")
@@ -74,10 +81,17 @@ def wkv6(r, k, v, logw, u, *, chunk: int = 64, state0=None):
                           f"D <= {MAX_D}, chunk <= {MAX_CHUNK} (got r "
                           f"{tuple(r.shape)}, u {tuple(u.shape)}, chunk "
                           f"{chunk})")
+
+
+def _launch(r, k, v, logw, u, state0, chunk):
+    """K6 on f32 CUDA tensors -> (y, the final state, each chunk's starting
+    state (B, H, nC, D, D): the scratch after the launches)."""
+    dev = r.device
     f32 = torch.float32
-    r, k, v, logw, u = (t.to(f32).contiguous() for t in (r, k, v, logw, u))
+    r, k, v, logw, u = (t.contiguous() for t in (r, k, v, logw, u))
     if state0 is not None:
-        state0 = state0.to(f32).contiguous()
+        state0 = state0.contiguous()
+    B, S, H, D = r.shape
     y = torch.empty((B, S, H, D), dtype=f32, device=dev)
     s_end = torch.empty((B, H, D, D), dtype=f32, device=dev)
     nC = -(-S // chunk)
@@ -97,7 +111,128 @@ def wkv6(r, k, v, logw, u, *, chunk: int = 64, state0=None):
         raise KernelError("wkv6 launch failed: "
                           + lib.wkv6_error(rc).decode())
     wkv6.launches += 1
-    return y, s_end
+    return y, s_end, inc
+
+
+class _WKV6(torch.autograd.Function):
+    """K6 under autograd on f32 inputs: the forward's dispatch (on the card
+    keeping each chunk's starting state), and :func:`wkv6_bwd` for the
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, state0, chunk):
+        ctx.set_materialize_grads(False)
+        if r.device.type == "cpu":
+            y, s_end = wkv6_ref(r, k, v, logw, u, chunk=chunk, state0=state0)
+            starts = None
+        else:
+            y, s_end, starts = _launch(r, k, v, logw, u, state0, chunk)
+        ctx.save_for_backward(r, k, v, logw, u, state0, starts)
+        ctx.chunk = chunk
+        return y, s_end
+
+    @staticmethod
+    def backward(ctx, dy, ds_end):
+        r, k, v, logw, u, state0, starts = ctx.saved_tensors
+        if dy is None:           # only the final state was used
+            dy = torch.zeros_like(r)
+        dr, dk, dv, dw, du, ds0 = wkv6_bwd(
+            r, k, v, logw, u, dy.contiguous(), chunk=ctx.chunk,
+            state0=state0, ds_end=ds_end, starts=starts)
+        return (dr, dk, dv, dw, du,
+                ds0 if ctx.needs_input_grad[5] else None, None)
+
+
+def wkv6(r, k, v, logw, u, *, chunk: int = 64, state0=None):
+    """r/k/v/logw: (B,S,H,D); u: (H,D); state0: (B,H,D,D) or None (zeros)
+    -> (y (B,S,H,D) f32, the state after the last token (B,H,D,D) f32).
+    Inputs of any float type are read as f32.  S needs no padding: the tail
+    of the last chunk counts as zero k and zero log-decay, as the
+    reference's padding makes it.  On CUDA, D <= 64 and chunk <= 64.  Under
+    autograd the inputs' gradients come from :func:`wkv6_bwd`."""
+    ins = (r, k, v, logw, u) + (() if state0 is None else (state0,))
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in ins)
+    if r.device.type != "cpu":
+        _check(r, k, v, logw, u, state0, chunk)
+    f32 = torch.float32
+    r, k, v, logw, u = (t.to(f32) for t in (r, k, v, logw, u))
+    if state0 is not None:
+        state0 = state0.to(f32)
+    if grad:
+        return _WKV6.apply(r, k, v, logw, u, state0, chunk)
+    if r.device.type == "cpu":
+        return wkv6_ref(r, k, v, logw, u, chunk=chunk, state0=state0)
+    return _launch(r, k, v, logw, u, state0, chunk)[:2]
+
+
+def wkv6_bwd(r, k, v, logw, u, dy, *, chunk: int = 64, state0=None,
+             ds_end=None, starts=None):
+    """The gradient of :func:`wkv6` at ``(r, k, v, logw, u, state0)`` for
+    the cotangents ``dy`` of y and ``ds_end`` of the final state (None:
+    zero) -> ``(dr, dk, dv, dlogw, du, dstate0)`` f32.  CPU tensors: the
+    plain version (``starts`` unused).  CUDA tensors: ``csrc/wkv6_bwd.cu``,
+    which needs ``starts``, each chunk's starting state as the forward
+    launch leaves it; nothing gives way to the plain version."""
+    if r.device.type == "cpu":
+        return wkv6_bwd_ref(r, k, v, logw, u, dy, chunk=chunk, state0=state0,
+                            ds_end=ds_end)
+    return bwd_launch(r, k, v, logw, u, dy, chunk=chunk, state0=state0,
+                      ds_end=ds_end, starts=starts)
+
+
+def bwd_launch(r, k, v, logw, u, dy, *, chunk: int = 64, state0=None,
+               ds_end=None, starts=None):
+    """Launch K6's backward kernel on f32 CUDA tensors (the route
+    :func:`wkv6_bwd` takes on the card)."""
+    _check(r, k, v, logw, u, state0, chunk)
+    B, S, H, D = r.shape
+    dev = r.device
+    f32 = torch.float32
+    nC = -(-S // chunk)
+    extra = [t for t in (dy, ds_end, starts) if t is not None]
+    if any(t.device != dev for t in extra):
+        raise KernelError("wkv6_bwd: dy, ds_end and the saved states must "
+                          "lie on the inputs' device")
+    ins = (r, k, v, logw, u, dy) + (() if state0 is None else (state0,))
+    if any(t.dtype != f32 for t in ins + tuple(extra)):
+        raise KernelError(f"wkv6_bwd: needs f32 tensors (got "
+                          f"{[str(t.dtype) for t in ins + tuple(extra)]})")
+    if (dy.shape != r.shape
+            or (ds_end is not None and ds_end.shape != (B, H, D, D))
+            or starts is None or starts.shape != (B, H, nC, D, D)
+            or not starts.is_contiguous()):
+        raise KernelError(
+            f"wkv6_bwd: needs dy {tuple(r.shape)}, ds_end {(B, H, D, D)} or "
+            f"None, and the forward's contiguous starting states "
+            f"{(B, H, nC, D, D)} (got dy {tuple(dy.shape)}, ds_end "
+            f"{None if ds_end is None else tuple(ds_end.shape)}, starts "
+            f"{None if starts is None else tuple(starts.shape)})")
+    r, k, v, logw, u, dy = (t.contiguous() for t in (r, k, v, logw, u, dy))
+    if ds_end is not None:
+        ds_end = ds_end.contiguous()
+    dr, dk, dv, dw = (torch.empty((B, S, H, D), dtype=f32, device=dev)
+                      for _ in range(4))
+    du = torch.empty((H, D), dtype=f32, device=dev)
+    ds0 = torch.empty((B, H, D, D), dtype=f32, device=dev)
+    # each chunk's (r * exp(cum_prev))^T dy, then (in place) the state's
+    # adjoint after it; each chunk's total log-decay and part of du
+    q = torch.empty((B, H, nC, D, D), dtype=f32, device=dev)
+    tot = torch.empty((B, H, nC, D), dtype=f32, device=dev)
+    dup = torch.empty((B, H, nC, D), dtype=f32, device=dev)
+    lib = bwd_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.wkv6_bwd_launch(
+            *(t.data_ptr() for t in (r, k, v, logw, u, dy, starts)),
+            None if ds_end is None else ds_end.data_ptr(),
+            *(t.data_ptr() for t in (dr, dk, dv, dw, du, ds0, q, tot, dup)),
+            B, S, H, D, int(chunk), stream)
+    if rc != 0:
+        raise KernelError("wkv6_bwd launch failed: "
+                          + lib.wkv6_bwd_error(rc).decode())
+    wkv6.bwd_launches += 1
+    return dr, dk, dv, dw, du, ds0
 
 
 wkv6.launches = 0
+wkv6.bwd_launches = 0

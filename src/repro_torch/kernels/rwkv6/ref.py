@@ -10,6 +10,11 @@
 * :func:`wkv6_three_phase` — an emulation of ``csrc/wkv6.cu``'s algorithm
   (every chunk's own part at once, the scan of the state over the chunks,
   every chunk's inter-chunk part at once), for the tests.
+* :func:`wkv6_bwd_ref` — the plain backward: the gradient of
+  :func:`wkv6_ref` written out chunk by chunk in reverse, not autograd.
+  Returns ``(dr, dk, dv, dlogw, du, dstate0)``.
+* :func:`wkv6_bwd_three_phase` — an emulation of ``csrc/wkv6_bwd.cu``'s
+  algorithm, for the tests.
 """
 from __future__ import annotations
 
@@ -17,21 +22,29 @@ import torch
 import torch.nn.functional as F
 
 
+def _work_type(t) -> torch.dtype:
+    """f32, or f64 for f64 inputs (a gradient check's finite differences)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _chunks(t, chunk):
+    """(B,S,H,D) -> (B,nC,C,H,D) in :func:`_work_type`, zero padded to a
+    multiple of chunk."""
+    B, S, H, D = t.shape
+    pad = (-S) % chunk
+    t = t.to(_work_type(t))
+    if pad:
+        t = F.pad(t, (0, 0, 0, 0, 0, pad))
+    return t.reshape(B, (S + pad) // chunk, chunk, H, D)
+
+
 def wkv6_ref(r, k, v, logw, u, *, chunk: int = 64, state0=None):
     """r/k/v/logw: (B,S,H,D); u: (H,D); state0: (B,H,D,D) or None ->
-    (y (B,S,H,D) f32, state (B,H,D,D) f32)."""
+    (y (B,S,H,D) f32, state (B,H,D,D) f32); f64 inputs stay f64."""
     B, S, H, D = r.shape
-    f32 = torch.float32
-    pad = (-S) % chunk
-    nC = (S + pad) // chunk
-
-    def prep(t):
-        t = t.to(f32)
-        if pad:
-            t = F.pad(t, (0, 0, 0, 0, 0, pad))
-        return t.reshape(B, nC, chunk, H, D)
-
-    rc, kc, vc, wc = prep(r), prep(k), prep(v), prep(logw)
+    f32 = _work_type(r)
+    rc, kc, vc, wc = (_chunks(t, chunk) for t in (r, k, v, logw))
+    nC = rc.shape[1]
     u = u.to(f32)
     s = (torch.zeros((B, H, D, D), dtype=f32, device=r.device)
          if state0 is None else state0.to(f32))
@@ -88,16 +101,8 @@ def wkv6_three_phase(r, k, v, logw, u, *, chunk: int = 64, state0=None):
     arguments and results as :func:`wkv6_ref`."""
     B, S, H, D = r.shape
     f32 = torch.float32
-    pad = (-S) % chunk
-    nC = (S + pad) // chunk
-
-    def prep(t):
-        t = t.to(f32)
-        if pad:
-            t = F.pad(t, (0, 0, 0, 0, 0, pad))
-        return t.reshape(B, nC, chunk, H, D)
-
-    rc, kc, vc, wc = prep(r), prep(k), prep(v), prep(logw)
+    rc, kc, vc, wc = (_chunks(t, chunk) for t in (r, k, v, logw))
+    nC = rc.shape[1]
     u = u.to(f32)
     # (a) the chunks' own parts, (B, nC, C, H, D)
     cum = torch.cumsum(wc, dim=2)
@@ -123,3 +128,181 @@ def wkv6_three_phase(r, k, v, logw, u, *, chunk: int = 64, state0=None):
     y = y + torch.einsum("bnchd,bnhde->bnche", rc * torch.exp(cum_prev),
                          torch.stack(starts, dim=1))
     return y.reshape(B, nC * chunk, H, D)[:, :S], s
+
+
+def wkv6_bwd_ref(r, k, v, logw, u, dy, *, chunk: int = 64, state0=None,
+                 ds_end=None):
+    """The gradient of :func:`wkv6_ref` at ``(r, k, v, logw, u, state0)``
+    for the cotangents ``dy`` of ``y`` and ``ds_end`` of the final state
+    (None: zero) -> ``(dr, dk, dv, dlogw, du, dstate0)`` in f32.
+
+    The chunk-parallel form written out, not autograd: the chunks' starting
+    states by the forward's scan, then the chunks in reverse, carrying the
+    state's adjoint ``G`` (the gradient of a chunk's starting state):
+    ``G_c = exp(total_c) * G_{c+1} + (r * exp(cum_prev))^T dy_c`` from
+    ``G_nC = ds_end``; ``dstate0 = G_0``.  Within a chunk, with the scores
+    ``A[t, j] = sum_d r[t,d] k[j,d] exp(cum_prev[t,d] - cum[j,d])``, j < t,
+    and ``dA[t, j] = dy_t . v_j``:
+
+    * dv: ``A^T dy``, the bonus ``(r_j . u k_j) dy_j`` and ``k_dec G_{c+1}``;
+    * dr, dk: ``dA`` through the same decays, the bonus
+      ``(dy_t . v_t) u k_t`` (and ``u r_t``), and the state's shares
+      ``exp(cum_prev) * (dy S_start^T)`` and ``exp(total - cum) *
+      (v G_{c+1}^T)``;
+    * du: ``sum (dy_t . v_t) r_t k_t``;
+    * dlogw[s]: the gradients of cum, cum_prev and total gathered by sums
+      inside the chunk: ``sum_{t>s} r_t dr'_t - sum_{t>=s} k_t dk''_t +
+      sum_{t<s} k_t dk'''_t + exp(total) sum_e S_start G_{c+1}``, where dr'
+      is dr without the bonus, dk'' dk's intra-chunk share and dk''' its
+      state share.
+
+    Every exponent is a difference of cumulative log-decays that is <= 0,
+    as in the forward.  f64 inputs stay f64."""
+    B, S, H, D = r.shape
+    f32 = _work_type(r)
+    rc, kc, vc, wc, gc = (_chunks(t, chunk) for t in (r, k, v, logw, dy))
+    nC = rc.shape[1]
+    u = u.to(f32)
+    s = (torch.zeros((B, H, D, D), dtype=f32, device=r.device)
+         if state0 is None else state0.to(f32))
+    starts = []
+    for n in range(nC):
+        starts.append(s)
+        cum = torch.cumsum(wc[:, n], dim=1)
+        total = cum[:, -1:]
+        k_dec = kc[:, n] * torch.exp(total - cum)
+        s = (torch.exp(total[:, 0])[..., None] * s
+             + torch.einsum("bchd,bche->bhde", k_dec, vc[:, n]))
+    G = (torch.zeros((B, H, D, D), dtype=f32, device=r.device)
+         if ds_end is None else ds_end.to(f32))
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=r.device), -1)[:, :, None]
+    dr, dk, dv, dw = ([None] * nC for _ in range(4))
+    du = torch.zeros((H, D), dtype=f32, device=r.device)
+    for n in reversed(range(nC)):
+        rn, kn, vn, wn, gn = rc[:, n], kc[:, n], vc[:, n], wc[:, n], gc[:, n]
+        cum = torch.cumsum(wn, dim=1)
+        cum_prev = cum - wn
+        total = cum[:, -1:]
+        dec = torch.where(tri[..., None],
+                          torch.exp(cum_prev[:, :, None] - cum[:, None]),
+                          0.0)                                   # (B,t,j,H,D)
+        att = torch.sum(rn[:, :, None] * kn[:, None] * dec, dim=-1)
+        diag = torch.sum(rn * u * kn, dim=-1)                    # (B,c,H)
+        d_att = torch.where(tri, torch.einsum("bthe,bjhe->btjh", gn, vn), 0.0)
+        d_diag = torch.sum(gn * vn, dim=-1)                      # (B,c,H)
+        x = d_att[..., None] * dec                               # (B,t,j,H,D)
+        dr_intra = torch.sum(x * kn[:, None], dim=2)
+        dk_intra = torch.sum(x * rn[:, :, None], dim=1)
+        S0 = starts[n]
+        dr_state = torch.exp(cum_prev) * torch.einsum("bthe,bhde->bthd",
+                                                      gn, S0)
+        k_decay = torch.exp(total - cum)
+        dk_state = k_decay * torch.einsum("bjhe,bhde->bjhd", vn, G)
+        dv[n] = (torch.einsum("btjh,bthe->bjhe", att, gn)
+                 + diag[..., None] * gn
+                 + torch.einsum("bjhd,bhde->bjhe", kn * k_decay, G))
+        dr[n] = dr_intra + d_diag[..., None] * u * kn + dr_state
+        dk[n] = dk_intra + d_diag[..., None] * u * rn + dk_state
+        du = du + torch.sum(d_diag[..., None] * rn * kn, dim=(0, 1))
+        a = rn * (dr_intra + dr_state)
+        b = kn * dk_intra
+        c = kn * dk_state
+        after = torch.flip(torch.cumsum(torch.flip(a, (1,)), 1), (1,)) - a
+        from_s = torch.flip(torch.cumsum(torch.flip(b, (1,)), 1), (1,))
+        before = torch.cumsum(c, 1) - c
+        e = torch.exp(total[:, 0]) * torch.sum(S0 * G, dim=-1)   # (B,H,D)
+        dw[n] = after - from_s + before + e[:, None]
+        G = (torch.exp(total[:, 0])[..., None] * G
+             + torch.einsum("bthd,bthe->bhde", rn * torch.exp(cum_prev), gn))
+
+    def whole(parts):
+        return torch.stack(parts, dim=1).reshape(B, nC * chunk, H, D)[:, :S]
+
+    return whole(dr), whole(dk), whole(dv), whole(dw), du, G
+
+
+def wkv6_bwd_three_phase(r, k, v, logw, u, dy, *, chunk: int = 64,
+                         state0=None, ds_end=None):
+    """K6's backward as ``csrc/wkv6_bwd.cu`` computes it: (a') every chunk
+    at once: the cumulative log-decays again, the scores ``att`` with the
+    bonus on their diagonal, ``d_att = dy v^T`` (with ``dy_t . v_t`` on its
+    diagonal), dv's intra-chunk and bonus shares ``att^T dy``, dr's and dk's
+    (``d_att`` through the decays, and the bonus), dlogw's intra-chunk share
+    (a reverse sum a channel), the chunk's ``(r * exp(cum_prev))^T dy`` and
+    its part of du; (b') the adjoint scan of the state over the chunks in
+    reverse, from ``ds_end``, keeping each chunk's ``G_{c+1}``; (c') every
+    chunk at once: the state's shares of dr (from the forward's saved
+    starting states), dk and dv (from ``G_{c+1}``) and of dlogw; then du as
+    the chunks' parts summed over the batch and the chunks in order.  Same
+    arguments and results as :func:`wkv6_bwd_ref`."""
+    B, S, H, D = r.shape
+    f32 = torch.float32
+    rc, kc, vc, wc, gc = (_chunks(t, chunk) for t in (r, k, v, logw, dy))
+    nC = rc.shape[1]
+    u = u.to(f32)
+    # (a') the chunks' own parts, (B, nC, C, H, D)
+    cum = torch.cumsum(wc, dim=2)
+    cum_prev = cum - wc
+    total = cum[:, :, -1]                                       # (B,nC,H,D)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=r.device), -1)[:, :, None]
+    dec = torch.where(tri[..., None],
+                      torch.exp(cum_prev[:, :, :, None] - cum[:, :, None]),
+                      0.0)                                  # (B,nC,t,j,H,D)
+    eye = torch.eye(chunk, dtype=torch.bool, device=r.device)[:, :, None]
+    att = (torch.sum(rc[:, :, :, None] * kc[:, :, None] * dec, dim=-1)
+           + torch.where(eye, torch.sum(rc * u * kc, dim=-1)[:, :, :, None],
+                         0.0))                               # (B,nC,t,j,H)
+    prod = torch.einsum("bnthe,bnjhe->bntjh", gc, vc)
+    d_att = torch.where(tri, prod, 0.0)
+    d_diag = torch.diagonal(prod, dim1=2, dim2=3).movedim(-1, 2)  # (B,nC,c,H)
+    dv = torch.einsum("bntjh,bnthe->bnjhe", att, gc)
+    x = d_att[..., None] * dec
+    dr_intra = torch.sum(x * kc[:, :, None], dim=3)
+    dk_intra = torch.sum(x * rc[:, :, :, None], dim=2)
+    dr = dr_intra + d_diag[..., None] * u * kc
+    dk = dk_intra + d_diag[..., None] * u * rc
+    a, b = rc * dr_intra, kc * dk_intra
+    dw = (torch.flip(torch.cumsum(torch.flip(a, (2,)), 2), (2,)) - a
+          - torch.flip(torch.cumsum(torch.flip(b, (2,)), 2), (2,)))
+    q = torch.einsum("bnthd,bnthe->bnhde", rc * torch.exp(cum_prev), gc)
+    du_parts = torch.sum(d_diag[..., None] * rc * kc, dim=2)   # (B,nC,H,D)
+    # the forward's scan: each chunk's starting state (what the forward
+    # launch leaves in its scratch)
+    k_decay = torch.exp(total[:, :, None] - cum)
+    inc = torch.einsum("bnchd,bnche->bnhde", kc * k_decay, vc)
+    s = (torch.zeros((B, H, D, D), dtype=f32, device=r.device)
+         if state0 is None else state0.to(f32))
+    starts = []
+    for n in range(nC):
+        starts.append(s)
+        s = torch.exp(total[:, n])[..., None] * s + inc[:, n]
+    starts = torch.stack(starts, dim=1)                     # (B,nC,H,D,D)
+    # (b') the adjoint scan, G_{c+1} for each chunk
+    G = (torch.zeros((B, H, D, D), dtype=f32, device=r.device)
+         if ds_end is None else ds_end.to(f32))
+    after = [None] * nC
+    for n in reversed(range(nC)):
+        after[n] = G
+        G = torch.exp(total[:, n])[..., None] * G + q[:, n]
+    after = torch.stack(after, dim=1)
+    # (c') the state's shares
+    dr_state = torch.exp(cum_prev) * torch.einsum("bnthe,bnhde->bnthd", gc,
+                                                  starts)
+    dk_state = k_decay * torch.einsum("bnjhe,bnhde->bnjhd", vc, after)
+    dv = dv + torch.einsum("bnjhd,bnhde->bnjhe", kc * k_decay, after)
+    a, c = rc * dr_state, kc * dk_state
+    e = torch.exp(total) * torch.sum(starts * after, dim=-1)   # (B,nC,H,D)
+    dw = dw + ((torch.flip(torch.cumsum(torch.flip(a, (2,)), 2), (2,)) - a)
+               + (torch.cumsum(c, 2) - c) + e[:, :, None])
+    dr, dk = dr + dr_state, dk + dk_state
+    du = torch.zeros((H, D), dtype=f32, device=r.device)
+    for bb in range(B):
+        for n in range(nC):
+            du = du + du_parts[bb, n]
+
+    def whole(t):
+        return t.reshape(B, nC * chunk, H, D)[:, :S]
+
+    return whole(dr), whole(dk), whole(dv), whole(dw), du, G

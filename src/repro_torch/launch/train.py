@@ -8,9 +8,9 @@ checkpoint/restart -> straggler and heartbeat hooks (the reference's
 Runs on the card (``--device cuda``, the default) unless asked for the CPU;
 ``--full`` trains the full published configuration.  On the card every
 attention layer's forward and backward run on K5's kernels
-(``flash_tc.cu``/``flash.cu`` and ``flash_bwd.cu``); RWKV6's K6 has no
-backward kernel yet, so an RWKV6 model trains on the CPU only.  The step
-runs eagerly (the reference jits it and donates the state).
+(``flash_tc.cu``/``flash.cu`` and ``flash_bwd_tc.cu``/``flash_bwd.cu``),
+and every RWKV6 time-mix's on K6's (``wkv6.cu`` and ``wkv6_bwd.cu``).  The
+step runs eagerly (the reference jits it and donates the state).
 """
 from __future__ import annotations
 

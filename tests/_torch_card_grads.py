@@ -4,14 +4,14 @@ each family that trains on the card, at the configs and batch of
 
 One train step's gradient, leaf by leaf as the optimizer receives it
 (``_train_case``, ``_train_run``), in four runs: on the card with K5's
-kernels ("kern"),
-on the card with the forward kernel and K5's plain backward ("mixed"), on
-the card with both plain versions ("plain"), and on the CPU ("cpu").
+and K6's kernels ("kern"), on the card with the forward kernels and the
+plain backwards ("mixed"), on the card with both plain versions
+("plain"), and on the CPU ("cpu").
 Printed for each pair: the losses, the four leaves furthest apart and the
 median (relative L2).  For the VLM also three controls, each a fault put
 into K5's backward on the card, against the CPU: the cross-attention's dk
 zeroed, its dv scaled by 1 + 1e-3, the self-attention's dq scaled by
-1 + 1e-3.
+1 + 1e-3; for RWKV6 one, K6's dr scaled by 1 + 1e-3.
 
 Run on a machine with a card, from the repository's root::
 
@@ -30,7 +30,8 @@ sys.path[:0] = [os.path.dirname(os.path.abspath(__file__)),
 import chip_smoke  # noqa: E402
 import test_torch_cuda as T  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
-from repro_torch.nn import layers  # noqa: E402
+from repro_torch.kernels.rwkv6 import ops as k6  # noqa: E402
+from repro_torch.nn import layers, ssm  # noqa: E402
 
 
 def compare(a, b) -> str:
@@ -61,20 +62,33 @@ CONTROLS = {
 }
 
 
+def k6_dr_scaled(*args, **kw):
+    dr, *rest = k6.bwd_launch(*args, **kw)
+    return (dr * (1 + 1e-3), *rest)
+
+
 def main(archs):
     dev = torch.device("cuda")
     seams = chip_smoke.k5_seams()
+    k6_seams = {"mixed": (k6, "wkv6_bwd", chip_smoke.plain_wkv6_bwd),
+                "plain": (ssm, "_k6", chip_smoke.PlainK6)}
     for arch in archs:
         cfg, tree, batch = T._train_case(arch)
         runs = {"kern": T._train_run(cfg, tree, batch, dev)}
         for name in ("mixed", "plain"):
-            with mock.patch.object(layers, "_k5", seams[name]):
+            with mock.patch.object(layers, "_k5", seams[name]), \
+                    mock.patch.object(*k6_seams[name]):
                 runs[name] = T._train_run(cfg, tree, batch, dev)
         runs["cpu"] = T._train_run(cfg, tree, batch, torch.device("cpu"))
         for a, b in (("kern", "mixed"), ("kern", "plain"), ("plain", "cpu"),
                      ("kern", "cpu")):
             print(f"{arch} {cfg.compute_dtype} {a} vs {b}: "
                   + compare(runs[a], runs[b]), flush=True)
+        if cfg.family == "ssm":
+            with mock.patch.object(k6, "wkv6_bwd", k6_dr_scaled):
+                run = T._train_run(cfg, tree, batch, dev)
+            print(f"{arch} control (K6 dr x (1 + 1e-3)) vs cpu: "
+                  + compare(run, runs["cpu"]), flush=True)
         if cfg.family != "vlm":
             continue
         for name, fault in CONTROLS.items():

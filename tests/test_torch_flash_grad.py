@@ -463,17 +463,17 @@ def test_plain_backward_takes_the_log_sum_exp_unread():
         assert torch.equal(a, b)
 
 
-def test_wkv6_under_grad_off_the_cpu_is_refused():
-    """K6 has no backward kernel: off the CPU (a meta tensor stands in for a
-    CUDA one) a call under grad raises before anything launches; the CPU's
-    plain version stays differentiable."""
+def test_wkv6_under_grad_off_the_cpu_is_checked_first():
+    """K6 under grad off the CPU (a meta tensor stands in for a CUDA one)
+    is refused by the device check before anything launches; the CPU's
+    Function stays differentiable, its gradient the plain backward's."""
     B, S, H, D = 1, 8, 2, 4
     r, k, v, w = (torch.zeros((B, S, H, D), device="meta") for _ in range(4))
     u = torch.zeros((H, D), device="meta", requires_grad=True)
-    n0 = k6.wkv6.launches
-    with pytest.raises(KernelError, match="no backward kernel"):
+    n0 = (k6.wkv6.launches, k6.wkv6.bwd_launches)
+    with pytest.raises(KernelError, match="one CUDA device"):
         k6.wkv6(r, k, v, w, u)
-    assert k6.wkv6.launches == n0
+    assert (k6.wkv6.launches, k6.wkv6.bwd_launches) == n0
     g = torch.Generator().manual_seed(0)
     x = [torch.randn((B, S, H, D), generator=g) for _ in range(3)]
     logw = -torch.rand((B, S, H, D), generator=g)
@@ -481,3 +481,5 @@ def test_wkv6_under_grad_off_the_cpu_is_refused():
     y, _ = k6.wkv6(*x, logw, uc)
     y.sum().backward()
     assert uc.grad is not None and torch.isfinite(uc.grad).all()
+    want = k6.wkv6_bwd_ref(*x, logw, uc.detach(), torch.ones(y.shape))[4]
+    assert torch.equal(uc.grad, want)
