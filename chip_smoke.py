@@ -191,14 +191,18 @@ kernel from the sources in the checkout (nvcc into ``build/``).  Phases:
    and at two layers within the backward kernel's tolerance), and on the
    config cut to two layers in f32 against the plain versions (printed:
    the kernels against the plain versions in bf16).  K6's backward
-   (``wkv6_bwd.cu``: four launches reading the forward kernel's saved
-   chunk states) against its plain backward (``ref.wkv6_bwd_ref``) at
+   (``wkv6_bwd.cu``: a pre-pass, the adjoint scan, one fused chunk pass
+   whose factored decays run on split-TF32 tensor cores, and du, reading
+   the forward kernel's saved chunk states) against its plain backward
+   (``ref.wkv6_bwd_ref``) at
    rwkv6-3b's training shape (2, 4096, 40, 64), at S = 2000 (a padded
    tail) and under strong decay with a state0 and a final state's
    cotangent, every gradient (dr, dk, dv, dlogw, du, dstate0) within
    1e-4 relative L2 (1e-3 under strong decay) and two runs the same bits;
-   timed at the training shape beside its bound, by launch, the plain
-   backward and autograd through the plain forward.  rwkv6-3b's first
+   timed at the training shape beside its bound, the bytes its design
+   moves and its earlier design's recorded time, by launch, with its
+   blocks resident an SM, beside the plain backward and autograd through
+   the plain forward.  rwkv6-3b's first
    micro-batch's gradients the same way as qwen2's, K6's backward kernel
    against its plain backward behind the forward kernel (full depth within
    0.1, two layers within 2**-6, f32 at two layers against the plain
@@ -296,6 +300,9 @@ def ptxas_summary(text):
                 path = {"ILb1E": "<vec>", "ILb0E": "<scalar>"}
                 return name + next((v for k, v in path.items()
                                     if k in mangled), "")
+        m = re.search(r"_GLOBAL__N_\w*?_[0-9a-f]{8}(\d+)", mangled)
+        if m:   # a kernel in an anonymous namespace: <length><name>
+            return mangled[m.end():m.end() + int(m.group(1))]
         return mangled[-40:]
 
     out, name, spills = [], None, "spills not reported"
@@ -3209,6 +3216,21 @@ def k6_bwd_bound(B, S, H, D, C=64):
     return times[what], what, times
 
 
+def k6_bwd_design_bytes(B, S, H, D, C=64):
+    """-> the bytes ``wkv6_bwd.cu``'s launches move at (B, S, H, D) with
+    no state0 and no final-state cotangent: the pre-pass reads r, lw and dy
+    and writes q and total; the scan reads and writes q and reads total;
+    the chunk pass reads r, k, v, lw, dy, S and G and writes dr, dk, dv,
+    dlw and its part of du; du reads those parts (a chunk's tiles whole,
+    rows past S included)."""
+    chunks = B * H * -(-S // C)
+    tile, state, vec = C * D * 4, D * D * 4, D * 4
+    pre = 3 * tile + state + vec
+    scan = 2 * state + vec
+    chunk = 5 * tile + 2 * state + 4 * tile + vec
+    return chunks * (pre + scan + chunk + vec) + H * D * 4
+
+
 def k6_bwd_checks(dev):
     """K6's backward kernel (``wkv6_bwd.cu``) against its plain backward
     (``ref.wkv6_bwd_ref``) on the card at :data:`K6_BWD_CASES`, with the
@@ -3219,8 +3241,11 @@ def k6_bwd_checks(dev):
     the same bits, one launch counted each.  At the training shape it is
     timed beside its bound (:func:`k6_bwd_bound`), by launch, beside the
     plain backward and autograd through the plain forward (``wkv6_ref``)
-    on the card.  -> the kernels row (the training shape's numbers, each
-    case's distances under ``cases``)."""
+    on the card, with the bytes its design moves (in the log line) and its
+    blocks resident an SM.  -> the kernels row (the training shape's
+    numbers, each case's distances under ``cases``)."""
+    import ctypes
+
     import torch
 
     from repro_torch.kernels.rwkv6 import ops as k6
@@ -3269,7 +3294,7 @@ def k6_bwd_checks(dev):
         ms = cuda_ms(lambda: k6.wkv6_bwd(*args, starts=starts), 10)
         per_launch, why = device_us(
             lambda: k6.wkv6_bwd(*args, starts=starts),
-            r"wkv6_bwd_(intra|scan|inter|du)", calls=10)
+            r"wkv6_bwd_(pre|scan|chunk|du)", calls=10)
         plain_bwd = cuda_ms(lambda: k6.wkv6_bwd_ref(*args), 3, warmup=1)
         ins = [t.clone().requires_grad_(True) for t in args[:5]]
         y, _ = k6.wkv6_ref(*ins)
@@ -3279,18 +3304,28 @@ def k6_bwd_checks(dev):
         del y, ins
         torch.cuda.empty_cache()
         bound, by, times = k6_bwd_bound(B, S, H, D)
+        moved = k6_bwd_design_bytes(B, S, H, D)
+        resident = k6.bwd_library().wkv6_bwd_residency
+        resident.argtypes, resident.restype = [ctypes.c_int], ctypes.c_int
+        blocks = {"pre": resident(0), "chunk": resident(1)}
         log(f"K6 backward {shape} f32: {ms:.4f} ms a call, bound "
             f"{bound:.4f} ms ({by}; {bound / ms:.1%} of it; "
             + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
-            + "); device a call: "
+            + f"); the design moves {moved / 1e9:.3f} GB, "
+            f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms at "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; device a call: "
             + (f"{per_launch:.1f} us ({why})" if per_launch
                else f"not measured ({why})")
-            + f"; plain backward {plain_bwd:.4f} ms, autograd through the "
-            f"plain forward {plain:.4f} ms")
+            + f"; blocks resident an SM {blocks}; plain backward "
+            f"{plain_bwd:.4f} ms, autograd through the plain forward "
+            f"{plain:.4f} ms")
+        check(blocks["chunk"] >= 2, f"K6 backward: the chunk pass keeps "
+              f"{blocks['chunk']} blocks an SM, not two")
         row = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                    plain_bwd_ms=plain_bwd, bound_ms=bound,
                    bound_by="bytes" if by == "bytes" else "operations",
-                   library_ms=None, device_us=per_launch)
+                   library_ms=None, device_us=per_launch,
+                   resident_blocks=blocks)
     row["cases"] = cases
     return row
 

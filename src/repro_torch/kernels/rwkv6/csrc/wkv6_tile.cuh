@@ -1,7 +1,8 @@
-// Tiles and the cumulative log-decays of WKV6's chunks, shared by the
-// forward (wkv6.cu) and the backward (wkv6_bwd.cu): the backward
-// recomputes cum, cum_prev and total with the forward's code, so they
-// carry the same bits.
+// Tiles and the cumulative log-decays of WKV6's chunks, for the forward
+// (wkv6.cu).  The backward (wkv6_bwd.cu) takes only the constants, Shape
+// and Stream from here: its scan_sw sums the log-decays of its swizzled
+// tiles in scan_tile's order, so cum, cum_prev and total carry the
+// forward's bits.
 #pragma once
 
 #include <cuda_runtime.h>

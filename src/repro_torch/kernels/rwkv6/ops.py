@@ -14,8 +14,10 @@ a :class:`torch.autograd.Function` on f32 copies of the inputs (so each
 input's gradient comes back in its own type) whose forward is the same
 dispatch and whose backward is :func:`wkv6_bwd`: on the CPU the plain
 version :func:`.ref.wkv6_bwd_ref`; on CUDA ``csrc/wkv6_bwd.cu``, four
-launches that read the forward's scratch, which then holds each chunk's
-starting state and which the Function keeps.  No call on CUDA gives way to
+launches (a pre-pass, the adjoint scan over the chunks, one fused chunk
+pass whose factored decays run on split-TF32 tensor cores, du) that read
+the forward's scratch, which then holds each chunk's starting state and
+which the Function keeps.  No call on CUDA gives way to
 a plain version; ``wkv6.bwd_launches`` counts backward calls on the card.
 """
 from __future__ import annotations

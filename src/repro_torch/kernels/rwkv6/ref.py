@@ -13,8 +13,9 @@
 * :func:`wkv6_bwd_ref` — the plain backward: the gradient of
   :func:`wkv6_ref` written out chunk by chunk in reverse, not autograd.
   Returns ``(dr, dk, dv, dlogw, du, dstate0)``.
-* :func:`wkv6_bwd_three_phase` — an emulation of ``csrc/wkv6_bwd.cu``'s
-  algorithm, for the tests.
+* :func:`wkv6_bwd_factored` — an emulation of ``csrc/wkv6_bwd.cu``'s
+  algorithm (the pre-pass, the adjoint scan, the fused chunk pass with its
+  factored decays over sub-chunks and its TF32 products), for the tests.
 """
 from __future__ import annotations
 
@@ -222,87 +223,143 @@ def wkv6_bwd_ref(r, k, v, logw, u, dy, *, chunk: int = 64, state0=None,
     return whole(dr), whole(dk), whole(dv), whole(dw), du, G
 
 
-def wkv6_bwd_three_phase(r, k, v, logw, u, dy, *, chunk: int = 64,
-                         state0=None, ds_end=None):
-    """K6's backward as ``csrc/wkv6_bwd.cu`` computes it: (a') every chunk
-    at once: the cumulative log-decays again, the scores ``att`` with the
-    bonus on their diagonal, ``d_att = dy v^T`` (with ``dy_t . v_t`` on its
-    diagonal), dv's intra-chunk and bonus shares ``att^T dy``, dr's and dk's
-    (``d_att`` through the decays, and the bonus), dlogw's intra-chunk share
-    (a reverse sum a channel), the chunk's ``(r * exp(cum_prev))^T dy`` and
-    its part of du; (b') the adjoint scan of the state over the chunks in
-    reverse, from ``ds_end``, keeping each chunk's ``G_{c+1}``; (c') every
-    chunk at once: the state's shares of dr (from the forward's saved
-    starting states), dk and dv (from ``G_{c+1}``) and of dlogw; then du as
-    the chunks' parts summed over the batch and the chunks in order.  Same
-    arguments and results as :func:`wkv6_bwd_ref`."""
+
+
+#: rows of a sub-chunk in ``csrc/wkv6_bwd.cu``: the 16 rows of an
+#: ``mma.m16n8k8`` tile
+SUB = 16
+
+
+def tf32(x):
+    """x rounded to TF32 as the backward kernel rounds it: the low 13 bits
+    of the f32 mantissa cleared (through an int32 view)."""
+    return (x.contiguous().view(torch.int32) & -8192).view(torch.float32)
+
+
+def tf32_mm(a, b, mode="split"):
+    """``a @ b`` with a tensor core's operands: ``"split"`` the kernel's
+    three TF32 products, hi·hi + hi·lo + lo·hi (hi = tf32(x), lo =
+    tf32(x - hi)); ``"one"`` one TF32 product; None plain f32."""
+    if mode is None:
+        return a @ b
+    ah, bh = tf32(a), tf32(b)
+    if mode == "one":
+        return ah @ bh
+    if mode != "split":
+        raise ValueError(f"tf32 mode {mode!r}")
+    return tf32(a - ah) @ bh + ah @ tf32(b - bh) + ah @ bh
+
+
+def wkv6_bwd_factored(r, k, v, logw, u, dy, *, chunk: int = 64,
+                      state0=None, ds_end=None, tf32_mode="split"):
+    """K6's backward as ``csrc/wkv6_bwd.cu`` computes it, for the tests.
+
+    (p) the pre-pass, every chunk at once: the cumulative log-decays in
+    token order and ``q = (r * exp(cum_prev))^T dy``; (b') the adjoint scan
+    of the state over the chunks in reverse from ``ds_end``, keeping each
+    chunk's ``G_{c+1}``; (f) the fused chunk pass, every chunk at once, its
+    rows cut into sub-chunks of :data:`SUB` tokens (the chunk padded to a
+    multiple of it by zero tokens).  For a query sub-chunk a and the keys
+    before it the pair decay ``exp(cum_prev[t] - cum[j])`` is factored at
+    ``ref_a = cum_prev[a_start]``: ``exp(cum_prev[t] - ref_a)`` and
+    ``exp(ref_a - cum[j])``, both <= 1 (an underflowing factor loses nothing
+    the exact decay keeps), for ``att`` and dr's share; for a key sub-chunk
+    b and the queries after it at ``ref_b = cum[b_end]`` for dk's share.  The
+    diagonal ``SUB x SUB`` blocks keep the exact pairwise exponentials.
+    Every product a tensor core takes (``d_att = dy v^T``, the factored
+    ``att``, ``att^T dy``, dr's and dk's factored shares, ``dy S^T``,
+    ``v G^T``, ``(k exp(total - cum)) G`` and q) goes through
+    :func:`tf32_mm` with ``tf32_mode``; the rest is f32 as on the CUDA
+    cores.  du: the chunks' parts summed over the batch and the chunks in
+    order.  Same arguments and results as :func:`wkv6_bwd_ref`."""
     B, S, H, D = r.shape
     f32 = torch.float32
-    rc, kc, vc, wc, gc = (_chunks(t, chunk) for t in (r, k, v, logw, dy))
+    L = SUB
+    Cp = -(-chunk // L) * L
+
+    def tiles(t):   # (B, nC, H, Cp, D), zero tokens past S and the chunk
+        t = _chunks(t, chunk).to(f32)
+        return F.pad(t, (0, 0, 0, 0, 0, Cp - chunk)).permute(0, 1, 3, 2, 4)
+
+    rc, kc, vc, wc, gc = (tiles(t) for t in (r, k, v, logw, dy))
     nC = rc.shape[1]
-    u = u.to(f32)
-    # (a') the chunks' own parts, (B, nC, C, H, D)
-    cum = torch.cumsum(wc, dim=2)
-    cum_prev = cum - wc
-    total = cum[:, :, -1]                                       # (B,nC,H,D)
-    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                device=r.device), -1)[:, :, None]
-    dec = torch.where(tri[..., None],
-                      torch.exp(cum_prev[:, :, :, None] - cum[:, :, None]),
-                      0.0)                                  # (B,nC,t,j,H,D)
-    eye = torch.eye(chunk, dtype=torch.bool, device=r.device)[:, :, None]
-    att = (torch.sum(rc[:, :, :, None] * kc[:, :, None] * dec, dim=-1)
-           + torch.where(eye, torch.sum(rc * u * kc, dim=-1)[:, :, :, None],
-                         0.0))                               # (B,nC,t,j,H)
-    prod = torch.einsum("bnthe,bnjhe->bntjh", gc, vc)
-    d_att = torch.where(tri, prod, 0.0)
-    d_diag = torch.diagonal(prod, dim1=2, dim2=3).movedim(-1, 2)  # (B,nC,c,H)
-    dv = torch.einsum("bntjh,bnthe->bnjhe", att, gc)
-    x = d_att[..., None] * dec
-    dr_intra = torch.sum(x * kc[:, :, None], dim=3)
-    dk_intra = torch.sum(x * rc[:, :, :, None], dim=2)
-    dr = dr_intra + d_diag[..., None] * u * kc
-    dk = dk_intra + d_diag[..., None] * u * rc
-    a, b = rc * dr_intra, kc * dk_intra
-    dw = (torch.flip(torch.cumsum(torch.flip(a, (2,)), 2), (2,)) - a
-          - torch.flip(torch.cumsum(torch.flip(b, (2,)), 2), (2,)))
-    q = torch.einsum("bnthd,bnthe->bnhde", rc * torch.exp(cum_prev), gc)
-    du_parts = torch.sum(d_diag[..., None] * rc * kc, dim=2)   # (B,nC,H,D)
-    # the forward's scan: each chunk's starting state (what the forward
-    # launch leaves in its scratch)
-    k_decay = torch.exp(total[:, :, None] - cum)
-    inc = torch.einsum("bnchd,bnche->bnhde", kc * k_decay, vc)
+    mm = lambda a, b: tf32_mm(a, b, tf32_mode)  # noqa: E731
+    tr = lambda t: t.transpose(-1, -2)          # noqa: E731
+    uu = u.to(f32)[:, None, :]                  # (H, 1, D)
+    cum = torch.cumsum(wc, dim=3)
+    cp = cum - wc
+    total = cum[:, :, :, -1:]                   # (B, nC, H, 1, D)
+    # (p) the pre-pass
+    q = mm(tr(rc * torch.exp(cp)), gc)          # (B, nC, H, D, D)
+    # the forward's starting states (its scratch after its launches)
+    k_decay = torch.exp(total - cum)
+    inc = tr(kc * k_decay) @ vc
     s = (torch.zeros((B, H, D, D), dtype=f32, device=r.device)
          if state0 is None else state0.to(f32))
     starts = []
     for n in range(nC):
         starts.append(s)
-        s = torch.exp(total[:, n])[..., None] * s + inc[:, n]
-    starts = torch.stack(starts, dim=1)                     # (B,nC,H,D,D)
-    # (b') the adjoint scan, G_{c+1} for each chunk
+        s = torch.exp(total[:, n, :, 0])[..., None] * s + inc[:, n]
+    starts = torch.stack(starts, dim=1)
+    # (b') the adjoint scan
     G = (torch.zeros((B, H, D, D), dtype=f32, device=r.device)
          if ds_end is None else ds_end.to(f32))
     after = [None] * nC
     for n in reversed(range(nC)):
         after[n] = G
-        G = torch.exp(total[:, n])[..., None] * G + q[:, n]
+        G = torch.exp(total[:, n, :, 0])[..., None] * G + q[:, n]
     after = torch.stack(after, dim=1)
-    # (c') the state's shares
-    dr_state = torch.exp(cum_prev) * torch.einsum("bnthe,bnhde->bnthd", gc,
-                                                  starts)
-    dk_state = k_decay * torch.einsum("bnjhe,bnhde->bnjhd", vc, after)
-    dv = dv + torch.einsum("bnjhd,bnhde->bnjhe", kc * k_decay, after)
-    a, c = rc * dr_state, kc * dk_state
-    e = torch.exp(total) * torch.sum(starts * after, dim=-1)   # (B,nC,H,D)
-    dw = dw + ((torch.flip(torch.cumsum(torch.flip(a, (2,)), 2), (2,)) - a)
-               + (torch.cumsum(c, 2) - c) + e[:, :, None])
-    dr, dk = dr + dr_state, dk + dk_state
+    # (f) the fused chunk pass
+    full = mm(gc, tr(vc))                       # dy_t . v_j, (.., t, j)
+    d_diag = torch.diagonal(full, dim1=-2, dim2=-1)[..., None]
+    d_att = torch.tril(full, -1)
+    att = torch.zeros_like(full)
+    dr, dk = torch.zeros_like(rc), torch.zeros_like(kc)
+    for a in range(Cp // L):
+        rows = slice(a * L, a * L + L)
+        # the diagonal block, exact on the CUDA cores
+        dec = torch.tril(torch.ones((L, L), dtype=torch.bool,
+                                    device=r.device), -1)[..., None]
+        dec = torch.where(dec, torch.exp(cp[..., rows, None, :]
+                                         - cum[..., None, rows, :]), 0.0)
+        rt, kt = rc[..., rows, :], kc[..., rows, :]
+        att[..., rows, rows] = torch.sum(
+            rt[..., :, None, :] * kt[..., None, :, :] * dec, dim=-1)
+        x = d_att[..., rows, rows, None] * dec          # (.., t, j, D)
+        dr[..., rows, :] += torch.sum(x * kt[..., None, :, :], dim=-2)
+        dk[..., rows, :] += torch.sum(x * rt[..., :, None, :], dim=-3)
+        if a > 0:      # queries of a against the keys before it
+            before = slice(0, a * L)
+            ref = cp[..., a * L:a * L + 1, :]
+            eq = torch.exp(cp[..., rows, :] - ref)
+            kq = kc[..., before, :] * torch.exp(ref - cum[..., before, :])
+            att[..., rows, before] = mm(rt * eq, tr(kq))
+            dr[..., rows, :] += eq * mm(d_att[..., rows, before], kq)
+        if a < Cp // L - 1:   # keys of a against the queries after it
+            later = slice(a * L + L, Cp)
+            ref = cum[..., a * L + L - 1:a * L + L, :]
+            rq = rc[..., later, :] * torch.exp(cp[..., later, :] - ref)
+            dk[..., rows, :] += (torch.exp(ref - cum[..., rows, :])
+                                 * mm(tr(d_att[..., later, rows]), rq))
+    att = att + torch.diag_embed(torch.sum(rc * uu * kc, dim=-1))
+    dk_intra = dk
+    dr = dr + torch.exp(cp) * mm(gc, tr(starts))
+    dk_state = k_decay * mm(vc, tr(after))
+    dv = mm(tr(att), gc) + mm(kc * k_decay, after)
+    e = torch.exp(total) * torch.sum(starts * after, dim=-1)[..., None, :]
+    x, y, z = rc * dr, kc * dk_intra, kc * dk_state
+    rev = lambda t: torch.flip(torch.cumsum(torch.flip(t, (3,)), 3), (3,))  # noqa: E731,E501
+    dw = (rev(x) - x) - rev(y) + (torch.cumsum(z, 3) - z) + e
+    dr = dr + d_diag * uu * kc
+    dk = dk_intra + dk_state + d_diag * uu * rc
+    du_parts = torch.sum(d_diag * rc * kc, dim=3)   # (B, nC, H, D)
     du = torch.zeros((H, D), dtype=f32, device=r.device)
     for bb in range(B):
         for n in range(nC):
             du = du + du_parts[bb, n]
 
     def whole(t):
+        t = t.permute(0, 1, 3, 2, 4)[:, :, :chunk]
         return t.reshape(B, nC * chunk, H, D)[:, :S]
 
     return whole(dr), whole(dk), whole(dv), whole(dw), du, G

@@ -1929,7 +1929,9 @@ WKV6_BWD_REL_L2, WKV6_BWD_REL_L2_STRONG = 1e-4, 1e-3
     (2, 128, 3, 16, 32, False), (1, 70, 2, 64, 64, False),
     (1, 2000, 4, 64, 64, False), (1, 160, 2, 8, 32, True),
     (2, 64, 40, 64, 64, True), (2, 100, 3, 40, 48, True),
-    (1, 90, 2, 30, 32, False), (1, 5, 1, 4, 3, False)])
+    (1, 90, 2, 30, 32, False), (1, 5, 1, 4, 3, False),
+    (1, 47, 2, 16, 20, False), (2, 87, 2, 32, 40, True),
+    (2, 300, 3, 64, 64, False)])
 def test_wkv6_backward_kernel_equals_plain_backward(dev, B, S, H, D, chunk,
                                                     strong):
     """K6's backward kernel (``wkv6_bwd.cu``) behind the forward kernel,
@@ -1937,7 +1939,9 @@ def test_wkv6_backward_kernel_equals_plain_backward(dev, B, S, H, D, chunk,
     cotangents, with and without a state0 and a final-state cotangent:
     every gradient within the tolerance, one backward launch a call, two
     launches the same bits, and the forward's output under grad the same
-    bits as without."""
+    bits as without.  Chunks of 20 and 40 with S = 2 chunks + 7 straddle
+    the kernel's sub-chunks of 16; (2, 300, 3, 64, 64) takes a state0 and
+    a final-state cotangent at D 64 over several streams and chunks."""
     from repro_torch.kernels.rwkv6 import ops
 
     g = torch.Generator(dev).manual_seed(S + H + D)

@@ -4,10 +4,16 @@ reference's chunked twin ``repro.nn.ssm.wkv6_chunked`` and of its exact
 recurrence ``wkv6_scan``, with a ``state0`` and a cotangent for the
 returned state, and against ``torch.autograd`` through the plain forward;
 an emulation of ``csrc/wkv6_bwd.cu``'s algorithm
-(``ref.wkv6_bwd_three_phase``) against the plain backward; the wrapper's
-autograd Function on the CPU (the plain backward, bit for bit), a gradient
-check in f64, and the device check that refuses what the card kernel
-cannot take.  Inputs are made with numpy and given to both packages.
+(``ref.wkv6_bwd_factored``: the pre-pass, the adjoint scan and the fused
+chunk pass, its decays factored over sub-chunks of 16 with the diagonal
+blocks exact, its products in split TF32) against the plain backward,
+with the two witnesses of its design: under strong decay a single
+reference point for the whole chunk overflows where the factored form
+stays finite, and one-pass TF32 misses the gate the split holds; the
+wrapper's autograd Function on the CPU (the plain backward, bit for bit),
+a gradient check in f64, and the device check that refuses what the card
+kernel cannot take.  Inputs are made with numpy and given to both
+packages.
 
 Tolerances, relative L2 a gradient: 1e-5 where the decays are those of
 tests/test_torch_wkv6.py (only the order of f32 sums differs, measured
@@ -26,8 +32,9 @@ import torch
 from repro.nn.ssm import wkv6_chunked, wkv6_scan as ref_scan
 from repro_torch.kernels import KernelError
 from repro_torch.kernels.rwkv6 import ops
-from repro_torch.kernels.rwkv6.ref import (wkv6_bwd_ref,
-                                           wkv6_bwd_three_phase, wkv6_ref)
+from repro_torch.kernels.rwkv6.ref import (SUB, _chunks, tf32, tf32_mm,
+                                           wkv6_bwd_factored, wkv6_bwd_ref,
+                                           wkv6_ref)
 
 TOL, TOL_STRONG = 1e-5, 1e-4
 NAMES = ("dr", "dk", "dv", "dlogw", "du", "dstate0")
@@ -142,13 +149,95 @@ def test_three_phase_backward_equals_plain(B, S, H, D, chunk, strong,
     r, k, v, lw, u, s0, dy, ds = (torch.as_tensor(a) for a in args)
     kw = dict(chunk=chunk, state0=s0 if with_state else None,
               ds_end=ds if with_state else None)
-    got = wkv6_bwd_three_phase(r, k, v, lw, u, dy, **kw)
+    got = wkv6_bwd_factored(r, k, v, lw, u, dy, **kw)
     want = wkv6_bwd_ref(r, k, v, lw, u, dy, **kw)
     tol = TOL_STRONG if strong else TOL
     for name, g, w in zip(NAMES, got, want):
         assert torch.isfinite(g).all(), name
         assert _rel(g.numpy(), w.numpy()) <= tol, (name,
                                                    _rel(g.numpy(), w.numpy()))
+
+
+@pytest.mark.parametrize("B,S,H,D,chunk", [
+    (1, 200, 2, 8, 64), (1, 150, 2, 16, 48), (1, 96, 2, 8, 32)])
+def test_factored_backward_where_one_reference_point_overflows(B, S, H, D,
+                                                               chunk):
+    """Strong decay (log-decays -exp(2z + 2)): a single reference point for
+    the whole chunk, its start, would scale k by exp(-cum), which passes
+    f32's range (inf) on these draws; the emulation's factors, each taken
+    against a sub-chunk's own reference, stay <= 1, and its gradients are
+    finite and within TOL_STRONG of the plain backward."""
+    args = _inputs(S + chunk, B, S, H, D, strong=True)
+    r, k, v, lw, u, s0, dy, ds = (torch.as_tensor(a) for a in args)
+    cum = torch.cumsum(_chunks(lw, chunk), dim=2)
+    assert torch.isinf(_chunks(k, chunk).abs() * torch.exp(-cum)).any()
+    kw = dict(chunk=chunk, state0=s0, ds_end=ds)
+    got = wkv6_bwd_factored(r, k, v, lw, u, dy, **kw)
+    want = wkv6_bwd_ref(r, k, v, lw, u, dy, **kw)
+    for name, g, w in zip(NAMES, got, want):
+        assert torch.isfinite(g).all(), name
+        assert _rel(g.numpy(), w.numpy()) <= TOL_STRONG, (
+            name, _rel(g.numpy(), w.numpy()))
+
+
+@pytest.mark.parametrize("B,S,H,D,chunk,strong", [
+    (1, 130, 2, 64, 64, False), (2, 100, 2, 40, 48, False),
+    (1, 96, 2, 8, 32, True)])
+def test_split_tf32_holds_the_gate_one_pass_misses(B, S, H, D, chunk,
+                                                   strong):
+    """The witness that the split is needed: on the same draws the
+    emulation's products in split TF32 (hi.hi + hi.lo + lo.hi) stay within
+    TOL of the plain backward in every gradient, while one TF32 product
+    exceeds the card's 1e-4 gate in at least one."""
+    args = _inputs(B * S + D, B, S, H, D, strong)
+    r, k, v, lw, u, s0, dy, ds = (torch.as_tensor(a) for a in args)
+    kw = dict(chunk=chunk, state0=s0, ds_end=ds)
+    want = wkv6_bwd_ref(r, k, v, lw, u, dy, **kw)
+    split = wkv6_bwd_factored(r, k, v, lw, u, dy, tf32_mode="split", **kw)
+    one = wkv6_bwd_factored(r, k, v, lw, u, dy, tf32_mode="one", **kw)
+    errs = [_rel(g.numpy(), w.numpy()) for g, w in zip(split, want)]
+    assert max(errs) <= TOL, dict(zip(NAMES, errs))
+    errs = [_rel(g.numpy(), w.numpy()) for g, w in zip(one, want)]
+    assert max(errs) > 1e-4, dict(zip(NAMES, errs))
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("S,chunk", [(13, 3), (47, 20), (87, 40),
+                                     (121, 56)])
+def test_factored_backward_at_chunks_not_a_multiple_of_the_sub_chunk(
+        S, chunk, with_state):
+    """Chunks of 3, 20, 40 and 56 tokens: the last sub-chunk of 16 padded
+    by zero tokens, S a ragged multiple of neither."""
+    assert chunk % SUB
+    args = _inputs(S * chunk, 2, S, 2, 16)
+    r, k, v, lw, u, s0, dy, ds = (torch.as_tensor(a) for a in args)
+    kw = dict(chunk=chunk, state0=s0 if with_state else None,
+              ds_end=ds if with_state else None)
+    got = wkv6_bwd_factored(r, k, v, lw, u, dy, **kw)
+    want = wkv6_bwd_ref(r, k, v, lw, u, dy, **kw)
+    for name, g, w in zip(NAMES, got, want):
+        assert _rel(g.numpy(), w.numpy()) <= TOL, (name,
+                                                   _rel(g.numpy(), w.numpy()))
+
+
+def test_tf32_rounding_and_split():
+    """tf32 clears the low 13 mantissa bits (a truncation: never larger in
+    magnitude, within 2**-10 relative); hi + lo holds x within 2**-21; the
+    split product sits within 1e-6 of the f32 one where one pass does not."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(4096, generator=g) * 3.0
+    hi = tf32(x)
+    bits = hi.view(torch.int32)
+    assert torch.equal(bits & 0x1FFF, torch.zeros_like(bits))
+    assert (hi.abs() <= x.abs()).all()
+    assert ((x - hi).abs() <= x.abs() * 2.0 ** -10).all()
+    lo = tf32(x - hi)
+    assert ((x - hi - lo).abs() <= x.abs() * 2.0 ** -21).all()
+    a, b = (torch.randn((64, 64), generator=g) for _ in range(2))
+    exact = (a.double() @ b.double()).float()
+    rel = [float((tf32_mm(a, b, m) - exact).norm() / exact.norm())
+           for m in (None, "split", "one")]
+    assert rel[0] < 1e-6 and rel[1] < 1e-6 and rel[2] > 1e-4, rel
 
 
 @pytest.mark.parametrize("with_state", [False, True])
