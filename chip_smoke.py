@@ -220,7 +220,26 @@ kernel from the sources in the checkout (nvcc into ``build/``).  Phases:
    beyond weight decay (an Adam step of at least 0.1 somewhere in the
    embedding and the first and last layers); printed: ms a step,
    tokens/s, the model-FLOP share, the loss trajectory and the profiled
-   step's busy share.
+   step's busy share;
+10. dist: the distributed layer on one NCCL rank (``world_size`` 1 on a
+   ``HashStore``) and the one-rank ``make_smoke_mesh`` on the card, under
+   ``use_mesh_rules`` with ``strategy.rules_for``: qwen2-1.5b at full width
+   and depth at the train cell's shape (8 x 4096 in 4 micro-batches of 2),
+   2 steps with the model placed by ``nn.param.distribute`` and the batch
+   by ``data.pipeline.device_put_batch``, against 2 un-meshed steps from
+   the same seed built one after the other: the losses and every
+   parameter bit for bit, K5's forward and backward launched through the
+   kernel boundary (``layers._flash``); rwkv6-3b at full width cut to 4
+   of its 32 layers, one step of 2 x 4096, the same way (K6's forward and
+   backward through ``ssm._wkv6``); one eager qwen2-1.5b decode step at
+   the serve shape (batch 4) on a seeded cache placed by
+   ``launch.inputs.decode_specs``, its logits bit for bit; K5 and K6 split
+   by head block as 2 to 12 ranks on "model" would split them, block by
+   block on the card, against the full call (``dist_split_checks``);
+   ``optim.compress.compressed_psum_along`` over the NCCL group equal to
+   the local decode.  Printed: ms a step both ways, losses, launches and
+   peak memory beside the card's name and power limit.  The process group
+   is destroyed on the way out.
 
 Outside the chaos serve the allocator fault counters must be zero.
 Launches are counted per path, from zero just before it to just after it:
@@ -234,7 +253,9 @@ serves, K5's backward over qwen2-1.5b's training steps and K6's over
 rwkv6-3b's (K6's forward there too, the K6 row's ``train_launches``), K3
 over each
 pooled fill (once a fill,
-the K3 row's ``fill_launches`` in the JSON); each must have launched.  The
+the K3 row's ``fill_launches`` in the JSON), and K5's and K6's forward and
+backward over the dist phase's meshed steps (their rows'
+``dist_launches``); each must have launched.  The
 last lines are the kernels JSON, the ``nvidia-smi`` name and power limit,
 and the device JSON.
 """
@@ -3638,6 +3659,404 @@ def train_phase(dev, seed):
     return rows, bwd, fwd
 
 
+# -- phase 10: the distributed layer through the rules ----------------------
+
+#: the meshed train steps of each model (each against as many un-meshed
+#: ones built from the same seed), and rwkv6-3b's cut for this phase
+DIST_QWEN_STEPS, DIST_RWKV_STEPS, DIST_RWKV_LAYERS = 2, 1, 4
+#: rwkv6-3b's batch here: 2 sequences of 4096 in one micro-batch
+DIST_RWKV_BATCH = 2
+
+
+def dist_counts():
+    """-> (K5 forward, K5 backward, K6 forward, K6 backward) launches."""
+    from repro_torch.kernels.flash_attention import ops as k5
+    from repro_torch.kernels.rwkv6 import ops as k6
+    return (k5.flash_attention.launches, k5.flash_attention.bwd_launches,
+            k6.wkv6.launches, k6.wkv6.bwd_launches)
+
+
+def dist_reset():
+    from repro_torch.kernels.flash_attention import ops as k5
+    from repro_torch.kernels.rwkv6 import ops as k6
+    k5.flash_attention.launches = k5.flash_attention.bwd_launches = 0
+    k6.wkv6.launches = k6.wkv6.bwd_launches = 0
+
+
+def host_copy(t):
+    """A parameter or loss (a DTensor's whole) on the host, bits kept."""
+    t = t.full_tensor() if hasattr(t, "full_tensor") else t
+    return t.detach().to("cpu", copy=True)
+
+
+def dist_train(dev, cfg, batch, steps, accum, mesh=None, rules=None,
+               seed=0, tree=None, grads=False, opt=None):
+    """``steps`` train steps of ``cfg`` on the host batch ``batch`` in
+    ``accum`` micro-batches, by AdamW ``opt`` (by default lr 3e-3 with no
+    warm-up: every step moves the weights), from the reference's parameter
+    tree ``tree`` (numpy arrays) or, without one, from weights drawn from
+    seed ``seed`` on ``dev``: un-meshed (``mesh`` None) or through the rules
+    (``distribute`` of the model, ``device_put_batch`` of the batch, under
+    ``use_mesh_rules``).  The one harness of a meshed against an un-meshed
+    run, on the card here and on gloo ranks of the CPU in
+    ``tests/_torch_multirank_run.py``.  -> {"losses", "params" (on the
+    host), "grads" (the first step's gradients, whole and on the host, with
+    ``grads``; else None), "grad_norms" (each step's, before the clip), "ms"
+    a step, "counts" (the kernels' launches over the steps), "state"}."""
+    import torch
+
+    from repro_torch.data.pipeline import device_put_batch
+    from repro_torch.distributed.sharding import use_mesh_rules
+    from repro_torch.models.common import (get_family, init_model,
+                                           load_reference_params)
+    from repro_torch.nn.param import distribute
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import (TrainConfig, init_state,
+                                         make_train_step)
+    from repro_torch.tree import leaves
+
+    fam = get_family(cfg)
+    opt = opt or adamw.AdamWConfig(lr=3e-3, warmup_steps=0,
+                                   total_steps=steps)
+    step = make_train_step(cfg, TrainConfig(accum_steps=accum, opt=opt))
+    ctx = (use_mesh_rules(mesh, rules) if mesh is not None
+           else contextlib.nullcontext())
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    first = []
+    update = adamw.update
+
+    def recording(ocfg, params, g, *a):     # the step's averaged gradients
+        if grads and not first:
+            first.extend(host_copy(t) for t in leaves(g))
+        return update(ocfg, params, g, *a)
+
+    with ctx:
+        model = (init_model(fam, cfg, torch.Generator(dev).manual_seed(seed))
+                 if tree is None else load_reference_params(fam.build(cfg),
+                                                            tree))
+        if mesh is not None:
+            model = distribute(model, mesh, rules)
+            b = device_put_batch(batch, mesh, rules)
+        else:
+            b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        state = init_state(cfg, model)
+        losses, norms, ms = [], [], []
+        dist_reset()
+        adamw.update = recording
+        try:
+            for _ in range(steps):
+                if cuda:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                metrics = step(state, b)
+                losses.append(host_copy(metrics["loss"]))
+                norms.append(host_copy(metrics["grad_norm"]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            adamw.update = update
+        counts = dist_counts()
+    return {"losses": losses, "grad_norms": norms,
+            "params": [host_copy(p) for p in leaves(state["params"])],
+            "grads": first or None, "ms": ms, "counts": counts,
+            "state": state}
+
+
+def dist_decode(dev, cfg, model, shape, cache, tokens, pos, mesh=None,
+                rules=None):
+    """One eager decode step of ``model`` at ``pos`` on a copy of
+    ``cache``, un-meshed or with the cache and tokens placed by
+    ``decode_specs`` (the cache keeps its own dtype) -> the logits on the
+    host."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed.sharding import placements, use_mesh_rules
+    from repro_torch.launch.inputs import decode_specs
+    from repro_torch.models.common import get_family
+
+    fam = get_family(cfg)
+    cache = {k: v.clone() for k, v in cache.items()}
+    with torch.no_grad():
+        if mesh is None:
+            logits, _ = fam.decode_step(model, cfg, cache, tokens, pos)
+            return host_copy(logits)
+        with use_mesh_rules(mesh, rules):
+            specs = decode_specs(cfg, shape, mesh, rules)
+            for k, v in specs["cache"].items():
+                check(tuple(v.shape) == tuple(cache[k].shape),
+                      f"dist: cache_specs {k} {v} against {cache[k].shape}")
+            put = lambda t, spec: distribute_tensor(          # noqa: E731
+                t, mesh, placements(spec, mesh), src_data_rank=None)
+            cache = {k: put(v, specs["cache"][k].spec)
+                     for k, v in cache.items()}
+            logits, _ = fam.decode_step(model, cfg, cache,
+                                        put(tokens, specs["tokens"].spec),
+                                        pos)
+            return host_copy(logits)
+
+
+#: the head blocks the kernels' boundary is held to on one card: qwen2-1.5b's
+#: 12 q heads to 2 KV heads in 2, 4, 6 and 12 blocks (6, 3, 2 or 1 q heads
+#: a block: a whole group, or part of one), rwkv6-3b's 40 heads in 2, 4, 8
+DIST_K5_SPLITS, DIST_K6_SPLITS = (2, 4, 6, 12), (2, 4, 8)
+
+
+def dist_split_checks(dev, seed):
+    """The kernels' boundary split by head on one card: what n ranks on the
+    "model" axis would each hand K5 and K6 (``layers._by_heads``,
+    ``ssm._wkv6``), run block by block.  K5 at the dist phase's micro-batch,
+    q (2, 4096, 12, 128) against k/v (2, 4096, 2, 128) bf16 causal: each q
+    head block (a contiguous copy, as a rank's shard is) with the strided
+    k/v head slice ``layers._kv_block`` gives it, forward and backward; the
+    joined output and dq the full call's bits (a q head's rows are the same
+    kernel's on the same values either way), dk/dv summed over the blocks
+    in bf16 (the all-reduce of their partial sums) within
+    ``ops.bwd_tolerance`` of the full call's.  K6 at (2, 4096, 40, 64) f32
+    with a starting state and the final state's gradient:
+    r/k/v/log-decay, ``u`` and the state by head block, forward and
+    backward, joined: the full call's bits (its heads are independent).
+    Each split's distances are printed."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as k5
+    from repro_torch.kernels.rwkv6 import ops as k6
+    from repro_torch.nn.layers import _kv_block
+
+    g = torch.Generator(dev).manual_seed(seed + 3)
+    bf = torch.bfloat16
+    B, S, H, Hk, D = TRAIN_BATCH // TRAIN_ACCUM, TRAIN_SEQ, 12, 2, 128
+    q, dout = (torch.randn((B, S, H, D), generator=g, device=dev).to(bf)
+               for _ in range(2))
+    k, v = (torch.randn((B, S, Hk, D), generator=g, device=dev).to(bf)
+            for _ in range(2))
+
+    def k5_call(heads, a=0, b=Hk):
+        qq = q[:, :, heads].clone().requires_grad_()
+        kk, vv = (t.clone().requires_grad_() for t in (k, v))
+        out = k5.flash_attention(qq, kk[:, :, a:b], vv[:, :, a:b],
+                                 causal=True)
+        out.backward(dout[:, :, heads])
+        return out.detach(), qq.grad, kk.grad, vv.grad
+
+    def bits(got, want):
+        return all(torch.equal(x, y) for x, y in zip(got, want))
+
+    want = k5_call(slice(None))
+    btol = k5.bwd_tolerance(k5.bwd_variant(bf, D, D), bf)
+    for n in DIST_K5_SPLITS:
+        hl, parts = H // n, []
+        for i in range(n):
+            a, b = _kv_block(H, Hk, i, n)
+            parts.append(((a, b), k5_call(slice(i * hl, (i + 1) * hl), a, b)))
+        dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+        for _, p in parts:          # bf16 sums, as the all-reduce takes them
+            dk += p[2]
+            dv += p[3]
+        got = (torch.cat([p[0] for _, p in parts], 2),
+               torch.cat([p[1] for _, p in parts], 2), dk, dv)
+        same = bits(got[:2], want[:2])
+        rels = [_rel_l2(x, y) for x, y in zip(got[2:], want[2:])]
+        log(f"dist split K5, {n} blocks of {hl} q heads (KV heads "
+            f"{sorted({ab for ab, _ in parts})}): output and dq the full "
+            f"call's bits {same}; dk/dv relative L2 "
+            + "/".join(f"{r:.3e}" for r in rels) + f" (gate {btol:.3e}), "
+            f"their bits {bits(got[2:], want[2:])}")
+        check(same and all(r <= btol for r in rels),
+              f"dist split K5 into {n} blocks differs from the full call")
+    del q, k, v, dout, want, got, parts
+
+    B, H, D = DIST_RWKV_BATCH, 40, 64
+    r, kk, vv, dy = (torch.randn((B, S, H, D), generator=g, device=dev) * 0.5
+                     for _ in range(4))
+    lw = -torch.exp(torch.randn((B, S, H, D), generator=g, device=dev) * 0.5)
+    u = torch.randn((H, D), generator=g, device=dev) * 0.5
+    s0, ds = (torch.randn((B, H, D, D), generator=g, device=dev) * 0.1
+              for _ in range(2))
+
+    def k6_call(h):
+        ins = [t[:, :, h].clone().requires_grad_() for t in (r, kk, vv, lw)]
+        ins += [u[h].clone().requires_grad_(),
+                s0[:, h].clone().requires_grad_()]
+        y, s_end = k6.wkv6(*ins[:5], state0=ins[5])
+        torch.autograd.backward((y, s_end), (dy[:, :, h], ds[:, h]))
+        return [y.detach(), s_end.detach()] + [t.grad for t in ins]
+
+    want = k6_call(slice(None))
+    names = ("y", "state", "dr", "dk", "dv", "dlogw", "du", "dstate0")
+    dims = (2, 1, 2, 2, 2, 2, 0, 1)
+    for n in DIST_K6_SPLITS:
+        hl = H // n
+        parts = [k6_call(slice(i * hl, (i + 1) * hl)) for i in range(n)]
+        got = [torch.cat([p[j] for p in parts], d) for j, d in enumerate(dims)]
+        same = {m: bool(torch.equal(x, y))
+                for m, x, y in zip(names, got, want)}
+        log(f"dist split K6, {n} blocks of {hl} heads: the full call's bits "
+            + ", ".join(f"{m} {e}" for m, e in same.items()))
+        check(all(same.values()),
+              f"dist split K6 into {n} blocks differs from the full call")
+
+
+def dist_same(label, got, want):
+    """Bit-for-bit equality of two lists of host tensors; a difference is
+    named."""
+    import torch
+    check(len(got) == len(want), f"dist {label}: {len(got)} against "
+          f"{len(want)} tensors")
+    bad = [i for i, (a, b) in enumerate(zip(got, want))
+           if a.shape != b.shape or not torch.equal(a, b)]
+    check(not bad, f"dist {label}: {len(bad)} of {len(want)} tensors differ, "
+          f"the first at leaf {bad[:1]} (max abs "
+          f"{[float((got[i].float() - want[i].float()).abs().max()) for i in bad[:1]]})")
+
+
+def dist_phase(dev, seed):
+    """The distributed layer on one NCCL rank (``world_size`` 1 on a
+    ``HashStore``): ``launch.mesh.make_smoke_mesh`` on the card and
+    ``use_mesh_rules`` with ``strategy.rules_for(cfg)``.  qwen2-1.5b at
+    full width and depth, the train cell's shape (8 x 4096 in 4
+    micro-batches of 2): :data:`DIST_QWEN_STEPS` steps meshed
+    (``nn.param.distribute``, ``data.pipeline.device_put_batch``) and as
+    many un-meshed from the same seed, built one after the other; the
+    losses and every parameter bit for bit, K5's forward and backward
+    launched through the kernel boundary.  rwkv6-3b at full width cut to
+    :data:`DIST_RWKV_LAYERS` layers, one step of 2 x 4096, the same way,
+    K6's forward and backward through the boundary.  One eager qwen2-1.5b
+    decode step at the serve shape (batch 4) on a seeded cache placed by
+    ``launch.inputs.cache_specs``: the logits bit for bit.  The kernels'
+    head split (:func:`dist_split_checks`).
+    ``optim.compress.compressed_psum_along`` on the NCCL group equal to the
+    local decode.  The process group is destroyed on the way out.  -> the
+    K5, K5-backward, K6 and K6-backward launches over the meshed steps."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, HostDataLoader
+    from repro_torch.distributed import strategy
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.optim import compress
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_smoke_mesh("cuda")
+        out = {}
+        card = nvidia_smi()
+
+        # qwen2-1.5b: train, then one decode step on the trained weights
+        cfg = get_config("qwen2-1.5b")
+        rules = strategy.rules_for(cfg)
+        batch = next(HostDataLoader(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+            global_batch=TRAIN_BATCH, seed=seed)))
+        B, prompt, gen = SERVE_KW["batch"], SERVE_KW["prompt_len"], \
+            SERVE_KW["gen"]
+        shape = ShapeSpec("serve", prompt + gen, B, "decode")
+        from repro_torch.models import lm
+        g = torch.Generator(dev).manual_seed(seed + 1)
+        cache = {k: torch.randn(v.shape, generator=g, device=dev).to(v.dtype)
+                 for k, v in lm.init_cache(cfg, B, prompt + gen,
+                                           device=dev).items()}
+        tokens = torch.randint(0, cfg.vocab_size, (B, 1), generator=g,
+                               device=dev, dtype=torch.int32)
+        runs = {}
+        for label, m in (("un-meshed", None), ("meshed", mesh)):
+            r = m and rules
+            run = dist_train(dev, cfg, batch, DIST_QWEN_STEPS, TRAIN_ACCUM,
+                             m, r, seed)
+            losses, params, ms, counts = (run["losses"], run["params"],
+                                          run["ms"], run["counts"])
+            logits = dist_decode(dev, cfg, run["state"]["model"], shape,
+                                 cache, tokens, prompt, m, r)
+            peak = torch.cuda.max_memory_allocated(dev) / 1e9
+            runs[label] = (losses, params, logits)
+            log(f"dist qwen2-1.5b {label}: {DIST_QWEN_STEPS} steps of "
+                f"{TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_ACCUM} micro-batches, "
+                f"ms a step {[round(t, 1) for t in ms]}, losses "
+                f"{[float(l) for l in losses]}, K5 launches forward "
+                f"{counts[0]} backward {counts[1]}, K6 {counts[2:]}; peak "
+                f"memory {peak:.3f} GB ({card})")
+            if m is not None:
+                want = cfg.n_layers * TRAIN_ACCUM * DIST_QWEN_STEPS
+                check(counts[0] == 2 * want and counts[1] == want,
+                      f"dist qwen2-1.5b: K5 launches {counts[:2]}, expected "
+                      f"({2 * want}, {want}) through the boundary")
+                out["flash_attention"], out["flash_attention_bwd"] = \
+                    counts[:2]
+            del run, params, losses
+            gc.collect()
+            torch.cuda.empty_cache()
+        (la, pa, xa), (lb, pb, xb) = runs["un-meshed"], runs["meshed"]
+        dist_same("qwen2-1.5b losses", lb, la)
+        dist_same("qwen2-1.5b parameters", pb, pa)
+        dist_same("qwen2-1.5b decode logits", [xb], [xa])
+        check(bool(torch.isfinite(xa).all()), "dist: decode logits finite")
+        log(f"dist qwen2-1.5b: meshed = un-meshed bit for bit: "
+            f"{len(la)} losses, {len(pa)} parameters, decode logits "
+            f"{tuple(xa.shape)} at position {prompt} (cache {shape})")
+        del runs, pa, pb, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # rwkv6-3b cut to DIST_RWKV_LAYERS layers: one step
+        cfg = dataclasses.replace(get_config("rwkv6-3b"),
+                                  n_layers=DIST_RWKV_LAYERS)
+        rules = strategy.rules_for(cfg)
+        batch = next(HostDataLoader(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+            global_batch=DIST_RWKV_BATCH, seed=seed)))
+        runs = {}
+        for label, m in (("un-meshed", None), ("meshed", mesh)):
+            r = m and rules
+            run = dist_train(dev, cfg, batch, DIST_RWKV_STEPS, 1, m, r, seed)
+            losses, params, ms, counts = (run["losses"], run["params"],
+                                          run["ms"], run["counts"])
+            runs[label] = (losses, params)
+            log(f"dist rwkv6-3b ({DIST_RWKV_LAYERS} of 32 layers) {label}: "
+                f"{DIST_RWKV_STEPS} step of {DIST_RWKV_BATCH} x {TRAIN_SEQ}, "
+                f"ms a step {[round(t, 1) for t in ms]}, losses "
+                f"{[float(l) for l in losses]}, K6 launches forward "
+                f"{counts[2]} backward {counts[3]}, K5 {counts[:2]} ({card})")
+            if m is not None:
+                want = DIST_RWKV_LAYERS * DIST_RWKV_STEPS
+                check(counts[2] == 2 * want and counts[3] == want,
+                      f"dist rwkv6-3b: K6 launches {counts[2:]}, expected "
+                      f"({2 * want}, {want}) through the boundary")
+                out["wkv6"], out["wkv6_bwd"] = counts[2:]
+            del run, params, losses
+            gc.collect()
+            torch.cuda.empty_cache()
+        (la, pa), (lb, pb) = runs["un-meshed"], runs["meshed"]
+        dist_same("rwkv6-3b losses", lb, la)
+        dist_same("rwkv6-3b parameters", pb, pa)
+        log(f"dist rwkv6-3b: meshed = un-meshed bit for bit: {len(la)} "
+            f"loss, {len(pa)} parameters")
+        del runs, pa, pb
+
+        dist_split_checks(dev, seed)
+
+        # the compressed all-reduce on the NCCL group
+        g = torch.Generator(dev).manual_seed(seed + 2)
+        grads = {"a": torch.randn((4096, 1536), generator=g, device=dev),
+                 "b": [torch.randn((8960,), generator=g, device=dev)]}
+        codes, scales, _ = compress.compress_with_feedback(
+            grads, compress.init_error_feedback(grads))
+        summed = compress.compressed_psum_along(codes, scales, mesh, "data")
+        from repro_torch.tree import leaves
+        dist_same("compressed_psum_along", [host_copy(t)
+                                            for t in leaves(summed)],
+                  [host_copy(t) for t in leaves(compress.decompress(
+                      codes, scales))])
+        log("dist: compressed_psum_along over the NCCL group = the local "
+            "decode, bit for bit")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
 # -- phase 7: progressive filling, the paper's Section 2 --------------------
 
 FILL_TRIALS = 200           # paper_tables' trials a stochastic scheduler
@@ -3927,10 +4346,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="kernels,allocator,des,serve,gang,models,fill,"
-                    "mesh,train",
+                    "mesh,train,dist",
                     help="comma list of kernels, allocator, des, serve, gang, "
-                    "models, fill, mesh, train, and chunks (a sweep of the "
-                    "epoch loop's chunk size; not a default phase)")
+                    "models, fill, mesh, train, dist, and chunks (a sweep of "
+                    "the epoch loop's chunk size; not a default phase)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -4031,6 +4450,15 @@ def main(argv=None):
             f"{time.perf_counter() - t0:.1f} s")
         for name, n in {**train_bwd, **train_fwd}.items():
             check(n > 0, f"the train path never launched {name}")
+    dist_launches = {}
+    if "dist" in phases:
+        t0 = time.perf_counter()
+        dist_launches = dist_phase(dev, args.seed)
+        log(f"launches (the kernels through the boundary over the meshed "
+            f"qwen2-1.5b and rwkv6-3b steps): {dist_launches}; dist phase "
+            f"{time.perf_counter() - t0:.1f} s")
+        for name, n in dist_launches.items():
+            check(n > 0, f"the meshed train path never launched {name}")
     meta = {
         "masked_argmin1d": dict(
             route="cuda",
@@ -4080,6 +4508,8 @@ def main(argv=None):
                 fill_launches)
         for name, n in train_fwd.items():   # the train path's forwards
             out[list(meta).index(name)]["train_launches"] = n
+        for name, n in dist_launches.items():   # through the rules
+            out[list(meta).index(name)]["dist_launches"] = n
         log(json.dumps({"kernels": out}))
     log(card)
     print(json.dumps({"ok": True, "device": {

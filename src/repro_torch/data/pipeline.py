@@ -145,3 +145,19 @@ class HostDataLoader:
         self._stop.set()
         if self._thread:
             self._thread.join(timeout=1.0)
+
+
+def device_put_batch(batch: dict, mesh, rules) -> dict:
+    """Place a host batch onto the mesh with the batch sharding rules."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed.sharding import placements
+
+    out = {}
+    for k, v in batch.items():
+        axes = ("batch", "seq") if v.ndim == 2 else ("batch",) + (None,) * (v.ndim - 1)
+        pl = placements(rules.pspec(axes, v.shape, mesh), mesh)
+        v = torch.as_tensor(v).to(mesh.device_type)
+        out[k] = distribute_tensor(v, mesh, pl, src_data_rank=None)
+    return out

@@ -23,8 +23,13 @@ epoch's sentinels are ``3.0e38`` and ``2**31 - 1``), the counts are int32
 sums, and the epoch's one f32 sum adds a single owner's column to zeros
 (its scores are all >= +0.0, so adding +0.0 changes no bit).
 
-Not ported here: the reference's production, smoke and abstract meshes,
-which serve the model substrate's sharding.
+The model substrate's meshes are here too: the production meshes
+(:func:`make_production_mesh`, ``(16, 16)`` or ``(2, 16, 16)``), the
+one-rank smoke mesh (:func:`make_smoke_mesh`) and the device-free abstract
+mesh (:func:`make_abstract_mesh`) the sharding rules resolve against.  The
+first two are ``DeviceMesh``es over the running process group
+(``torch.distributed``, which the caller starts with its own address, world
+size and rank); a mesh that cannot be built raises.
 """
 from __future__ import annotations
 
@@ -128,3 +133,61 @@ def as_mesh(devices, device) -> AgentMesh:
     if isinstance(devices, AgentMesh):
         return devices
     return make_agent_mesh(int(devices), device)
+
+
+# -- the model substrate's meshes --------------------------------------------
+
+class AbstractMesh:
+    """A device-free mesh: its axis names and sizes, all the sharding rules
+    read (the reference's ``AbstractMesh``).  ``shape`` is ``{axis:
+    size}``."""
+
+    def __init__(self, shape: tuple, axes: tuple):
+        if len(shape) != len(axes):
+            raise ValueError(f"mesh shape {shape} vs axes {axes}")
+        self.axis_names = tuple(axes)
+        self.shape = dict(zip(axes, (int(s) for s in shape)))
+
+    def __repr__(self):
+        return f"AbstractMesh({self.shape})"
+
+
+def make_abstract_mesh(shape: tuple, axes: tuple) -> AbstractMesh:
+    """Device-free mesh of ``shape`` over ``axes``."""
+    return AbstractMesh(tuple(shape), tuple(axes))
+
+
+def make_mesh(shape: tuple, axes: tuple, device="cuda"):
+    """A ``DeviceMesh`` of ``shape`` over ``axes`` on the running process
+    group (the reference's ``jax.make_mesh``), ranks in row-major order.
+    Raises unless a process group is running and its world size is the
+    mesh's size."""
+    import math
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("a device mesh needs a running process group "
+                           "(torch.distributed.init_process_group)")
+    n = math.prod(shape)
+    if dist.get_world_size() != n:
+        raise ValueError(f"mesh {tuple(shape)} over {tuple(axes)} needs "
+                         f"{n} ranks, the process group has "
+                         f"{dist.get_world_size()}")
+    kind = torch.device(device).type
+    if kind == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("a CUDA mesh needs a CUDA card")
+    return init_device_mesh(kind, tuple(shape), mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """16x16 = 256 ranks per pod; 2 pods = 512 ranks when multi_pod."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device)
+
+
+def make_smoke_mesh(device="cuda"):
+    """One-rank mesh with the production axis names."""
+    return make_mesh((1, 1), ("data", "model"), device)

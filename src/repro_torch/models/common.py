@@ -25,6 +25,9 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.distributed.sharding import (bind_rules, constrain,
+                                              is_distributed, run_local,
+                                              weight_gather)
 from repro_torch.nn.config import ModelConfig
 from repro_torch.nn.layers import rmsnorm, rmsnorm_template
 from repro_torch.nn.param import Params, init_params, spec
@@ -59,10 +62,23 @@ def embed_scale(d_model: int, dtype) -> float:
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens):
-    x = params["tok"][tokens.long()].to(cfg.cdtype())
+    tok = weight_gather(params["tok"], ("vocab", "embed"))
+    x = _take_rows(tok, tokens).to(cfg.cdtype())
     if cfg.name.startswith("gemma"):
         x = x * embed_scale(cfg.d_model, x.dtype)
-    return x
+    return constrain(x, ("batch", "seq", "embed_act"))
+
+
+def _take_rows(tok, tokens):
+    """``tok[tokens]``; under a mesh each rank gathers its tokens' rows of
+    the replicated table (the gradient of the table is then a partial sum
+    over the ranks that hold other tokens)."""
+    if not is_distributed(tok, tokens):
+        return tok[tokens.long()]
+    B, S = tokens.shape
+    return run_local(lambda t, ids, _pls: t[ids.long()],
+                     [(tok, (None, None)), (tokens, ("batch", "seq"))],
+                     [(("batch", "seq", None), (B, S, tok.shape[1]))])
 
 
 def positions(tokens):
@@ -80,7 +96,7 @@ def unembed(params, cfg: ModelConfig, x):
         logits = x @ params.cast("unembed", x.dtype)
     if cfg.logit_softcap > 0:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
-    return logits
+    return constrain(logits, ("batch", "seq", "vocab_act"))
 
 
 def lm_loss(logits, labels, mask=None, z_weight: float = 1e-4):
@@ -88,14 +104,25 @@ def lm_loss(logits, labels, mask=None, z_weight: float = 1e-4):
     ``lm_loss``, in f32)."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.take_along_dim(logits, labels.clamp_min(0).long()[..., None],
-                              dim=-1)[..., 0]
+    ll = _label_logits(logits, labels.clamp_min(0))
     valid = (labels >= 0) if mask is None else (mask & (labels >= 0))
     valid = valid.float()
     ce = (lse - ll) * valid
     z = torch.square(lse) * valid
     denom = valid.sum().clamp_min(1.0)
     return ce.sum() / denom + z_weight * z.sum() / denom
+
+
+def _label_logits(logits, labels):
+    """Each position's logit of its label; under a mesh gathered on each
+    rank's rows with the vocabulary replicated."""
+    def take(lg, lb, _pls=None):
+        return torch.take_along_dim(lg, lb.long()[..., None], dim=-1)[..., 0]
+    if not is_distributed(logits, labels):
+        return take(logits, labels)
+    return run_local(take, [(logits, ("batch", "seq", None)),
+                            (labels, ("batch", "seq"))],
+                     [(("batch", "seq"), tuple(labels.shape))])
 
 
 #: the products "dots" saves: matrix products without a batch dim (the
@@ -128,7 +155,9 @@ def remat(fn: Callable, cfg: ModelConfig) -> Callable:
     def wrapped(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False, **kw)
+        # the recomputation runs on autograd's thread, which does not see
+        # this one's mesh rules: bind them to it
+        return checkpoint(bind_rules(fn), *args, use_reentrant=False, **kw)
     return wrapped
 
 

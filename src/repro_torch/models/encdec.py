@@ -145,6 +145,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
             for name, T in shapes.items()}
 
 
+def cache_logical_axes(cfg: ModelConfig):
+    return {
+        "k": ("layers", "batch", "cache_seq", "kv_heads", None),
+        "v": ("layers", "batch", "cache_seq", "kv_heads", None),
+        "xk": ("layers", "batch", None, "kv_heads", None),
+        "xv": ("layers", "batch", None, "kv_heads", None),
+    }
+
+
 def encode_to_cache(model, cfg: ModelConfig, media, cache):
     """Fill the cross-KV slots of ``cache`` from media embeddings, in
     place -> the cache."""

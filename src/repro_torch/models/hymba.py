@@ -98,6 +98,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     }
 
 
+def cache_logical_axes(cfg: ModelConfig):
+    return {
+        "k": ("layers", "batch", "cache_seq", "kv_heads", None),
+        "v": ("layers", "batch", "cache_seq", "kv_heads", None),
+        "h": ("layers", "batch", "mlp_act", None),
+        "conv": ("layers", "batch", None, "embed_act"),
+    }
+
+
 def decode_step(model, cfg: ModelConfig, cache, tokens, pos, media=None):
     """One-token decode. tokens: (B,1); pos: a 1-element int64 tensor on
     the cache's device or an int.  Returns (logits (B,1,V), cache), the

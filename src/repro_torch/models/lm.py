@@ -94,6 +94,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def cache_logical_axes(cfg: ModelConfig):
+    if cfg.use_mla:
+        return {
+            "ckv": ("layers", "batch", "cache_seq", None),
+            "krope": ("layers", "batch", "cache_seq", None),
+        }
+    return {
+        "k": ("layers", "batch", "cache_seq", "kv_heads", None),
+        "v": ("layers", "batch", "cache_seq", "kv_heads", None),
+    }
+
+
 def decode_step(model, cfg: ModelConfig, cache, tokens, pos, media=None):
     """One-token decode. tokens: (B,1); pos: a 1-element int64 tensor on
     the cache's device (the reference's traced ``int32``) or an int.

@@ -73,6 +73,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     }
 
 
+def cache_logical_axes(cfg: ModelConfig):
+    return {
+        "wkv": ("layers", "batch", "heads", None, None),
+        "tm_last": ("layers", "batch", None, "embed_act"),
+        "cm_last": ("layers", "batch", None, "embed_act"),
+    }
+
+
 def decode_step(model, cfg: ModelConfig, cache, tokens, pos=None,
                 media=None):
     """One-token decode; the state is updated in place (so a warm-up step

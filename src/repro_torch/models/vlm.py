@@ -136,6 +136,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
             for name, shape in shapes.items()}
 
 
+def cache_logical_axes(cfg: ModelConfig):
+    return {
+        "k": ("groups", "layers", "batch", "cache_seq", "kv_heads", None),
+        "v": ("groups", "layers", "batch", "cache_seq", "kv_heads", None),
+        "xk": ("groups", "batch", None, "kv_heads", None),
+        "xv": ("groups", "batch", None, "kv_heads", None),
+    }
+
+
 def cache_batch(cache) -> int:
     """The batch of a cache: axis 1 of ``xk`` (axis 1 of ``k`` is the
     group's self layer)."""

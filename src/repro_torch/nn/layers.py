@@ -4,11 +4,14 @@ bidirectional encoder attention and cross-attention), MLP, MoE.
 
 Pure-function style, as in the reference: ``*_template(cfg)`` returns a
 ParamSpec tree; ``*_apply(params, x, ...)`` computes, with ``params`` a
-:class:`repro_torch.nn.param.Params` node.  The
-reference's sharding annotations (``constrain``, ``weight_gather``) are
-identities outside a mesh and are left out.  Weights are cast to the
-compute type once (:meth:`Params.cast`), where the reference casts them at
-every use to the same bits.
+:class:`repro_torch.nn.param.Params` node.  Activations and weights carry
+the reference's sharding annotations at its places
+(:func:`~repro_torch.distributed.sharding.constrain`,
+:func:`~repro_torch.distributed.sharding.weight_gather`): identities outside
+:func:`~repro_torch.distributed.sharding.use_mesh_rules`, redistributions of
+DTensors inside it.  Weights are cast to the compute type once
+(:meth:`Params.cast`), where the reference casts them at every use to the
+same bits.
 
 Full-sequence self-attention (train / prefill, positions ``arange(S)``) goes
 through K5 (:mod:`repro_torch.kernels.flash_attention`): the kernel on CUDA
@@ -19,7 +22,10 @@ decode keeps the reference's absorbed query over the compressed cache.
 The enc-dec family's encoder self-attention and its cross-attention over
 the encoder output are K5 without the causal mask (T != S for the
 cross-attention); the decode cross-attends the cached K/V with the
-reference's plain softmax.  Every K5 call goes through the ``_k5`` alias.
+reference's plain softmax.  Every K5 call goes through :func:`_flash`,
+which under a mesh hands the kernel each rank's local shards (a kernel
+reads ``data_ptr()``; no DTensor reaches it), q's heads paired with the KV
+heads they read under the global GQA ratio.
 
 The MoE layer (:func:`moe_apply`) is plain PyTorch, as the reference's is
 XLA outside any Pallas kernel: batched matrix products over a capacity grid
@@ -34,7 +40,12 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
 
+from repro_torch.distributed.sharding import (active_mesh, constrain,
+                                              is_distributed, redistribute,
+                                              run_local, shard_block,
+                                              weight_gather)
 from repro_torch.kernels.flash_attention import ops as _k5
 from repro_torch.nn.config import ModelConfig
 from repro_torch.nn.param import spec
@@ -120,9 +131,11 @@ def _proj(x, w):
 
 def _qkv(params, cfg, x, positions, use_rope=True):
     dt = x.dtype
-    q = _proj(x, params.cast("wq", dt))
-    k = _proj(x, params.cast("wk", dt))
-    v = _proj(x, params.cast("wv", dt))
+    q = _proj(x, weight_gather(params.cast("wq", dt), ("embed", "heads", None)))
+    k = _proj(x, weight_gather(params.cast("wk", dt),
+                               ("embed", "kv_heads", None)))
+    v = _proj(x, weight_gather(params.cast("wv", dt),
+                               ("embed", "kv_heads", None)))
     if cfg.qkv_bias:
         q = q + params.cast("bq", dt)
         k = k + params.cast("bk", dt)
@@ -133,19 +146,33 @@ def _qkv(params, cfg, x, positions, use_rope=True):
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    q = constrain(q, ("batch", "seq", "heads_act", None))
+    k = constrain(k, ("batch", "seq", None, None))
     return q, k, v
 
 
-def _out_proj(params, out):
-    """einsum("bshd,hde->bse", out, wo)."""
+def _out_proj(params, out, gather: bool = False):
+    """einsum("bshd,hde->bse", out, wo); ``gather``: wo through
+    :func:`weight_gather`, as the reference's self-attention reads it."""
     wo = params.cast("wo", out.dtype)
+    if gather:
+        wo = weight_gather(wo, ("heads", None, "embed"))
     H, D, E = wo.shape
     return out.reshape(*out.shape[:-2], H * D) @ wo.reshape(H * D, E)
 
 
 def _gqa_scores_softmax_out(cfg, q, k, v, mask):
     """q: (B,S,H,D), k/v: (B,T,K,D), mask: (B,1,1,S,T) or (1,1,1,S,T), or
-    None for every key (the reference's all-true mask)."""
+    None for every key (the reference's all-true mask).  Under a mesh on
+    each rank's q heads against their KV heads, as K5 (:func:`_by_heads`);
+    the keys are gathered whole (no flash-decode over a cache sharded by
+    position)."""
+    if is_distributed(q, k, v):
+        extra = () if mask is None else ((mask, (
+            "batch" if mask.shape[0] == q.shape[0] else None,
+            None, None, None, None)),)
+        return _by_heads(lambda ql, kl, vl, *m: _gqa_scores_softmax_out(
+            cfg, ql, kl, vl, m[0] if m else None), q, k, v, extra)
     B, S, H, D = q.shape
     K = k.shape[2]
     G = H // K
@@ -158,6 +185,63 @@ def _gqa_scores_softmax_out(cfg, q, k, v, mask):
     return out.reshape(B, S, H, D)
 
 
+#: the logical axes K5's operands take under a mesh: q's heads sharded as
+#: the reference constrains them, k's and v's replicated (``_qkv``)
+_Q_AXES = ("batch", "seq", "heads_act", None)
+_KV_AXES = ("batch", "seq", None, None)
+
+
+def _kv_block(H: int, Hk: int, idx: int, n: int) -> tuple[int, int]:
+    """The KV heads ``[a, b)`` that q's head block ``idx`` of ``n`` reads
+    under the global GQA ratio ``g = H / Hk`` (q head h reads KV head
+    h // g): the block's whole groups, or the one KV head a block inside a
+    group shares.  A block that cuts a group unevenly is refused."""
+    g, hl = H // Hk, H // n
+    if hl % g == 0:
+        a = idx * hl // g
+        return a, a + hl // g
+    if g % hl == 0:
+        a = idx * hl // g
+        return a, a + 1
+    raise ValueError(f"{n} blocks of {H} q heads break the GQA ratio "
+                     f"{H}/{Hk}: a block of {hl} heads straddles a group of "
+                     f"{g}")
+
+
+def _by_heads(fn, q, k, v, extra=()):
+    """``fn(q, k, v, *extra)`` on each rank's local shards: q with its heads
+    sharded by the rules, k and v with their heads replicated and cut here
+    to the KV heads the local q heads read (:func:`_kv_block`), ``extra``
+    more ``(tensor, logical axes)`` inputs; the output (B, S, H, DV) is
+    sharded as q.  Differentiable (:func:`run_local`)."""
+    B, S, H, _ = q.shape
+    Hk = k.shape[2]
+
+    def local(ql, kl, vl, *rest):
+        *xs, pls = rest
+        idx, n = shard_block(active_mesh(), pls[0], 2)
+        a, b = _kv_block(H, Hk, idx, n)
+        if (a, b) != (0, Hk):
+            kl, vl = kl[:, :, a:b], vl[:, :, a:b]
+        return fn(ql, kl, vl, *xs)
+
+    return run_local(local, [(q, _Q_AXES), (k, _KV_AXES), (v, _KV_AXES),
+                             *extra],
+                     [(_Q_AXES, (B, S, H, v.shape[3]))])
+
+
+def _flash(q, k, v, *, causal: bool, window: int = 0):
+    """Every K5 call.  Plain tensors go to the kernel as they are.  Under a
+    mesh (DTensors) the kernel runs on each rank's local shards
+    (:func:`_by_heads`).  The boundary is differentiable, so K5's backward
+    kernel runs on the shards too."""
+    def k5(ql, kl, vl):
+        return _k5.flash_attention(ql, kl, vl, causal=causal, window=window)
+    if not is_distributed(q, k, v):
+        return k5(q, k, v)
+    return _by_heads(k5, q, k, v)
+
+
 def attention_core(cfg, q, k, v, is_global: bool):
     """Causal self-attention over a full sequence whose positions are
     ``arange(S)`` (train / prefill): K5 on CUDA, its plain version on the
@@ -165,7 +249,7 @@ def attention_core(cfg, q, k, v, is_global: bool):
     no window, which is the reference mask ``causal & (within |
     is_global)``."""
     window = 0 if is_global else cfg.window
-    return _k5.flash_attention(q, k, v, causal=True, window=window)
+    return _flash(q, k, v, causal=True, window=window)
 
 
 def bidirectional_attention_apply(params, cfg: ModelConfig, x):
@@ -173,8 +257,9 @@ def bidirectional_attention_apply(params, cfg: ModelConfig, x):
     query sees every key (the reference's all-ones mask), no RoPE.  K5
     with ``causal=False``, no window."""
     q, k, v = _qkv(params, cfg, x, None, use_rope=False)
-    out = _k5.flash_attention(q, k, v, causal=False, window=0)
-    return _out_proj(params, out)
+    out = _flash(q, k, v, causal=False, window=0)
+    return constrain(_out_proj(params, out, gather=True),
+                     ("batch", "seq", "embed_act"))
 
 
 def causal_window_mask(positions_q, positions_k, window: int, is_global):
@@ -194,7 +279,8 @@ def attention_apply(params, cfg: ModelConfig, x, positions, is_global,
     ``arange(S)`` (they feed RoPE; the mask is K5's positional one)."""
     q, k, v = _qkv(params, cfg, x, positions, use_rope)
     out = attention_core(cfg, q, k, v, is_global)
-    return _out_proj(params, out)
+    return constrain(_out_proj(params, out, gather=True),
+                     ("batch", "seq", "embed_act"))
 
 
 def decode_position(pos, device):
@@ -219,15 +305,39 @@ def attention_decode(params, cfg: ModelConfig, x, cache_k, cache_v, pos,
     pos = decode_position(pos, x.device)
     positions = pos.view(1, 1).expand(B, 1)
     q, k, v = _qkv(params, cfg, x, positions, use_rope)
-    cache_k.index_copy_(1, pos, k.to(cache_k.dtype))
-    cache_v.index_copy_(1, pos, v.to(cache_v.dtype))
+    cache_write(cache_k, pos, k)
+    cache_write(cache_v, pos, v)
+    ck = constrain(cache_k, ("batch", "cache_seq", None, None))
+    cv = constrain(cache_v, ("batch", "cache_seq", None, None))
     T = cache_k.shape[1]
     pk = torch.arange(T, dtype=torch.int32, device=x.device)[None, :]
     mask = causal_window_mask(positions, pk, cfg.window, is_global)
     mask = mask[:, None, None, :, :]
-    out = _gqa_scores_softmax_out(cfg, q, cache_k.to(q.dtype),
-                                  cache_v.to(q.dtype), mask)
-    return _out_proj(params, out), cache_k, cache_v
+    out = _gqa_scores_softmax_out(cfg, q, ck.to(q.dtype), cv.to(q.dtype),
+                                  mask)
+    return _out_proj(params, out, gather=True), cache_k, cache_v
+
+
+def cache_write(cache, pos, row):
+    """``cache[:, pos] = row`` in place: cache (B, T, ...), row (B, 1, ...),
+    pos a 1-element int64 tensor, never read on the host.  A DTensor cache
+    sharded over T (the rules' ``cache_seq``) is written on its local
+    shards: the rank that holds position ``pos`` writes the row, every other
+    rank writes back what it holds."""
+    if not is_distributed(cache):
+        cache.index_copy_(1, pos, row.to(cache.dtype))
+        return
+    mesh, pl = cache.device_mesh, tuple(cache.placements)
+    row_pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+                   for p in pl)
+    local = cache.to_local()
+    r = redistribute(row, mesh, row_pl).to_local().to(cache.dtype)
+    idx, n = shard_block(mesh, pl, 1)
+    tl = local.shape[1]
+    rel = pos - idx * tl
+    at = rel.clamp(0, tl - 1)
+    here = ((rel >= 0) & (rel < tl)).view((1, 1) + (1,) * (r.dim() - 2))
+    local.index_copy_(1, at, torch.where(here, r, local.index_select(1, at)))
 
 
 # ---------------------------------------------------------------------------
@@ -269,9 +379,8 @@ def cross_attention_apply(params, cfg: ModelConfig, x, media, kv=None):
     bits."""
     k, v = (kv if kv is not None
             else cross_attention_kv(params, cfg, media.to(x.dtype)))
-    out = _k5.flash_attention(_cross_q(params, cfg, x), k, v, causal=False,
-                              window=0)
-    return _out_proj(params, out)
+    out = _flash(_cross_q(params, cfg, x), k, v, causal=False, window=0)
+    return constrain(_out_proj(params, out), ("batch", "seq", "embed_act"))
 
 
 def cross_attention_cached(params, cfg: ModelConfig, x, k, v):
@@ -279,7 +388,7 @@ def cross_attention_cached(params, cfg: ModelConfig, x, k, v):
     only q is normed.  The reference's plain softmax over every key (the
     decode's one token; no mask is built)."""
     out = _gqa_scores_softmax_out(cfg, _cross_q(params, cfg, x), k, v, None)
-    return _out_proj(params, out)
+    return constrain(_out_proj(params, out), ("batch", "seq", "embed_act"))
 
 
 # ---------------------------------------------------------------------------
@@ -309,17 +418,23 @@ def _mla_q(params, cfg, x):
     """The query heads (B,S,H,dn+dr), through the q LoRA when there is one."""
     dt = x.dtype
     if cfg.q_lora_rank > 0:
-        cq = rmsnorm(params["q_norm"], x @ params.cast("wq_a", dt),
-                     cfg.norm_eps)
-        return _proj(cq, params.cast("wq_b", dt))
-    return _proj(x, params.cast("wq", dt))
+        wq_a = weight_gather(params.cast("wq_a", dt), ("embed", "q_lora"))
+        cq = rmsnorm(params["q_norm"], x @ wq_a, cfg.norm_eps)
+        return _proj(cq, weight_gather(params.cast("wq_b", dt),
+                                       ("q_lora", "heads", None)))
+    return _proj(x, weight_gather(params.cast("wq", dt),
+                                  ("embed", "heads", None)))
 
 
-def _mla_kv(params, cfg, x, positions):
+def _mla_kv(params, cfg, x, positions, gather: bool = False):
     """The compressed key/value rows of x, what the cache keeps: c_kv
-    (B,S,kv_lora_rank), normed, and the shared RoPE key (B,S,dr), rotated."""
+    (B,S,kv_lora_rank), normed, and the shared RoPE key (B,S,dr), rotated.
+    ``gather``: wkv_a through :func:`weight_gather` (the prefill's read)."""
     kr = cfg.kv_lora_rank
-    ckv = x @ params.cast("wkv_a", x.dtype)
+    wkv_a = params.cast("wkv_a", x.dtype)
+    if gather:
+        wkv_a = weight_gather(wkv_a, ("embed", None))
+    ckv = x @ wkv_a
     c_kv = rmsnorm(params["kv_norm"], ckv[..., :kr], cfg.norm_eps)
     k_rope = rope(ckv[..., kr:][:, :, None, :], positions,
                   cfg.rope_theta)[:, :, 0, :]
@@ -342,13 +457,16 @@ def mla_prefill(params, cfg: ModelConfig, x, positions):
     q = _mla_q(params, cfg, x)
     q = torch.cat([q[..., :dn], rope(q[..., dn:], positions, cfg.rope_theta)],
                   dim=-1)
-    c_kv, k_rope = _mla_kv(params, cfg, x, positions)
-    kv = _proj(c_kv, params.cast("wkv_b", dt))          # (B,S,H,dn+dv)
+    c_kv, k_rope = _mla_kv(params, cfg, x, positions, gather=True)
+    wkv_b = weight_gather(params.cast("wkv_b", dt), ("kv_lora", "heads", None))
+    kv = _proj(c_kv, wkv_b)                              # (B,S,H,dn+dv)
     H = kv.shape[2]
     k = torch.cat([kv[..., :dn], k_rope[:, :, None, :].expand(B, S, H, dr)],
                   dim=-1)
-    out = _k5.flash_attention(q, k, kv[..., dn:], causal=True)
-    return _out_proj(params, out), c_kv, k_rope
+    out = _flash(q, k, kv[..., dn:], causal=True)
+    out = constrain(_out_proj(params, out, gather=True),
+                    ("batch", "seq", "embed_act"))
+    return out, c_kv, k_rope
 
 
 def mla_apply(params, cfg: ModelConfig, x, positions):
@@ -373,12 +491,13 @@ def mla_decode(params, cfg: ModelConfig, x, cache_ckv, cache_krope, pos):
     q_nope = q[..., :dn]
     q_rope = rope(q[..., dn:], positions, cfg.rope_theta)
     c_kv, k_rope = _mla_kv(params, cfg, x, positions)
-    cache_ckv.index_copy_(1, pos, c_kv.to(cache_ckv.dtype))
-    cache_krope.index_copy_(1, pos, k_rope.to(cache_krope.dtype))
+    cache_write(cache_ckv, pos, c_kv)
+    cache_write(cache_krope, pos, k_rope)
 
     wkv_b = params.cast("wkv_b", dt)                      # (kr, H, dn+dv)
     q_abs = torch.einsum("bshd,rhd->bshr", q_nope, wkv_b[..., :dn])
-    ckv, krope = cache_ckv.to(dt), cache_krope.to(dt)
+    ckv = constrain(cache_ckv, ("batch", "cache_seq", None)).to(dt)
+    krope = constrain(cache_krope, ("batch", "cache_seq", None)).to(dt)
     # the reference's scale is a numpy float64, which lifts the bf16 sum
     # of the two products to f32 before it scales
     scores = (torch.einsum("bshr,btr->bhst", q_abs, ckv)
@@ -409,13 +528,15 @@ def mlp_template(cfg: ModelConfig, d_ff=None, gated=True):
 
 def mlp_apply(params, x):
     dt = x.dtype
-    h = x @ params.cast("wi", dt)
+    h = x @ weight_gather(params.cast("wi", dt), ("embed", "mlp"))
     if "wg" in params:
-        g = x @ params.cast("wg", dt)
+        g = x @ weight_gather(params.cast("wg", dt), ("embed", "mlp"))
         h = F.silu(g) * h
     else:
         h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
-    return h @ params.cast("wo", dt)
+    h = constrain(h, ("batch", "seq", "mlp_act"))
+    out = h @ weight_gather(params.cast("wo", dt), ("mlp", "embed"))
+    return constrain(out, ("batch", "seq", "embed_act"))
 
 
 # ---------------------------------------------------------------------------
@@ -457,12 +578,21 @@ def _top_k(probs, k: int):
     return top_p[:, :k], top_i[:, :k]
 
 
-def _experts(params, h, dt):
+def _experts(params, h, dt, rows=None):
     """The SwiGLU experts on (X, rows, E) -> (X, rows, E), one batched
-    product a weight; ``h`` may broadcast over X."""
-    g = torch.matmul(h, params.cast("wg", dt))
-    h = F.silu(g) * torch.matmul(h, params.cast("wi", dt))
-    return torch.matmul(h, params.cast("wo", dt))
+    product a weight; ``h`` may broadcast over X.  ``rows``: the logical
+    axis of a grid's rows, which the grid and its hidden activations are
+    constrained to, as the reference's dispatch grids are."""
+    wi = weight_gather(params.cast("wi", dt), ("experts", "embed", "mlp"))
+    wg = weight_gather(params.cast("wg", dt), ("experts", "embed", "mlp"))
+    wo = weight_gather(params.cast("wo", dt), ("experts", "mlp", "embed"))
+    if rows is not None:
+        h = constrain(h, ("experts", rows, None))
+    g = torch.matmul(h, wg)
+    h = F.silu(g) * torch.matmul(h, wi)
+    if rows is not None:
+        h = constrain(h, ("experts", rows, None))
+    return torch.matmul(h, wo)
 
 
 def _combine(ye, cell, top_p):
@@ -507,7 +637,9 @@ def _moe_grid(params, xt, top_p, top_i, X, groups, C):
                       g[:, :, None] * (T // groups) + pair // K, T)
     x_pad = torch.cat([xt, xt.new_zeros(1, E)])
     xg = x_pad[tok.transpose(0, 1).reshape(X, groups * C)]
-    ye = _experts(params, xg, dt).reshape(X * groups * C, E)
+    # the global grid's capacity or the batch-local grids' (batch, capacity)
+    rows = "moe_cap" if groups == 1 else "batch"
+    ye = _experts(params, xg, dt, rows).reshape(X * groups * C, E)
     ye = torch.cat([ye, ye.new_zeros(1, E)])
     out = _combine(ye, cell.reshape(T, K), top_p)
     return out, (~keep).sum()
@@ -567,6 +699,7 @@ def moe_apply(params, cfg: ModelConfig, x, dropless: bool = False,
     out = out.reshape(B, S, E)
     if cfg.n_shared_experts > 0:
         out = out + mlp_apply(params["shared"], x)
+    out = constrain(out, ("batch", "seq", "embed_act"))
     if routing is not None:
         if dropped is None:
             dropped = torch.zeros((), dtype=torch.int64, device=x.device)

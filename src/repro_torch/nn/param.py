@@ -10,8 +10,9 @@ reference.  Here a template is
     parameters and whose nodes answer ``params["name"]`` like the
     reference's dicts, so the layer functions read the same.
 
-The logical axes are kept for the day the port shards; nothing reads them
-yet.
+Each :class:`Params` node keeps its leaves' logical axes; :func:`distribute`
+reads them to place the leaves on a ``DeviceMesh`` under the sharding rules
+(:mod:`repro_torch.distributed.sharding`).
 """
 from __future__ import annotations
 
@@ -125,10 +126,12 @@ class Params(nn.Module):
         super().__init__()
         self._names = []
         self._casts = {}
+        self._axes = {}
         self.grad_dtype = None
         for name, sub in template.items():
             self._names.append(name)
             if is_spec(sub):
+                self._axes[name] = sub.axes
                 self.register_parameter(name, nn.Parameter(
                     torch.empty(sub.shape, dtype=dtype, device=device),
                     requires_grad=False))
@@ -165,3 +168,27 @@ class Params(nn.Module):
         for m in self.modules():
             if isinstance(m, Params):
                 m._casts.clear()
+
+
+def distribute(params: nn.Module, mesh, rules) -> nn.Module:
+    """Place every leaf of the module tree ``params`` (a model, or any
+    tree of :class:`Params`) on ``mesh``: each becomes a DTensor parameter
+    whose placements its logical axes resolve to under ``rules``
+    (:func:`repro_torch.distributed.sharding.placements`), the reference's
+    ``jax.tree.map(jax.device_put, params, rules.param_sharding(...))``.
+    Every rank holds the whole tensor and keeps its own shard, so nothing
+    is sent.  In place; returns ``params``."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed.sharding import placements
+
+    for node in params.modules():
+        if not isinstance(node, Params):
+            continue
+        for name, axes in node._axes.items():
+            t = getattr(node, name)
+            pl = placements(rules.pspec(axes, t.shape, mesh), mesh)
+            d = distribute_tensor(t.detach(), mesh, pl, src_data_rank=None)
+            setattr(node, name, nn.Parameter(d, requires_grad=t.requires_grad))
+        node._casts.clear()
+    return params

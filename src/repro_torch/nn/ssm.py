@@ -6,7 +6,9 @@
 
 The full-sequence time-mix (``chunked=True``: train / prefill) runs the
 chunk-parallel recurrence through K6 (:mod:`repro_torch.kernels.rwkv6`):
-the kernel on CUDA tensors, its plain version on CPU tensors.  The decode
+the kernel on CUDA tensors, its plain version on CPU tensors; under a mesh
+it runs on each rank's local shards, r/k/v/log-decay, ``u`` and the state
+split by head with the rules (:func:`_wkv6`).  The decode
 step (``chunked=False``) runs the exact recurrence :func:`wkv6_scan` in
 plain PyTorch, as the reference does.
 
@@ -22,6 +24,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (constrain, is_distributed,
+                                              run_local, weight_gather)
 from repro_torch.kernels.rwkv6 import ops as _k6
 from repro_torch.kernels.rwkv6.ref import wkv6_scan
 from repro_torch.nn.config import ModelConfig
@@ -72,7 +76,10 @@ def _rwkv_mix(params, x, xs):
     dt = x.dtype
     xx = xs - x
     lora = (x + xx * 0.5) @ params.cast("mix_w1", dt)
-    lora = torch.tanh(lora).reshape(*x.shape[:2], 5, LORA_R)
+    # the five loras' channels are unsplit before they are told apart (a
+    # mesh may have sharded them, and 5 need not divide its axis)
+    lora = constrain(torch.tanh(lora), ("batch", "seq", None))
+    lora = lora.reshape(*x.shape[:2], 5, LORA_R)
     delta = torch.einsum("bsir,ire->bsie", lora, params.cast("mix_w2", dt))
     mu = params.cast("mu", dt)  # (5, E)
     mixed = x[:, :, None, :] + xx[:, :, None, :] * (mu[None, None] + delta)
@@ -83,10 +90,10 @@ def _rwkv_rkvwg(params, cfg, x, xs):
     dt = x.dtype
     H, D = heads(cfg)
     xr, xk, xv, xw, xg = _rwkv_mix(params, x, xs)
-    r = xr @ params.cast("wr", dt)
-    k = xk @ params.cast("wk", dt)
-    v = xv @ params.cast("wv", dt)
-    g = xg @ params.cast("wg", dt)
+    r = xr @ weight_gather(params.cast("wr", dt), ("embed", "heads"))
+    k = xk @ weight_gather(params.cast("wk", dt), ("embed", "heads"))
+    v = xv @ weight_gather(params.cast("wv", dt), ("embed", "heads"))
+    g = xg @ weight_gather(params.cast("wg", dt), ("embed", "heads"))
     lw = xw @ params.cast("dec_w1", dt)
     lw = torch.tanh(lw) @ params.cast("dec_w2", dt)
     logw = -torch.exp(torch.clamp(params["w0"].float() + lw.float(), -8.0, 4.0))
@@ -96,6 +103,33 @@ def _rwkv_rkvwg(params, cfg, x, xs):
             g.reshape(shp), params["u"].float().reshape(H, D))
 
 
+#: the logical axes of K6's operands under a mesh: split by head, as the
+#: rwkv6 rules shard the projections' output channels
+_SEQ_AXES = ("batch", "seq", "heads", None)
+_U_AXES = ("heads", None)
+_STATE_AXES = ("batch", "heads", None, None)
+
+
+def _wkv6(r, k, v, logw, u, state0=None):
+    """Every K6 call.  Plain tensors go to the kernel as they are.  Under a
+    mesh (DTensors) it runs on each rank's local shards, r/k/v/log-decay,
+    ``u`` and the state split by head with the same placements, and its
+    outputs are wrapped back; the boundary is differentiable, so K6's
+    backward kernel runs on the shards too."""
+    if not is_distributed(r, k, v, logw, u, state0):
+        return _k6.wkv6(r, k, v, logw, u, state0=state0)
+    B, S, H, D = r.shape
+
+    def local(rl, kl, vl, wl, ul, sl, _pls):
+        return _k6.wkv6(rl, kl, vl, wl, ul, state0=sl)
+
+    return run_local(local, [(r, _SEQ_AXES), (k, _SEQ_AXES), (v, _SEQ_AXES),
+                             (logw, _SEQ_AXES), (u, _U_AXES),
+                             (state0, _STATE_AXES)],
+                     [(_SEQ_AXES, (B, S, H, D)),
+                      (_STATE_AXES, (B, H, D, D))])
+
+
 def rwkv6_apply(params, cfg: ModelConfig, x, chunked=True, state=None):
     """Full-sequence RWKV6 time-mix. Returns (out, state_end, x_last).
     ``state`` is (wkv (B,H,D,D), the last token (B,1,E)) or None."""
@@ -103,7 +137,7 @@ def rwkv6_apply(params, cfg: ModelConfig, x, chunked=True, state=None):
         params, cfg, x, _token_shift(x, None if state is None else state[1]))
     s0 = None if state is None else state[0]
     if chunked:
-        y, s_end = _k6.wkv6(r, k, v, logw, u, state0=s0)
+        y, s_end = _wkv6(r, k, v, logw, u, state0=s0)
     else:
         y, s_end = wkv6_scan(r, k, v, logw, u, s0)
     B, S = x.shape[:2]
@@ -113,8 +147,8 @@ def rwkv6_apply(params, cfg: ModelConfig, x, chunked=True, state=None):
                 y.reshape(B, S, H, D).to(x.dtype), cfg.norm_eps)
     y = y.reshape(B, S, -1)
     y = y * F.silu(g.reshape(B, S, -1).to(x.dtype))
-    out = y @ params.cast("wo", x.dtype)
-    return out, s_end, x[:, -1:]
+    out = y @ weight_gather(params.cast("wo", x.dtype), ("heads", "embed"))
+    return constrain(out, ("batch", "seq", "embed_act")), s_end, x[:, -1:]
 
 
 def rwkv6_channel_template(cfg: ModelConfig):
@@ -128,17 +162,27 @@ def rwkv6_channel_template(cfg: ModelConfig):
     }
 
 
+def _diagonal(w):
+    """``torch.diagonal(w)``; under a mesh, of the whole matrix on each rank
+    (a sharded diagonal has no DTensor rule in every torch release)."""
+    if not is_distributed(w):
+        return torch.diagonal(w)
+    return run_local(lambda m, _pls: torch.diagonal(m), [(w, (None, None))],
+                     [((None,), (w.shape[0],))])
+
+
 def rwkv6_channel_apply(params, cfg: ModelConfig, x, last=None):
     dt = x.dtype
     xs = _token_shift(x, last)
     xx = xs - x
     xk = x + xx * params.cast("mu_k", dt)
     xr = x + xx * params.cast("mu_r", dt)
-    k = torch.square(F.relu(xk @ params.cast("wk", dt)))
-    v = k @ params.cast("wv", dt)
+    k = xk @ weight_gather(params.cast("wk", dt), ("embed", "mlp"))
+    k = constrain(torch.square(F.relu(k)), ("batch", "seq", "mlp_act"))
+    v = k @ weight_gather(params.cast("wv", dt), ("mlp", "embed"))
     # the reference's einsum("bse,ee->bse", xr, wr) reads the diagonal of wr
-    r = torch.sigmoid(xr * torch.diagonal(params.cast("wr", dt)))
-    return r * v, x[:, -1:]
+    r = torch.sigmoid(xr * _diagonal(params.cast("wr", dt)))
+    return constrain(r * v, ("batch", "seq", "embed_act")), x[:, -1:]
 
 
 # ---------------------------------------------------------------------------
@@ -238,8 +282,8 @@ def mamba_apply(params, cfg: ModelConfig, x, state=None):
     compute type, the step size, decay, drive and scan in f32."""
     dt_ = x.dtype
     f32 = torch.float32
-    xb = x @ params.cast("in_x", dt_)
-    z = x @ params.cast("in_z", dt_)
+    xb = x @ weight_gather(params.cast("in_x", dt_), ("embed", "mlp"))
+    z = x @ weight_gather(params.cast("in_z", dt_), ("embed", "mlp"))
     h_tail = None if state is None else state[1]
     xc, tail = _depthwise_conv(xb, params.cast("conv", dt_), h_tail)
     xc = F.silu(xc)
@@ -266,5 +310,5 @@ def mamba_apply(params, cfg: ModelConfig, x, state=None):
                   Cm.reshape(B * S, N, 1)).reshape(B, S, E)
     y = y + params["D"].to(f32) * xc.to(f32)
     y = y.to(dt_) * F.silu(z)
-    out = y @ params.cast("out", dt_)
-    return out, (hs[:, -1], tail)
+    out = y @ weight_gather(params.cast("out", dt_), ("mlp", "embed"))
+    return constrain(out, ("batch", "seq", "embed_act")), (hs[:, -1], tail)

@@ -47,8 +47,9 @@ def schedule(cfg: AdamWConfig, step):
 
 def init(params):
     """Zero f32 moments ``{"m", "v"}`` of the parameter tree's structure."""
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def zeros(p):        # a DTensor parameter's moments share its placements
+        return torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.contiguous_format)
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
 

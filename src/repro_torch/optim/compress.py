@@ -4,10 +4,9 @@
 Gradients are quantized to int8 with a per-tensor scale before a
 cross-pod all-reduce; the quantization residual is carried in an
 error-feedback buffer so the compression bias vanishes over steps
-(EF-SGD).  The all-reduce itself (the reference's
-``compressed_psum_along``) needs a process group and comes with the
-distributed slice.  Trees are nested dicts and lists of tensors
-(:mod:`repro_torch.tree`)."""
+(EF-SGD).  :func:`compressed_psum_along` all-reduces the decoded values
+over one dimension of a ``DeviceMesh``.  Trees are nested dicts and lists
+of tensors (:mod:`repro_torch.tree`)."""
 from __future__ import annotations
 
 import torch
@@ -47,3 +46,22 @@ def compress_with_feedback(grads, ef):
 
 def decompress(codes, scales):
     return tree_map(dequantize, codes, scales)
+
+
+def compressed_psum_along(codes, scales, mesh, axis: str):
+    """All-reduce int8 codes' decoded values over the mesh dimension
+    ``axis`` (e.g. "pod") -> the tree of sums, one f32 tensor a leaf, the
+    same on every rank of that dimension's group.  Each rank decodes its
+    local codes at its local scale (``q.float() * s``) and the decoded
+    values are summed.  (The reference also takes the maximum of the scales
+    over the axis and then returns only the sums; that maximum changes no
+    output, so it is not taken.)"""
+    import torch.distributed as dist
+
+    group = mesh.get_group(axis)
+    out = []
+    for q, s in zip(leaves(codes), leaves(scales)):
+        g = q.float() * s
+        dist.all_reduce(g, group=group)
+        out.append(g)
+    return unflatten(codes, out)

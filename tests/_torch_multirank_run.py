@@ -1,0 +1,120 @@
+"""The port's sharded train and decode on eight gloo ranks of a (4, 2)
+("data", "model") mesh on the CPU, for ``tests/test_torch_multirank.py``.
+
+    python tests/_torch_multirank_run.py WORKDIR
+
+reads ``WORKDIR/inputs.pkl`` (the cases: each a config, the reference's
+parameters as numpy arrays, a host batch, its steps and its AdamW), spawns
+the ranks, which meet through a ``FileStore`` in ``WORKDIR``, and writes
+what rank 0 gathered to ``WORKDIR/result.pkl``.  :func:`run_case` is also
+the single-process run the test holds the ranks to (``mesh`` None)."""
+from __future__ import annotations
+
+import os
+import pickle
+import sys
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+MESH_SHAPE, MESH_AXES = (4, 2), ("data", "model")
+STEPS, ACCUM = 4, 2
+
+
+def run_case(cfg, tree, batch, mesh=None, rules=None, steps=STEPS,
+             accum=ACCUM, opt=None):
+    """``steps`` train steps of ``cfg`` from the parameter tree ``tree`` on
+    the host batch (``accum`` micro-batches; ``chip_smoke.dist_train``, by
+    AdamW ``opt``, by default lr 3e-3 with no warm-up), then one decode step
+    on the cache (f32, zeros) at position 0 with the batch's first tokens
+    (``chip_smoke.dist_decode``): un-meshed (``mesh`` None) or sharded by
+    ``rules``.  -> {"losses", "grad_norms", "params", "grads" (the first
+    step's), "logits"} on the host."""
+    if ROOT not in sys.path:        # chip_smoke.py holds the one harness
+        sys.path.append(ROOT)
+    from chip_smoke import dist_decode, dist_train
+
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.models.common import get_family
+
+    cpu = torch.device("cpu")
+    B, S = batch["tokens"].shape
+    run = dist_train(cpu, cfg, batch, steps, accum, mesh, rules, tree=tree,
+                     grads=True, opt=opt)
+    cache = get_family(cfg).init_cache(cfg, B, S, dtype=torch.float32)
+    logits = dist_decode(cpu, cfg, run["state"]["model"],
+                         ShapeSpec("decode", S, B, "decode"), cache,
+                         torch.as_tensor(batch["tokens"][:, :1]), 0, mesh,
+                         rules)
+    return {"losses": run["losses"], "grad_norms": run["grad_norms"],
+            "params": run["params"], "grads": run["grads"], "logits": logits}
+
+
+def _rank(rank, world, workdir):
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    store = dist.FileStore(os.path.join(workdir, "store"), world)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
+    try:
+        from repro_torch.data.pipeline import device_put_batch
+        from repro_torch.distributed import strategy
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.optim import compress
+
+        with open(os.path.join(workdir, "inputs.pkl"), "rb") as f:
+            inputs = pickle.load(f)
+        mesh = make_mesh(MESH_SHAPE, MESH_AXES, "cpu")
+        result = {}
+        for name, case in inputs["cases"].items():
+            cfg = case["cfg"]
+            result[name] = run_case(cfg, case["tree"], case["batch"], mesh,
+                                    strategy.rules_for(cfg),
+                                    steps=case["steps"], opt=case["opt"])
+
+        # device_put_batch: this rank's shard is its rows of the host batch
+        batch = inputs["cases"]["qwen2"]["batch"]
+        rules = strategy.rules_for(inputs["cases"]["qwen2"]["cfg"])
+        db = device_put_batch(batch, mesh, rules)
+        d = mesh.get_local_rank("data")
+        rows = batch["tokens"].shape[0] // MESH_SHAPE[0]
+        shards_ok = all(np.array_equal(db[k].to_local().numpy(),
+                                       v[d * rows:(d + 1) * rows])
+                        for k, v in batch.items())
+
+        # compressed_psum_along: each rank's own codes, summed over an axis
+        def grads_of(r):
+            g = torch.Generator().manual_seed(100 + r)
+            return {"w": torch.randn((6, 5), generator=g),
+                    "b": [torch.randn((7,), generator=g)]}
+        mine = grads_of(rank)
+        codes, scales, _ = compress.compress_with_feedback(
+            mine, compress.init_error_feedback(mine))
+        psum = {axis: compress.compressed_psum_along(codes, scales, mesh,
+                                                     axis)
+                for axis in MESH_AXES}
+        gathered = [None] * world
+        dist.all_gather_object(gathered, {
+            "shards_ok": shards_ok, "psum": psum,
+            "coords": (mesh.get_local_rank("data"),
+                       mesh.get_local_rank("model"))})
+        if rank == 0:
+            result["ranks"] = gathered
+            with open(os.path.join(workdir, "result.pkl"), "wb") as f:
+                pickle.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def main(workdir):
+    import torch.multiprocessing as mp
+
+    world = MESH_SHAPE[0] * MESH_SHAPE[1]
+    mp.spawn(_rank, args=(world, workdir), nprocs=world)
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    main(sys.argv[1])

@@ -55,6 +55,8 @@ def test_import_loads_neither_jax_nor_reference():
             "repro_torch.train.steps", "repro_torch.optim.adamw",
             "repro_torch.optim.compress", "repro_torch.data.pipeline",
             "repro_torch.checkpoint.store", "repro_torch.fault.tolerance",
+            "repro_torch.distributed.sharding",
+            "repro_torch.distributed.strategy", "repro_torch.launch.inputs",
             "repro_torch.tree"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -1,0 +1,273 @@
+"""The port's distributed layer on ranks of a gloo process group on the CPU.
+
+Eight ranks on a (4, 2) ("data", "model") mesh, one subprocess that spawns
+them (``tests/_torch_multirank_run.py``): qwen2 and rwkv6 smoke configs in
+f32, the reference's parameters carried across, train 4 sharded steps of
+B 8, S 32 in 2 micro-batches by the reference's ``TrainConfig(accum_steps=2)``
+and decode one step on the sharded cache, as the reference's
+``tests/test_multidevice.py`` tries to.  The reference's own 8-device run
+fails inside jax (a sharded gather it refuses), so each sharded run is held
+to the port's single-process run of the same inputs, which
+``tests/test_torch_train.py`` holds to the reference's step.  The first
+step's gradients are held leaf by leaf, so a gradient summed wrongly over
+the ranks shows whatever the optimizer's step does with it.  Then a GQA
+config whose ranks hold fewer q heads than a KV group, one step at lr 3e-3
+with no warm-up, ``device_put_batch``'s shards and ``compressed_psum_along``
+over each mesh axis.  Last, one gloo rank on the (1, 1) mesh: the meshed
+step equals the un-meshed one bit for bit."""
+import dataclasses
+import importlib.util
+import os
+import pickle
+import signal
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_spec = importlib.util.spec_from_file_location(
+    "_torch_multirank_run", os.path.join(ROOT, "tests",
+                                         "_torch_multirank_run.py"))
+RUN = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(RUN)
+
+#: the sharded runs against the single-process run, f32: losses (relative),
+#: the parameters after the last step (relative L2 over the whole tree, and
+#: each element absolute where the steps are the reference schedule's
+#: warm-up) and the decode logits (absolute)
+LOSS_RTOL, PARAM_REL_L2, PARAM_ATOL, LOGITS_ATOL = 1e-5, 1e-4, 1e-5, 1e-4
+#: the first step's gradients: each leaf's relative L2 (no leaf is left
+#: out) and the global norm's relative gap
+GRAD_REL_L2, GRAD_NORM_RTOL = 1e-4, 1e-5
+#: the subprocess's own limit (import, spawn and every case)
+TIMEOUT_S = 300
+
+
+F32 = {"compute_dtype": "float32"}
+
+
+def _ref_tree(arch, **kw):
+    """The reference's parameters for the smoke config of ``arch`` with the
+    fields ``kw``, drawn by ``jax.random.key(0)``, as numpy arrays."""
+    import jax
+
+    from repro.configs import get_config as ref_get_config
+    from repro.models.common import get_family as ref_family
+    from repro.nn.param import init_params
+
+    rcfg = dataclasses.replace(ref_get_config(arch, True), **kw)
+    params = init_params(ref_family(rcfg).template(rcfg), jax.random.key(0))
+    return jax.tree.map(np.asarray, params)
+
+
+def _batch(cfg, B=8, S=32, seed=1):
+    tokens = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    return {"tokens": tokens, "labels": np.roll(tokens, -1, 1)}
+
+
+def _cases():
+    """name -> {"cfg", "tree", "batch", "steps", "opt"}: qwen2 and rwkv6 on
+    the reference's ``TrainConfig(accum_steps=2)`` schedule (lr 3e-4 warmed
+    up over 100 steps); the GQA case one step that moves the weights (lr
+    3e-3, no warm-up: ``chip_smoke.dist_train``'s AdamW, ``opt`` None)."""
+    from repro_torch.optim.adamw import AdamWConfig
+
+    out = {}
+    for name, arch, fields, steps, opt in (
+            ("qwen2", "qwen2-1.5b", F32, RUN.STEPS, AdamWConfig()),
+            ("rwkv6", "rwkv6-3b", F32, RUN.STEPS, AdamWConfig()),
+            # 4 q heads to 1 KV head: a rank's 2 q heads are fewer than
+            # the group of 4
+            ("gqa", "qwen2-1.5b", {**F32, "n_kv_heads": 1}, 1, None)):
+        cfg = dataclasses.replace(get_config(arch, smoke=True), **fields)
+        out[name] = {"cfg": cfg, "tree": _ref_tree(arch, **fields),
+                     "batch": _batch(cfg), "steps": steps, "opt": opt}
+    return out
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """-> (the inputs, the eight ranks' result, each case's single-process
+    result)."""
+    work = tmp_path_factory.mktemp("multirank")
+    inputs = {"cases": _cases()}
+    with open(work / "inputs.pkl", "wb") as f:
+        pickle.dump(inputs, f)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "tests",
+                                      "_torch_multirank_run.py"), str(work)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=env, cwd=ROOT, start_new_session=True)
+    try:
+        _, err = proc.communicate(timeout=TIMEOUT_S)
+    finally:
+        if proc.poll() is None:         # the spawner and its ranks
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    assert proc.returncode == 0, f"stderr:\n{err[-4000:]}"
+    with open(work / "result.pkl", "rb") as f:
+        result = pickle.load(f)
+    single = {name: RUN.run_case(c["cfg"], c["tree"], c["batch"],
+                                 steps=c["steps"], opt=c["opt"])
+              for name, c in inputs["cases"].items()}
+    return inputs, result, single
+
+
+def _rel_l2(a, b):
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b).clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("name,part", [
+    (name, part) for name in ("qwen2", "rwkv6", "gqa")
+    for part in ("losses", "params", "logits")])
+def test_sharded_run_matches_single_process(runs, name, part):
+    """Eight ranks against one process: the losses of every step, every
+    parameter after the last, the decode step's logits."""
+    inputs, result, single = runs
+    case = inputs["cases"][name]
+    got, want = result[name][part], single[name][part]
+    if part == "losses":
+        assert len(got) == len(want) == case["steps"]
+        gaps = [abs(float(g) / float(w) - 1) for g, w in zip(got, want)]
+        print(f"{name} losses: relative gap {max(gaps):.3e}")
+        for g, w in zip(got, want):
+            assert np.isfinite(float(g))
+            assert abs(float(g) - float(w)) <= LOSS_RTOL * abs(float(w))
+        if len(got) > 1:            # the fixed batch is learned
+            assert float(got[-1]) < float(got[0])
+    elif part == "params":
+        assert len(got) == len(want)
+        assert all(g.shape == w.shape for g, w in zip(got, want))
+        flat = [torch.cat([t.reshape(-1) for t in ts]) for ts in (got, want)]
+        rel, gap = _rel_l2(*flat), float((flat[0] - flat[1]).abs().max())
+        leaf = max(_rel_l2(g, w) for g, w in zip(got, want))
+        print(f"{name} parameters: relative L2 {rel:.3e}, max abs {gap:.3e}, "
+              f"largest leaf relative L2 {leaf:.3e}")
+        assert rel <= PARAM_REL_L2
+        # at lr 3e-3 an element whose gradient is within f32's rounding of
+        # zero takes Adam's normalised step of about +-lr in either run
+        if case["opt"] is not None:
+            assert gap <= PARAM_ATOL
+    else:
+        assert got.shape == want.shape
+        assert bool(torch.isfinite(got).all())
+        gap = float((got - want).abs().max())
+        print(f"{name} decode logits: max abs {gap:.3e}")
+        assert gap <= LOGITS_ATOL
+
+
+@pytest.mark.parametrize("name", ["qwen2", "rwkv6", "gqa"])
+def test_sharded_first_step_gradients_match_single_process(runs, name):
+    """The first step's gradients (each DTensor's whole, before the
+    optimizer) against one process's, leaf by leaf, and their global norm:
+    a Partial summed twice or a replicated input's gradient left unsummed
+    moves the leaves it reaches by O(1)."""
+    _inputs, result, single = runs
+    got, want = result[name]["grads"], single[name]["grads"]
+    assert len(got) == len(want) > 0
+    assert all(g.shape == w.shape for g, w in zip(got, want))
+    rels = [_rel_l2(g, w) for g, w in zip(got, want)]
+    norm = [float(r[name]["grad_norms"][0]) for r in (result, single)]
+    print(f"{name} first-step gradients: largest leaf relative L2 "
+          f"{max(rels):.3e} (leaf {rels.index(max(rels))} of {len(rels)}), "
+          f"global norm gap {abs(norm[0] / norm[1] - 1):.3e}")
+    assert all(np.isfinite(r) for r in rels)
+    assert max(rels) <= GRAD_REL_L2, rels
+    assert abs(norm[0] - norm[1]) <= GRAD_NORM_RTOL * norm[1]
+
+
+def test_device_put_batch_shards_are_rows_of_the_host_batch(runs):
+    """Each rank holds the rows of its "data" coordinate, whole sequences,
+    the same on both "model" ranks."""
+    ranks = runs[1]["ranks"]
+    assert len(ranks) == 8
+    assert all(r["shards_ok"] for r in ranks)
+    assert sorted(r["coords"] for r in ranks) == [(d, m) for d in range(4)
+                                                  for m in range(2)]
+
+
+@pytest.mark.parametrize("axis", RUN.MESH_AXES)
+def test_compressed_psum_along_sums_the_local_decodes(runs, axis):
+    """``compressed_psum_along`` over one mesh axis = the sum of the
+    decoded codes (``q.float() * s``) of the ranks on that axis's group."""
+    from repro_torch.optim import compress
+    from repro_torch.tree import leaves
+
+    ranks = runs[1]["ranks"]
+
+    def decoded(r):
+        g = torch.Generator().manual_seed(100 + r)
+        mine = {"w": torch.randn((6, 5), generator=g),
+                "b": [torch.randn((7,), generator=g)]}
+        codes, scales, _ = compress.compress_with_feedback(
+            mine, compress.init_error_feedback(mine))
+        return leaves(compress.decompress(codes, scales))
+
+    for rank, r in enumerate(ranks):
+        d, m = r["coords"]
+        group = [i for i, o in enumerate(ranks)
+                 if (o["coords"][1] == m if axis == "data"
+                     else o["coords"][0] == d)]
+        assert rank in group and len(group) == (4 if axis == "data" else 2)
+        want = [sum(parts) for parts in zip(*(decoded(i) for i in group))]
+        got = leaves(r["psum"][axis])
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "rwkv6-3b"])
+def test_one_rank_mesh_step_is_the_unmeshed_step_bit_for_bit(arch):
+    """One gloo rank, the (1, 1) smoke mesh (every placement a size-1
+    shard or a replica): the meshed smoke step (the config as it is, bf16
+    compute) gives the un-meshed step's losses, parameters and decode
+    logits bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import strategy
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.common import get_family, init_model
+
+    cfg = get_config(arch, smoke=True)
+    ref_tree = _param_tree_np(init_model(get_family(cfg), cfg,
+                                         torch.Generator().manual_seed(3)))
+    batch = _batch(cfg)
+    want = RUN.run_case(cfg, ref_tree, batch, steps=2)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_smoke_mesh("cpu")
+        got = RUN.run_case(cfg, ref_tree, batch, mesh,
+                           strategy.rules_for(cfg), steps=2)
+    finally:
+        dist.destroy_process_group()
+    for part in ("losses", "params"):
+        assert len(got[part]) == len(want[part])
+        for g, w in zip(got[part], want[part]):
+            assert torch.equal(g, w), part
+    assert torch.equal(got["logits"], want["logits"])
+
+
+def _param_tree_np(model):
+    """A model's parameters as the reference's tree of numpy arrays (each
+    stack's layers stacked on a leading axis)."""
+    from repro_torch.models.common import param_tree
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return np.stack([x.detach().numpy() for x in t])
+        return t.detach().numpy()
+    return conv(param_tree(model))

@@ -450,19 +450,41 @@ def test_fault_tolerance_is_the_reference_copy():
     assert _read("repro_torch", "fault", "tolerance.py") == ref
 
 
+def test_strategy_is_the_reference_copy():
+    """``diff -u``: the port's ``distributed/strategy.py`` is the
+    reference's with its three imports rewritten, nothing else."""
+    ref = _read("repro", "distributed", "strategy.py").splitlines()
+    port = _read("repro_torch", "distributed", "strategy.py").splitlines()
+    diff = [l for l in difflib.unified_diff(ref, port, lineterm="", n=0)
+            if l[:1] in "+-" and not l.startswith(("+++", "---"))]
+    assert len(diff) == 6
+    assert all(l[1:].startswith("from repro") for l in diff)
+    assert "\n".join(port).replace("repro_torch.", "repro.") == "\n".join(ref)
+
+
 def test_data_pipeline_differs_only_in_its_jax_lines():
-    """``diff -u``: the port's copy drops ``import jax`` and
-    ``device_put_batch`` (JAX shardings; the distributed slice), nothing
+    """``diff -u``: the port's copy drops ``import jax`` and differs
+    otherwise only inside ``device_put_batch``'s body (a DTensor on a
+    ``DeviceMesh`` where the reference puts a JAX sharding), nothing
     else."""
     ref = _read("repro", "data", "pipeline.py").splitlines()
     port = _read("repro_torch", "data", "pipeline.py").splitlines()
-    diff = [l for l in difflib.unified_diff(ref, port, lineterm="", n=0)
+    head = "def device_put_batch(batch: dict, mesh, rules) -> dict:"
+    r0, p0 = ref.index(head), port.index(head)
+    # everything before the function: one line gone, ``import jax``
+    diff = [l for l in difflib.unified_diff(ref[:r0], port[:p0], lineterm="",
+                                            n=0)
             if l[:1] in "+-" and not l.startswith(("+++", "---"))]
-    assert not [l for l in diff if l.startswith("+")]
-    removed = [l[1:] for l in diff]
-    start = ref.index("def device_put_batch(batch: dict, mesh, rules) -> "
-                      "dict:")
-    assert removed == ["import jax", *ref[start - 2:]]
+    assert diff == ["-import jax"]
+    # the function itself: every line of the reference's but the three
+    # that name JAX's sharding is kept, in its order; the port's own lines
+    # place a leaf as a DTensor
+    rb, pb = ref[r0:], port[p0:]
+    jax_lines = [l for l in rb if "jax" in l or "NamedSharding" in l]
+    assert len(jax_lines) == 3
+    kept = [l for l in pb if l.strip() and l in rb]
+    assert kept == [l for l in rb if l.strip() and l not in jax_lines]
+    assert not [l for l in pb if "jax" in l]
 
 
 def test_train_restart_from_checkpoint_repeats_the_run(tmp_path):
