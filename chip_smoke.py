@@ -221,7 +221,25 @@ kernel from the sources in the checkout (nvcc into ``build/``).  Phases:
    embedding and the first and last layers); printed: ms a step,
    tokens/s, the model-FLOP share, the loss trajectory and the profiled
    step's busy share;
-10. dist: the distributed layer on one NCCL rank (``world_size`` 1 on a
+10. dryrun: the dry run's trace (``repro_torch.launch.dryrun.trace_cell``
+   un-meshed, no process group, on meta tensors, which take the card's
+   route through K5's and K6's wrappers to their custom ops' fakes) of
+   qwen2-1.5b's and rwkv6-3b's train steps at the train phase's shape and
+   schedule (8 x 4096 tokens in 4 micro-batches, remat "full") and of
+   qwen2-1.5b's serve prefill (batch 4, prompt 2048), after the train
+   phase, in the script's process; then each cell cut to 2 layers traced
+   on meta and under ``FakeTensorMode`` on ``cuda``, gated
+   to be the same trace op for op (names, operand shapes, FLOPs, bytes,
+   peak, arguments); held against what the train and models phases
+   measured on the card: K5's and K6's custom-op calls in the trace equal
+   their launches a step (a prefill), the parameters' bytes exactly, the
+   traced peak within 10% of the real step's own peak (its
+   ``max_memory_allocated`` less what earlier phases still held), the
+   traced FLOPs 1.0-1.5x the train phase's model-FLOP count (remat "full"
+   recomputes the forward), the whole phase within 30 s; printed: each
+   traced step's roofline time beside its measured ms; one
+   ``{"dryrun": ...}`` JSON line;
+11. dist: the distributed layer on one NCCL rank (``world_size`` 1 on a
    ``HashStore``) and the one-rank ``make_smoke_mesh`` on the card, under
    ``use_mesh_rules`` with ``strategy.rules_for``: qwen2-1.5b at full width
    and depth at the train cell's shape (8 x 4096 in 4 micro-batches of 2),
@@ -2410,6 +2428,7 @@ def serve_model(dev, arch, fam_mod, kernel_mod, kernel_name, seam, seed):
           f"{kernel_name} = {n_launch} in the prefill and none in the decode")
     check(not any(n_p.values()), f"{arch}: the plain-version serve launched "
           f"{n_p}")
+    MEASURED["prefill", arch] = launches["prefill"][kernel_name]
     worst = max(err for layer in shadow_errs for _ok, err in layer)
     log(f"serve {arch} shadow check: {kernel_name} == its plain version on "
         f"the same inputs at each of {len(shadow_errs)} launches, max abs "
@@ -2930,6 +2949,11 @@ def models_phase(dev, seed):
 
 
 # -- phase 9: training ----------------------------------------------------
+
+#: what the train and models phases measured on the card, for the dry
+#: run's gates: ("train", arch) -> launches a step, peak, parameter bytes,
+#: model FLOPs and ms a step; ("prefill", arch) -> K5's prefill launches
+MEASURED: dict = {}
 
 #: the train cells: a dense LM (K5's forward and backward) and RWKV6 (K6's)
 TRAIN_ARCHS = ("qwen2-1.5b", "rwkv6-3b")
@@ -3534,6 +3558,7 @@ def train_cell(dev, cfg, loader):
     wkv = cfg.family == "ssm"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)     # earlier phases' leftovers
     k5.flash_attention.launches = k5.flash_attention.bwd_launches = 0
     k5.flash_attention.bwd_variant_launches = dict.fromkeys(k5.BWD_SOURCES,
                                                             0)
@@ -3553,7 +3578,8 @@ def train_cell(dev, cfg, loader):
         f"included); {'K6' if wkv else 'K5'} launches forward {fwd} "
         f"(expected {2 * want}: remat runs each layer's forward twice), "
         f"backward {bwd} (expected {want}); K5 {k5n}, by variant "
-        f"{by_variant}, K6 {k6n}; peak memory {peak:.3f} GB")
+        f"{by_variant}, K6 {k6n}; peak memory {peak:.3f} GB, "
+        f"{held / 1e9:.3f} GB of it held before the cell")
     check(fwd == 2 * want and bwd == want,
           f"train {cfg.name}: launches forward {fwd}, backward {bwd}")
     check((k5n if wkv else k6n) == (0, 0),
@@ -3571,6 +3597,13 @@ def train_cell(dev, cfg, loader):
     attn = 0 if wkv else 3 * (TRAIN_BATCH * cfg.n_heads * TRAIN_SEQ
                               * TRAIN_SEQ * 2 * cfg.head_dim) * cfg.n_layers
     flops = 6 * n_params * tokens + attn
+    MEASURED["train", cfg.name] = dict(
+        fwd=fwd // TRAIN_STEPS, bwd=bwd // TRAIN_STEPS,
+        peak_bytes=torch.cuda.max_memory_allocated(dev) - held,
+        held_bytes=held, model_flops=flops,
+        param_bytes=sum(p.numel() * p.element_size()
+                        for p in state["model"].parameters()),
+        step_ms=[s_ * 1e3 for s_ in r["step_s"]])
     for i, (loss, s) in enumerate(zip(r["losses"], r["step_s"])):
         log(f"train {cfg.name} step {i}: loss {loss:.6f}, gnorm "
             f"{r['grad_norms'][i]:.4f}, lr {r['lrs'][i]:.3e}, {s * 1e3:.1f} "
@@ -3659,7 +3692,214 @@ def train_phase(dev, seed):
     return rows, bwd, fwd
 
 
-# -- phase 10: the distributed layer through the rules ----------------------
+# -- phase 10: the dry run, held against the card ---------------------------
+
+#: the dry run's peak against the real step's own peak (the card's
+#: ``max_memory_allocated`` less what was allocated when the cell began)
+DRYRUN_PEAK_RTOL = 0.10
+#: the traced FLOPs against the train phase's model-FLOP count: remat
+#: "full" runs each layer's forward twice (about 4/3 of 6·N·tokens)
+DRYRUN_FLOP_RATIO = (1.0, 1.5)
+#: the phase, from its start to its end (its processes' start included)
+DRYRUN_LIMIT_S = 30.0
+#: the depth at which the meta trace is held against the fake CUDA one
+DRYRUN_CUT_LAYERS = 2
+
+
+def _dryrun_cell(arch, kind, seq, batch, device, n_layers=None):
+    """One cell traced in this process (:func:`repro_torch.launch.dryrun.
+    trace_cell`, un-meshed): ``arch``'s train step (:data:`TRAIN_ACCUM`
+    micro-batches) or serve prefill at ``batch`` x ``seq``, on meta tensors
+    (``device="meta"``) or under ``FakeTensorMode`` on ``device``, at
+    ``n_layers`` (None: the config's) -> (the cell, its seconds)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.distributed import strategy
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_abstract_mesh
+    from repro_torch.train.steps import TrainConfig
+
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    t0 = time.perf_counter()
+    with (contextlib.nullcontext() if device == "meta"
+          else FakeTensorMode()):
+        cell = dryrun.trace_cell(
+            cfg, ShapeSpec(kind, seq, batch, kind),
+            make_abstract_mesh((1, 1), ("data", "model")),
+            strategy.rules_for(cfg), device,
+            TrainConfig(accum_steps=TRAIN_ACCUM))
+    return cell, time.perf_counter() - t0
+
+
+def dryrun_trace(arch, kind, seq, batch):
+    """One cell of the dry run on meta tensors (:func:`_dryrun_cell`) ->
+    what the gates read (custom-op calls, FLOPs, bytes, peak, parameter
+    and argument bytes) and the trace's seconds."""
+    from repro_torch.launch import trace_analysis
+    from repro_torch.models.common import param_tree
+    from repro_torch.tree import leaves
+
+    cell, secs = _dryrun_cell(arch, kind, seq, batch, "meta")
+    trace = cell["trace"]
+    tot = trace_analysis.analyze(trace)
+    return dict(
+        trace_s=secs, ops=len(trace.ops),
+        calls={n: trace.calls("repro_torch." + n) for n in
+               ("flash_fwd", "flash_bwd", "wkv6_fwd", "wkv6_bwd")},
+        flops=tot.flops, hbm_bytes=tot.hbm_bytes,
+        peak_bytes=trace.peak_bytes,
+        param_bytes=sum(p.numel() * p.element_size()
+                        for p in leaves(param_tree(cell["model"]))),
+        argument_bytes=cell["argument_bytes"])
+
+
+def dryrun_same(arch, kind, seq, batch, device):
+    """The cell at :data:`DRYRUN_CUT_LAYERS` layers traced on meta tensors
+    and under ``FakeTensorMode`` on ``device`` (the card's type) -> where
+    the two traces first differ (their device ops one by one: name,
+    operand shapes, FLOPs, bytes; then the peak and the argument bytes;
+    None: nowhere), the device ops, the host ops of each, and the two
+    traces' seconds."""
+    meta, t_meta = _dryrun_cell(arch, kind, seq, batch, "meta",
+                                DRYRUN_CUT_LAYERS)
+    fake, t_fake = _dryrun_cell(arch, kind, seq, batch, device,
+                                DRYRUN_CUT_LAYERS)
+    m, f = meta["trace"], fake["trace"]
+    # a CPU tensor's op is the host's (under remat, checkpoint copies the
+    # CUDA generator's state on the host where the process holds CUDA)
+    m_ops, f_ops = ([op for op in t.ops if op.device != "cpu"]
+                    for t in (m, f))
+    diff = None
+    for i, (a, b) in enumerate(zip(m_ops, f_ops)):
+        if (a.name, a.shapes, a.flops, a.bytes) != (b.name, b.shapes,
+                                                    b.flops, b.bytes):
+            diff = f"op {i}: {a.name} {a.shapes} against {b.name} {b.shapes}"
+            break
+    if diff is None and len(m_ops) != len(f_ops):
+        diff = f"{len(m_ops)} ops against {len(f_ops)}"
+    if diff is None and (m.peak_bytes, meta["argument_bytes"]) != (
+            f.peak_bytes, fake["argument_bytes"]):
+        diff = (f"peak {m.peak_bytes} against {f.peak_bytes}, arguments "
+                f"{meta['argument_bytes']} against {fake['argument_bytes']}")
+    return dict(diff=diff, ops=len(m_ops), meta_s=t_meta, fake_s=t_fake,
+                host_ops=[len(m.ops) - len(m_ops), len(f.ops) - len(f_ops)])
+
+
+#: the dry run's cells: the train cells and qwen2-1.5b's serve prefill
+DRYRUN_CELLS = ([(a, "train", TRAIN_SEQ, TRAIN_BATCH) for a in TRAIN_ARCHS]
+                + [("qwen2-1.5b", "prefill", SERVE_KW["prompt_len"],
+                    SERVE_KW["batch"])])
+
+
+def dryrun_phase(dev):
+    """The dry run's traces of :data:`DRYRUN_CELLS` on meta tensors, then
+    each cell cut to :data:`DRYRUN_CUT_LAYERS` layers on meta and on fake
+    tensors of ``dev``'s type (gated: the same trace), all in this
+    process, whose imports are warm; held against :data:`MEASURED`
+    (gated where the train and models phases ran; otherwise the launches
+    against the configs' counts and the rest printed); the whole phase
+    within :data:`DRYRUN_LIMIT_S` -> {cell: what was traced and
+    compared}."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    rows = [dryrun_trace(*c) for c in DRYRUN_CELLS]
+    whole_s = time.perf_counter() - t_phase
+    sames = [dryrun_same(*c, dev.type) for c in DRYRUN_CELLS]
+    traces_s = time.perf_counter() - t_phase
+    log(f"dryrun: the traces took {traces_s:.1f} s (the whole cells "
+        f"{whole_s:.1f} s, then the cut comparisons)")
+    out = {}
+    for (arch, kind, seq, _batch), row, sm in zip(DRYRUN_CELLS, rows, sames):
+        cfg = get_config(arch)
+        calls = row["calls"]
+        roof_ms = max(row["flops"] / BF16_OPS_PER_S,
+                      row["hbm_bytes"] / HBM_BYTES_PER_S) * 1e3
+        row.update(kind=kind, roofline_ms=roof_ms, cut_same=sm)
+        key = f"{cfg.name} {kind}"
+        out[key] = row
+        log(f"dryrun {key} at {DRYRUN_CUT_LAYERS} layers: meta "
+            f"{sm['meta_s']:.1f} s, fake {dev.type} {sm['fake_s']:.1f} s, "
+            f"{sm['ops']} ops on the device (host ops {sm['host_ops'][0]} "
+            f"and {sm['host_ops'][1]}), " + (
+                "the same trace" if sm["diff"] is None else
+                f"first difference: {sm['diff']}"))
+        check(sm["diff"] is None, f"dryrun {key}: the meta trace differs "
+              f"from the fake {dev.type} one at {DRYRUN_CUT_LAYERS} layers: "
+              f"{sm['diff']}")
+        wkv = cfg.family == "ssm"
+        fwd, bwd = ("wkv6_fwd", "wkv6_bwd") if wkv else ("flash_fwd",
+                                                         "flash_bwd")
+        log(f"dryrun {key}: traced in {row['trace_s']:.1f} s on meta, "
+            f"{row['ops']} ops; custom-op calls {calls}; parameters "
+            f"{row['param_bytes']} B, arguments {row['argument_bytes']} B, "
+            f"peak {row['peak_bytes'] / 1e9:.3f} GB; {row['flops']:.4e} "
+            f"FLOP, {row['hbm_bytes']:.4e} B; roofline {roof_ms:.1f} ms "
+            f"(max of FLOPs at 989 TFLOP/s and bytes at 3.35 TB/s)")
+        if kind == "prefill":
+            want = MEASURED.get(("prefill", cfg.name))
+            src = "the models phase's launches"
+            if want is None:
+                want, src = sum(k5_calls(cfg, seq).values()), \
+                    "the config's count (the models phase did not run)"
+            check(calls == dict(flash_fwd=want, flash_bwd=0, wkv6_fwd=0,
+                                wkv6_bwd=0),
+                  f"dryrun {key}: calls {calls}, {src} {want}")
+            log(f"dryrun {key}: K5 calls {calls['flash_fwd']} = {src} "
+                f"{want}")
+            continue
+        m = MEASURED.get(("train", cfg.name))
+        steps = cfg.n_layers * TRAIN_ACCUM
+        want_f, want_b = (m["fwd"], m["bwd"]) if m else (2 * steps, steps)
+        other = ("flash_fwd", "flash_bwd") if wkv else ("wkv6_fwd",
+                                                        "wkv6_bwd")
+        check(calls[fwd] == want_f and calls[bwd] == want_b
+              and not any(calls[n] for n in other),
+              f"dryrun {key}: calls {calls}, the card launched forward "
+              f"{want_f} and backward {want_b} a step")
+        if m is None:
+            log(f"dryrun {key}: parameters, peak and FLOPs not gated (the "
+                f"train phase did not run)")
+            continue
+        ratio = row["peak_bytes"] / m["peak_bytes"]
+        flop_ratio = row["flops"] / m["model_flops"]
+        row.update(measured_peak_bytes=m["peak_bytes"], peak_ratio=ratio,
+                   held_before_bytes=m["held_bytes"],
+                   model_flops=m["model_flops"], flop_ratio=flop_ratio,
+                   measured_ms=m["step_ms"])
+        log(f"dryrun {key}: calls forward {calls[fwd]} / backward "
+            f"{calls[bwd]} = the card's {want_f} / {want_b} a step; "
+            f"parameters {row['param_bytes']} B (card {m['param_bytes']} "
+            f"B); peak {row['peak_bytes'] / 1e9:.3f} GB predicted, "
+            f"{m['peak_bytes'] / 1e9:.3f} GB the cell's own on the card "
+            f"({m['held_bytes'] / 1e9:.3f} GB held before it; ratio "
+            f"{ratio:.4f}); FLOPs {row['flops']:.4e} traced, "
+            f"{m['model_flops']:.4e} model (ratio {flop_ratio:.4f}); "
+            f"roofline {roof_ms:.1f} ms, measured "
+            + ", ".join(f"{t:.1f}" for t in m["step_ms"]) + " ms a step")
+        check(row["param_bytes"] == m["param_bytes"],
+              f"dryrun {key}: parameter bytes {row['param_bytes']} != the "
+              f"card's {m['param_bytes']}")
+        check(abs(ratio - 1) <= DRYRUN_PEAK_RTOL,
+              f"dryrun {key}: peak {row['peak_bytes']} against the card's "
+              f"{m['peak_bytes']} (ratio {ratio:.4f})")
+        check(DRYRUN_FLOP_RATIO[0] <= flop_ratio <= DRYRUN_FLOP_RATIO[1],
+              f"dryrun {key}: traced FLOPs {row['flops']:.4e} are "
+              f"{flop_ratio:.4f}x the model count {m['model_flops']:.4e}")
+    elapsed = time.perf_counter() - t_phase
+    log(f"dryrun phase: {elapsed:.1f} s (limit {DRYRUN_LIMIT_S:.0f} s)")
+    log(json.dumps({"dryrun": dict(cells=out, seconds=elapsed,
+                                   traces_s=traces_s)}))
+    check(elapsed <= DRYRUN_LIMIT_S,
+          f"dryrun phase took {elapsed:.1f} s (limit {DRYRUN_LIMIT_S:.0f} s)")
+    return out
+
+
+# -- phase 11: the distributed layer through the rules ----------------------
 
 #: the meshed train steps of each model (each against as many un-meshed
 #: ones built from the same seed), and rwkv6-3b's cut for this phase
@@ -4346,10 +4586,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="kernels,allocator,des,serve,gang,models,fill,"
-                    "mesh,train,dist",
+                    "mesh,train,dryrun,dist",
                     help="comma list of kernels, allocator, des, serve, gang, "
-                    "models, fill, mesh, train, dist, and chunks (a sweep of "
-                    "the epoch loop's chunk size; not a default phase)")
+                    "models, fill, mesh, train, dryrun, dist, and chunks (a "
+                    "sweep of the epoch loop's chunk size; not a default "
+                    "phase)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -4450,6 +4691,8 @@ def main(argv=None):
             f"{time.perf_counter() - t0:.1f} s")
         for name, n in {**train_bwd, **train_fwd}.items():
             check(n > 0, f"the train path never launched {name}")
+    if "dryrun" in phases:
+        dryrun_phase(dev)
     dist_launches = {}
     if "dist" in phases:
         t0 = time.perf_counter()

@@ -359,3 +359,113 @@ def run_local(fn: Callable, inputs: Sequence, out_specs: Sequence):
         pl = placements(rules.pspec(axes, shape, mesh), mesh)
         wrapped.append(DTensor.from_local(o, mesh, pl, run_check=False))
     return wrapped[0] if single else tuple(wrapped)
+
+
+# -- reshapes of sharded tensors ---------------------------------------------
+
+def _view_groups(src: Sequence[int], dst: Sequence[int]) -> list:
+    """The dims of ``src`` and ``dst`` that a reshape maps onto each other:
+    ``[(src dims, dst dims)]``, each pair of equal size."""
+    groups, i, j = [], 0, 0
+    while i < len(src) or j < len(dst):
+        a, b = [i], [j]
+        pa = src[i] if i < len(src) else 1
+        pb = dst[j] if j < len(dst) else 1
+        i, j = i + 1, j + 1
+        while pa != pb:
+            if pa < pb:
+                a.append(i)
+                pa *= src[i]
+                i += 1
+            else:
+                b.append(j)
+                pb *= dst[j]
+                j += 1
+        groups.append(([d for d in a if d < len(src)],
+                       [d for d in b if d < len(dst)]))
+    return groups
+
+
+def viewable(x: DTensor, shape: Sequence[int]) -> DTensor:
+    """``x`` with every shard that DTensor could not carry through a
+    reshape to ``shape`` gathered: a dim may stay sharded where it leads
+    its group of merged dims and its shards split the group's leading
+    target dim evenly (12 heads of 128 flattened to 1536 may not be split
+    16 ways and then unflattened)."""
+    mesh, src = x.device_mesh, tuple(x.shape)
+    pl = list(x.placements)
+    lead = {}
+    for a, b in _view_groups(src, tuple(shape)):
+        big = [d for d in a if src[d] > 1]
+        for d in a:
+            lead[d] = (big and d == big[0], shape[b[0]] if b else 1)
+    counts = {}
+    for i, p in enumerate(pl):
+        if not isinstance(p, Shard):
+            continue
+        d = p.dim % len(src)
+        ok, first = lead.get(d, (False, 1))
+        n = counts.get(d, 1) * mesh.size(i)
+        if ok and first % n == 0:
+            counts[d] = n
+        else:
+            pl[i] = Replicate()
+    return redistribute(x, mesh, pl)
+
+
+class _Reshape(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shape):
+        ctx.shape = tuple(x.shape)
+        return viewable(x, shape).reshape(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor):
+            g = viewable(g, ctx.shape)
+        return g.reshape(ctx.shape), None
+
+
+def reshape(x, shape: Sequence[int]):
+    """``x.reshape(shape)``; a DTensor whose shards the reshape cannot
+    carry is gathered where it must be first (:func:`viewable`), in the
+    forward and, for its gradient, in the backward."""
+    if not isinstance(x, DTensor):
+        return x.reshape(shape)
+    shape = tuple(int(s) for s in shape)
+    if -1 in shape:
+        known = 1
+        for s_ in shape:
+            known *= s_ if s_ != -1 else 1
+        shape = tuple(x.numel() // known if s_ == -1 else s_ for s_ in shape)
+    return _Reshape.apply(x, shape)
+
+
+def from_shard(shape: Sequence[int], pl: Sequence, mesh: DeviceMesh,
+               make: Callable) -> DTensor:
+    """A DTensor of global ``shape`` and placements ``pl`` on ``mesh``
+    whose local shard is ``make(local shape)``: this rank's block alone is
+    made, never the whole tensor (the rules shard only what divides)."""
+    shape = tuple(int(d) for d in shape)
+    local = list(shape)
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard):
+            local[p.dim] //= mesh.size(i)
+    return DTensor.from_local(
+        make(local), mesh, tuple(pl), run_check=False,
+        shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
+
+
+def zeros(shape: Sequence[int], dtype, logical_axes: tuple, device):
+    """Zeros of ``shape``: under :func:`use_mesh_rules` on a ``DeviceMesh``
+    a DTensor of the placements ``logical_axes`` resolve to, made from this
+    rank's shard alone (:func:`from_shard`: a cache the ranks split is
+    never held whole); elsewhere a plain tensor."""
+    ctx = _CTX.get()
+    if ctx is None or not isinstance(ctx[0], DeviceMesh):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    mesh, rules = ctx
+    pl = placements(rules.pspec(logical_axes, tuple(shape), mesh), mesh)
+    return from_shard(shape, pl, mesh, lambda local: torch.zeros(
+        local, dtype=dtype, device=device))

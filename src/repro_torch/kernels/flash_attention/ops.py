@@ -42,19 +42,32 @@ version.  ``flash_attention.bwd_launches`` counts backward calls on the
 card and ``flash_attention.bwd_variant_launches`` counts them by variant;
 :func:`bwd_tolerance` states how far each kernel's gradients may lie from
 the plain version's.
+
+Both directions are PyTorch custom ops, ``repro_torch::flash_fwd`` and
+``repro_torch::flash_bwd`` (:func:`flash_fwd`, :func:`flash_bwd`): their
+CUDA implementations are the launches above, their CPU implementations the
+plain versions, and their fake implementations give the outputs' shapes,
+types and strides without computing, so that a trace under
+``FakeTensorMode`` (the dry run, :mod:`repro_torch.launch.dryrun`) holds
+K5's calls.  :func:`fwd_flops` and :func:`bwd_flops` are their FLOP
+formulas, registered with ``torch.utils.flop_counter``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from pathlib import Path
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch import _build
-from repro_torch.kernels import KernelError
+from repro_torch.kernels import KernelError, route_devices, row_major
 from repro_torch.kernels.flash_attention.ref import (BQ_LSE,
                                                     flash_attention_bwd_ref,
+                                                    flash_attention_lse_ref,
                                                     flash_attention_ref)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -196,17 +209,150 @@ def bwd_tolerance(variant_name: str, dtype: torch.dtype) -> float:
             torch.float16: 2.0 ** -10}[dtype]
 
 
-def _forward(q, k, v, causal, window):
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+def _check_device(name, *ts) -> None:
+    """Raise unless every tensor lies on the CPU or on CUDA (a fake CUDA
+    tensor of a trace counts as CUDA; meta tensors pass inside
+    :func:`repro_torch.kernels.meta_route`): any other device is refused
+    before the op is called."""
+    if any(t.device.type not in ("cpu", *route_devices()) for t in ts):
+        raise KernelError(f"{name}: needs CPU or CUDA tensors, one CUDA "
+                          f"device (got "
+                          + ", ".join(str(t.device) for t in ts) + ")")
+
+
+#: K5's and K6's custom ops (``torch.library``), defined with their schemas
+#: and implemented for the CPU and CUDA dispatch keys directly: no Python
+#: autograd layer sits between a call and its kernel, as one would with
+#: ``torch.library.custom_op`` (K5 and K6 carry their own autograd
+#: Functions)
+LIB = torch.library.Library("repro_torch", "FRAGMENT")
+LIB.define("flash_fwd(Tensor q, Tensor k, Tensor v, bool causal, int window, "
+           "bool with_lse) -> (Tensor, Tensor)")
+LIB.define("flash_bwd(Tensor q, Tensor k, Tensor v, Tensor out, Tensor dout, "
+           "Tensor? lse, bool causal, int window) -> (Tensor, Tensor, Tensor)")
+
+
+def _lse_rows(S: int) -> int:
+    return -(-S // BQ_LSE) * BQ_LSE
+
+
+def _no_lse(q):
+    return q.new_empty((0,), dtype=torch.float32)
+
+
+def _flash_fwd_cpu(q, k, v, causal, window, with_lse):
+    out = row_major(flash_attention_ref(q, k, v, causal=causal,
+                                        window=window))
+    if not with_lse:
+        return out, _no_lse(q)
+    B, S, H, _ = q.shape
+    lse = torch.full((B, H, _lse_rows(S)), math.inf, dtype=torch.float32)
+    lse[..., :S] = flash_attention_lse_ref(q, k, v, causal=causal,
+                                           window=window)
+    return out, lse
+
+
+def _flash_fwd_cuda(q, k, v, causal, window, with_lse):
+    if with_lse:
+        return launch("flash_tc", q, k, v, causal=causal, window=window,
+                      with_lse=True)
     return launch(variant(q.dtype, q.shape[-1], v.shape[-1]), q, k, v,
-                  causal=causal, window=window)
+                  causal=causal, window=window), _no_lse(q)
+
+
+@torch.library.register_fake("repro_torch::flash_fwd")
+def _flash_fwd_fake(q, k, v, causal, window, with_lse):
+    B, S, H, _ = q.shape
+    out = q.new_empty((B, S, H, v.shape[-1]))
+    if not with_lse:
+        return out, _no_lse(q)
+    return out, q.new_empty((B, H, _lse_rows(S)), dtype=torch.float32)
+
+
+def _flash_bwd_cpu(q, k, v, out, dout, lse, causal, window):
+    return tuple(row_major(t) for t in flash_attention_bwd_ref(
+        q, k, v, out, dout, causal=causal, window=window))
+
+
+def _flash_bwd_cuda(q, k, v, out, dout, lse, causal, window):
+    return bwd_launch(bwd_variant(q.dtype, q.shape[-1], v.shape[-1]), q, k,
+                      v, out, dout, causal=causal, window=window, lse=lse)
+
+
+@torch.library.register_fake("repro_torch::flash_bwd")
+def _flash_bwd_fake(q, k, v, out, dout, lse, causal, window):
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            torch.empty_like(k, memory_format=torch.contiguous_format),
+            torch.empty_like(v, memory_format=torch.contiguous_format))
+
+
+LIB.impl("flash_fwd", _flash_fwd_cpu, "CPU")
+LIB.impl("flash_fwd", _flash_fwd_cuda, "CUDA")
+LIB.impl("flash_bwd", _flash_bwd_cpu, "CPU")
+LIB.impl("flash_bwd", _flash_bwd_cuda, "CUDA")
+
+#: ``repro_torch::flash_fwd(q, k, v, causal, window, with_lse)`` -> (out
+#: (B,S,H,DV) in q's type, lse): K5's forward.  CUDA: the kernel
+#: :func:`variant` names, or ``flash_tc.cu`` with its log-sum-exp where
+#: ``with_lse`` (lse then (B, H, S rounded up to :data:`.ref.BQ_LSE`) f32,
+#: else empty (0,)).  CPU: the plain versions.  Fake: the shapes.
+flash_fwd = torch.ops.repro_torch.flash_fwd.default
+#: ``repro_torch::flash_bwd(q, k, v, out, dout, lse, causal, window)`` ->
+#: (dq, dk, dv) in the inputs' types: K5's backward.  CUDA: the kernel
+#: :func:`bwd_variant` names (``flash_bwd_tc`` reads ``lse``).  CPU: the
+#: plain backward (``lse`` unread).  Fake: the shapes.
+flash_bwd = torch.ops.repro_torch.flash_bwd.default
+
+
+@functools.lru_cache(maxsize=4096)
+def visible_pairs(S: int, T: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs a head that the mask lets through: key t is
+    visible to query s when ``t <= s`` (if causal) and ``s - t < window``
+    (if window > 0), as :func:`.ref.attention_mask` states it."""
+    s = np.arange(S, dtype=np.int64)
+    hi = np.minimum(s, T - 1) if causal else np.full(S, T - 1)
+    lo = np.maximum(s - window + 1, 0) if window > 0 else np.zeros(S, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def fwd_flops(q_shape, k_shape, v_shape, causal: bool, window: int) -> int:
+    """K5's forward FLOPs, as PERF.md's bound counts them: the two products
+    (scores and PV) over the visible pairs, ``B·H·pairs·2·(D + DV)``."""
+    B, S, H, D = q_shape
+    return B * H * visible_pairs(S, k_shape[1], causal, window) * 2 * (
+        D + v_shape[-1])
+
+
+def bwd_flops(q_shape, k_shape, v_shape, causal: bool, window: int) -> int:
+    """K5's backward FLOPs, as PERF.md's bound counts them: the scores
+    again, dP = dO V^T, dV = P^T dO, dQ = dS K and dK = dS^T Q over the
+    visible pairs, ``2·B·H·pairs·(3D + 2DV)``."""
+    B, S, H, D = q_shape
+    return 2 * B * H * visible_pairs(S, k_shape[1], causal, window) * (
+        3 * D + 2 * v_shape[-1])
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_fwd)
+def _flash_fwd_flop(q_shape, k_shape, v_shape, causal, window, with_lse,
+                    *args, **kwargs) -> int:
+    return fwd_flops(q_shape, k_shape, v_shape, causal, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_bwd)
+def _flash_bwd_flop(q_shape, k_shape, v_shape, o_shape, do_shape,
+                    lse_shape, causal, window, *args, **kwargs) -> int:
+    return bwd_flops(q_shape, k_shape, v_shape, causal, window)
+
+
+def _forward(q, k, v, causal, window):
+    _check_device("flash_attention", q, k, v)
+    return flash_fwd(q, k, v, causal, window, False)[0]
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K5 under autograd: the forward's dispatch (on the card with the
+    """K5 under autograd: the forward op (on the card with the
     log-sum-exp where the backward's rule picks ``flash_bwd_tc``), and the
-    backward kernel (its plain version on the CPU) for the gradient."""
+    backward op (its plain version on the CPU) for the gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
@@ -214,10 +360,9 @@ class _FlashAttention(torch.autograd.Function):
         if (q.device.type != "cpu"
                 and bwd_variant(q.dtype, q.shape[-1], v.shape[-1])
                 == "flash_bwd_tc"):
-            out, lse = launch("flash_tc", q, k, v, causal=causal,
-                              window=window, with_lse=True)
+            out, lse = flash_fwd(q, k, v, causal, window, True)
         else:
-            out = _forward(q, k, v, causal, window)
+            out = flash_fwd(q, k, v, causal, window, False)[0]
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = (causal, window)
         return out
@@ -240,10 +385,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     f16 with DV = D in (16, 32, 64, 128, 256), or bf16 / f16 at (D, DV) =
     (192, 128), on the kernel that :func:`variant` names.  Under autograd
     the gradient of q, k and v comes from :func:`flash_attention_bwd`."""
+    _check_device("flash_attention", q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, window)
-    return _forward(q, k, v, causal, window)
+    return flash_fwd(q, k, v, causal, window, False)[0]
 
 
 def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
@@ -256,11 +402,8 @@ def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
     plain version.  ``lse``: the forward's log-sum-exp
     (``launch("flash_tc", ..., with_lse=True)``), which ``flash_bwd_tc``
     needs and ``flash_bwd`` does not read."""
-    if q.device.type == "cpu":
-        return flash_attention_bwd_ref(q, k, v, out, dout, causal=causal,
-                                       window=window)
-    return bwd_launch(bwd_variant(q.dtype, q.shape[-1], v.shape[-1]), q, k,
-                      v, out, dout, causal=causal, window=window, lse=lse)
+    _check_device("flash_attention_bwd", q, k, v, out, dout)
+    return flash_bwd(q, k, v, out, dout, lse, causal, window)
 
 
 def bwd_launch(variant_name: str, q, k, v, out, dout, *, causal: bool = True,

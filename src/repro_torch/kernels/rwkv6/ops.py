@@ -19,6 +19,15 @@ pass whose factored decays run on split-TF32 tensor cores, du) that read
 the forward's scratch, which then holds each chunk's starting state and
 which the Function keeps.  No call on CUDA gives way to
 a plain version; ``wkv6.bwd_launches`` counts backward calls on the card.
+
+Both directions are PyTorch custom ops, ``repro_torch::wkv6_fwd`` and
+``repro_torch::wkv6_bwd`` (:func:`wkv6_fwd`, :func:`wkv6_bwd_op`): their
+CUDA implementations are the launches above, their CPU implementations the
+plain versions, and their fake implementations give the outputs' shapes
+without computing (the forward's each chunk's starting state too, which
+the backward reads), so that a trace under ``FakeTensorMode`` holds K6's
+calls.  :func:`fwd_flops` and :func:`bwd_flops` are their operation counts,
+registered with ``torch.utils.flop_counter``.
 """
 from __future__ import annotations
 
@@ -26,10 +35,11 @@ import ctypes
 from pathlib import Path
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch import _build
-from repro_torch.kernels import KernelError
-from repro_torch.kernels.rwkv6.ref import wkv6_bwd_ref, wkv6_ref
+from repro_torch.kernels import KernelError, route_devices, row_major
+from repro_torch.kernels.rwkv6.ref import _work_type, wkv6_bwd_ref, wkv6_ref
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "wkv6.cu"
@@ -65,11 +75,13 @@ def bwd_library() -> ctypes.CDLL:
     return _load(BWD_SOURCE, "wkv6_bwd", 17)
 
 
-def _check(r, k, v, logw, u, state0, chunk) -> None:
-    """Raise unless the inputs are in the CUDA kernels' contract."""
+def _check(r, k, v, logw, u, state0, chunk, devices=("cuda",)) -> None:
+    """Raise unless the inputs are in the CUDA kernels' contract, on one
+    device of a type in ``devices`` (the ops' route: :func:`repro_torch.
+    kernels.route_devices`)."""
     ins = (r, k, v, logw, u) + (() if state0 is None else (state0,))
     dev = r.device
-    if dev.type != "cuda" or any(t.device != dev for t in ins):
+    if dev.type not in devices or any(t.device != dev for t in ins):
         raise KernelError("wkv6: inputs must share one CUDA device (got "
                           + ", ".join(str(t.device) for t in ins) + ")")
     if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, logw)):
@@ -116,19 +128,114 @@ def _launch(r, k, v, logw, u, state0, chunk):
     return y, s_end, inc
 
 
+# K6's custom ops, beside K5's in the same library (see
+# :data:`repro_torch.kernels.flash_attention.ops.LIB`)
+LIB = torch.library.Library("repro_torch", "FRAGMENT")
+LIB.define("wkv6_fwd(Tensor r, Tensor k, Tensor v, Tensor logw, Tensor u, "
+           "Tensor? state0, int chunk) -> (Tensor, Tensor, Tensor)")
+LIB.define("wkv6_bwd(Tensor r, Tensor k, Tensor v, Tensor logw, Tensor u, "
+           "Tensor dy, Tensor? state0, Tensor? ds_end, Tensor starts, "
+           "int chunk) -> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)")
+
+
+def _wkv6_fwd_cpu(r, k, v, logw, u, state0, chunk):
+    return tuple(row_major(t) for t in wkv6_ref(
+        r, k, v, logw, u, chunk=chunk, state0=state0, starts=True))
+
+
+def _wkv6_fwd_cuda(r, k, v, logw, u, state0, chunk):
+    return _launch(r, k, v, logw, u, state0, chunk)
+
+
+@torch.library.register_fake("repro_torch::wkv6_fwd")
+def _wkv6_fwd_fake(r, k, v, logw, u, state0, chunk):
+    B, S, H, D = r.shape
+    f32 = _work_type(r)
+    return (r.new_empty((B, S, H, D), dtype=f32),
+            r.new_empty((B, H, D, D), dtype=f32),
+            r.new_empty((B, H, -(-S // chunk), D, D), dtype=f32))
+
+
+def _wkv6_bwd_cpu(r, k, v, logw, u, dy, state0, ds_end, starts, chunk):
+    return tuple(row_major(t) for t in wkv6_bwd_ref(
+        r, k, v, logw, u, dy, chunk=chunk, state0=state0, ds_end=ds_end))
+
+
+def _wkv6_bwd_cuda(r, k, v, logw, u, dy, state0, ds_end, starts, chunk):
+    return bwd_launch(r, k, v, logw, u, dy, chunk=chunk, state0=state0,
+                      ds_end=ds_end, starts=starts)
+
+
+@torch.library.register_fake("repro_torch::wkv6_bwd")
+def _wkv6_bwd_fake(r, k, v, logw, u, dy, state0, ds_end, starts, chunk):
+    B, S, H, D = r.shape
+    f32 = _work_type(r)
+    return (*(r.new_empty((B, S, H, D), dtype=f32) for _ in range(4)),
+            r.new_empty((H, D), dtype=f32),
+            r.new_empty((B, H, D, D), dtype=f32))
+
+
+LIB.impl("wkv6_fwd", _wkv6_fwd_cpu, "CPU")
+LIB.impl("wkv6_fwd", _wkv6_fwd_cuda, "CUDA")
+LIB.impl("wkv6_bwd", _wkv6_bwd_cpu, "CPU")
+LIB.impl("wkv6_bwd", _wkv6_bwd_cuda, "CUDA")
+
+#: ``repro_torch::wkv6_fwd(r, k, v, logw, u, state0, chunk)`` on f32
+#: tensors -> (y (B,S,H,D), the final state (B,H,D,D), each chunk's
+#: starting state (B,H,nC,D,D)): K6's forward.  CUDA: ``wkv6.cu``'s
+#: launches (the starting states are their scratch).  CPU: the plain
+#: version.  Fake: the shapes.
+wkv6_fwd = torch.ops.repro_torch.wkv6_fwd.default
+#: ``repro_torch::wkv6_bwd(r, k, v, logw, u, dy, state0, ds_end, starts,
+#: chunk)`` on f32 tensors -> (dr, dk, dv, dlogw, du, dstate0): K6's
+#: backward.  CUDA: ``wkv6_bwd.cu``, which reads ``starts``, the forward
+#: op's starting states.  CPU: the plain backward (``starts`` unread).
+#: Fake: the shapes.
+wkv6_bwd_op = torch.ops.repro_torch.wkv6_bwd.default
+
+
+def fwd_flops(B: int, S: int, H: int, D: int, chunk: int = 64) -> int:
+    """K6's forward f32 operations, as PERF.md's bound counts them: a chunk
+    of C tokens takes the intra-chunk scores (difference, exp, two products
+    and a sum a pair and channel), their product with v, and the two (C, D)
+    x (D, D) products of the state."""
+    C, nC = chunk, -(-S // chunk)
+    return B * H * nC * (4 * (C * (C - 1) // 2) * D + 2 * C * C * D
+                         + 4 * C * D * D)
+
+
+def bwd_flops(B: int, S: int, H: int, D: int, chunk: int = 64) -> int:
+    """K6's backward f32 operations, as PERF.md's bound counts them: a
+    chunk of C tokens (P pairs) takes the scores (9 a pair and channel with
+    d_att, att^T dy and the decays' products), dr' and dk'' through the
+    decays (4 a pair or token and channel), the four (C, D) x (D, D)
+    products of the state's shares and the adjoint's update."""
+    C, nC = chunk, -(-S // chunk)
+    P = C * (C - 1) // 2
+    return B * H * nC * (9 * P * D + 4 * (P + C) * D + 8 * C * D * D
+                         + 2 * D * D)
+
+
+@register_flop_formula(torch.ops.repro_torch.wkv6_fwd)
+def _wkv6_fwd_flop(r_shape, *args, **kwargs) -> int:
+    chunk = args[5] if len(args) > 5 else kwargs["chunk"]
+    return fwd_flops(*r_shape, chunk=chunk)
+
+
+@register_flop_formula(torch.ops.repro_torch.wkv6_bwd)
+def _wkv6_bwd_flop(r_shape, *args, **kwargs) -> int:
+    chunk = args[8] if len(args) > 8 else kwargs["chunk"]
+    return bwd_flops(*r_shape, chunk=chunk)
+
+
 class _WKV6(torch.autograd.Function):
-    """K6 under autograd on f32 inputs: the forward's dispatch (on the card
-    keeping each chunk's starting state), and :func:`wkv6_bwd` for the
-    gradient."""
+    """K6 under autograd on f32 inputs: the forward op (keeping each
+    chunk's starting state), and :func:`wkv6_bwd` for the gradient."""
 
     @staticmethod
     def forward(ctx, r, k, v, logw, u, state0, chunk):
         ctx.set_materialize_grads(False)
-        if r.device.type == "cpu":
-            y, s_end = wkv6_ref(r, k, v, logw, u, chunk=chunk, state0=state0)
-            starts = None
-        else:
-            y, s_end, starts = _launch(r, k, v, logw, u, state0, chunk)
+        y, s_end, starts = wkv6_fwd(r, k, v, logw, u, state0, chunk)
         ctx.save_for_backward(r, k, v, logw, u, state0, starts)
         ctx.chunk = chunk
         return y, s_end
@@ -155,16 +262,14 @@ def wkv6(r, k, v, logw, u, *, chunk: int = 64, state0=None):
     ins = (r, k, v, logw, u) + (() if state0 is None else (state0,))
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in ins)
     if r.device.type != "cpu":
-        _check(r, k, v, logw, u, state0, chunk)
+        _check(r, k, v, logw, u, state0, chunk, route_devices())
     f32 = torch.float32
     r, k, v, logw, u = (t.to(f32) for t in (r, k, v, logw, u))
     if state0 is not None:
         state0 = state0.to(f32)
     if grad:
         return _WKV6.apply(r, k, v, logw, u, state0, chunk)
-    if r.device.type == "cpu":
-        return wkv6_ref(r, k, v, logw, u, chunk=chunk, state0=state0)
-    return _launch(r, k, v, logw, u, state0, chunk)[:2]
+    return wkv6_fwd(r, k, v, logw, u, state0, chunk)[:2]
 
 
 def wkv6_bwd(r, k, v, logw, u, dy, *, chunk: int = 64, state0=None,
@@ -172,14 +277,20 @@ def wkv6_bwd(r, k, v, logw, u, dy, *, chunk: int = 64, state0=None,
     """The gradient of :func:`wkv6` at ``(r, k, v, logw, u, state0)`` for
     the cotangents ``dy`` of y and ``ds_end`` of the final state (None:
     zero) -> ``(dr, dk, dv, dlogw, du, dstate0)`` f32.  CPU tensors: the
-    plain version (``starts`` unused).  CUDA tensors: ``csrc/wkv6_bwd.cu``,
-    which needs ``starts``, each chunk's starting state as the forward
-    launch leaves it; nothing gives way to the plain version."""
-    if r.device.type == "cpu":
-        return wkv6_bwd_ref(r, k, v, logw, u, dy, chunk=chunk, state0=state0,
-                            ds_end=ds_end)
-    return bwd_launch(r, k, v, logw, u, dy, chunk=chunk, state0=state0,
-                      ds_end=ds_end, starts=starts)
+    plain version (``starts`` unread; without it the plain version is
+    called directly).  CUDA tensors: ``csrc/wkv6_bwd.cu``, which needs
+    ``starts``, each chunk's starting state as the forward op leaves it;
+    nothing gives way to the plain version."""
+    if starts is None:
+        if r.device.type == "cpu":
+            return wkv6_bwd_ref(r, k, v, logw, u, dy, chunk=chunk,
+                                state0=state0, ds_end=ds_end)
+        # refused by the launch's own checks (the states are its input)
+        return bwd_launch(r, k, v, logw, u, dy, chunk=chunk, state0=state0,
+                          ds_end=ds_end)
+    if r.device.type != "cpu":
+        _check(r, k, v, logw, u, state0, chunk, route_devices())
+    return wkv6_bwd_op(r, k, v, logw, u, dy, state0, ds_end, starts, chunk)
 
 
 def bwd_launch(r, k, v, logw, u, dy, *, chunk: int = 64, state0=None,

@@ -39,9 +39,12 @@ def _chunks(t, chunk):
     return t.reshape(B, (S + pad) // chunk, chunk, H, D)
 
 
-def wkv6_ref(r, k, v, logw, u, *, chunk: int = 64, state0=None):
+def wkv6_ref(r, k, v, logw, u, *, chunk: int = 64, state0=None,
+             starts: bool = False):
     """r/k/v/logw: (B,S,H,D); u: (H,D); state0: (B,H,D,D) or None ->
-    (y (B,S,H,D) f32, state (B,H,D,D) f32); f64 inputs stay f64."""
+    (y (B,S,H,D) f32, state (B,H,D,D) f32); f64 inputs stay f64.
+    ``starts``: also each chunk's starting state (B,H,nC,D,D), as
+    ``csrc/wkv6.cu`` leaves them for its backward."""
     B, S, H, D = r.shape
     f32 = _work_type(r)
     rc, kc, vc, wc = (_chunks(t, chunk) for t in (r, k, v, logw))
@@ -51,8 +54,10 @@ def wkv6_ref(r, k, v, logw, u, *, chunk: int = 64, state0=None):
          if state0 is None else state0.to(f32))
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=r.device), -1)[:, :, None, None]
-    ys = []
+    ys, kept = [], []
     for n in range(nC):
+        if starts:
+            kept.append(s)
         rn, kn, vn, wn = rc[:, n], kc[:, n], vc[:, n], wc[:, n]  # (B,c,H,D)
         cum = torch.cumsum(wn, dim=1)                            # inclusive
         cum_prev = cum - wn                                      # exclusive
@@ -72,6 +77,8 @@ def wkv6_ref(r, k, v, logw, u, *, chunk: int = 64, state0=None):
         s = (torch.exp(total[:, 0])[..., None] * s
              + torch.einsum("bchd,bche->bhde", k_dec, vn))
     y = torch.cat(ys, dim=1)[:, :S]
+    if starts:
+        return y, s, torch.stack(kept, dim=2)
     return y, s
 
 

@@ -161,7 +161,8 @@ def make_mesh(shape: tuple, axes: tuple, device="cuda"):
     """A ``DeviceMesh`` of ``shape`` over ``axes`` on the running process
     group (the reference's ``jax.make_mesh``), ranks in row-major order.
     Raises unless a process group is running and its world size is the
-    mesh's size."""
+    mesh's size, and a CUDA mesh without a card unless the group is the
+    ``"fake"`` backend's (:mod:`repro_torch.launch.dryrun`)."""
     import math
 
     import torch.distributed as dist
@@ -176,7 +177,10 @@ def make_mesh(shape: tuple, axes: tuple, device="cuda"):
                          f"{n} ranks, the process group has "
                          f"{dist.get_world_size()}")
     kind = torch.device(device).type
-    if kind == "cuda" and not torch.cuda.is_available():
+    if (kind == "cuda" and not torch.cuda.is_available()
+            and dist.get_backend() != "fake"):
+        # a fake group (the dry run's) drives no device: its CUDA mesh
+        # only names the card's type
         raise RuntimeError("a CUDA mesh needs a CUDA card")
     return init_device_mesh(kind, tuple(shape), mesh_dim_names=tuple(axes))
 

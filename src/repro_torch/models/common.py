@@ -27,7 +27,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.distributed.sharding import (bind_rules, constrain,
                                               is_distributed, run_local,
-                                              weight_gather)
+                                              weight_gather, zeros)
 from repro_torch.nn.config import ModelConfig
 from repro_torch.nn.layers import rmsnorm, rmsnorm_template
 from repro_torch.nn.param import Params, init_params, spec
@@ -338,6 +338,29 @@ def init_model(fam, cfg: ModelConfig, generator: torch.Generator) -> Model:
     tree = init_params(fam.template(cfg), generator, dtype=cfg.pdtype())
     model = fam.build(cfg, device="meta")
     return load_reference_params(model, tree)
+
+
+def prefill_cache(fam, cfg: ModelConfig, batch: int, max_seq: int, tokens):
+    """The zero cache a prefill of ``tokens`` fills: ``fam.init_cache`` on
+    the tokens' device; under a mesh (DTensor tokens) each entry a DTensor
+    of the family's cache sharding, made from this rank's shard alone."""
+    if not is_distributed(tokens):
+        return fam.init_cache(cfg, batch, max_seq, device=tokens.device)
+    shapes = fam.init_cache(cfg, batch, max_seq, device="meta")
+    axes = fam.cache_logical_axes(cfg)
+    return {k: zeros(v.shape, v.dtype, axes[k], tokens.device)
+            for k, v in shapes.items()}
+
+
+def put_rows(entry, index: tuple, row, S: int) -> None:
+    """``entry[(*index, :, :S)] = row``: a prefill's S positions of one
+    layer's (B, T, ...) cache rows.  Where S is the whole length T the
+    layer is written whole: a DTensor cache, whose positions the ranks
+    split, takes no slice of them."""
+    if entry.shape[len(index) + 1] == S:
+        entry[index] = row
+    else:
+        entry[(*index, slice(None), slice(None, S))] = row
 
 
 def cache_batch(fam, cache) -> int:

@@ -199,7 +199,8 @@ def prefill(model, cfg: ModelConfig, tokens, max_seq=None, media=None):
     B, S = tokens.shape
     pos = _arange(S, tokens.device)
     positions = pos.expand(B, S)
-    cache = init_cache(cfg, B, max_seq or S, device=tokens.device)
+    cache = C.prefill_cache(sys.modules[__name__], cfg, B, max_seq or S,
+                            tokens)
     enc_out = encode(model, cfg, media)
     x = _embed(model, cfg, tokens, pos)
     for i, lp in enumerate(model.decoder):
@@ -211,8 +212,8 @@ def prefill(model, cfg: ModelConfig, tokens, max_seq=None, media=None):
         x = x + L.cross_attention_apply(lp["xattn"], cfg, h, enc_out, kv=kv)
         h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
         x = x + L.mlp_apply(lp["ffn"], h)
-        cache["k"][i, :, :S] = k
-        cache["v"][i, :, :S] = v
+        C.put_rows(cache["k"], (i,), k, S)
+        C.put_rows(cache["v"], (i,), v, S)
         cache["xk"][i], cache["xv"][i] = kv
     logits = C.unembed(model.embed, cfg, x[:, -1:])
     return logits, cache

@@ -138,7 +138,8 @@ def prefill(model, cfg: ModelConfig, tokens, max_seq=None, media=None):
     del media
     B, Sq = tokens.shape
     positions = C.positions(tokens)
-    cache = init_cache(cfg, B, max_seq or Sq, device=tokens.device)
+    cache = C.prefill_cache(sys.modules[__name__], cfg, B, max_seq or Sq,
+                            tokens)
     x = C.embed_tokens(model.embed, cfg, tokens)
     for i, lp in enumerate(model.layers):
         h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
@@ -149,8 +150,8 @@ def prefill(model, cfg: ModelConfig, tokens, max_seq=None, media=None):
         x = x + _combine(lp, cfg, a, s)
         hh = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
         x = x + L.mlp_apply(lp["ffn"], hh)
-        cache["k"][i, :, :Sq] = k
-        cache["v"][i, :, :Sq] = v
+        C.put_rows(cache["k"], (i,), k, Sq)
+        C.put_rows(cache["v"], (i,), v, Sq)
         cache["h"][i] = h1
         cache["conv"][i] = conv1
     logits = C.unembed(model.embed, cfg, x[:, -1:])

@@ -138,7 +138,8 @@ def prefill(model, cfg: ModelConfig, tokens, max_seq=None, media=None,
     del media
     B, S = tokens.shape
     positions = C.positions(tokens)
-    cache = init_cache(cfg, B, max_seq or S, device=tokens.device)
+    cache = C.prefill_cache(sys.modules[__name__], cfg, B, max_seq or S,
+                            tokens)
     x = C.embed_tokens(model.embed, cfg, tokens)
     for i, lp in enumerate(model.layers):
         h = L.rmsnorm(lp["ln1"], x, cfg.norm_eps)
@@ -154,7 +155,7 @@ def prefill(model, cfg: ModelConfig, tokens, max_seq=None, media=None,
         h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
         x = x + _ffn(lp["ffn"], cfg, h, routing=routing)
         for name, row in zip(names, rows):
-            cache[name][i, :, :S] = row
+            C.put_rows(cache[name], (i,), row, S)
     logits = C.unembed(model.embed, cfg, x[:, -1:])
     return logits, cache
 

@@ -110,7 +110,7 @@ def prefill(model, cfg: ModelConfig, tokens, max_seq=None, media=None):
     """Chunked full-sequence pass that also returns the recurrent state."""
     del max_seq, media
     B = tokens.shape[0]
-    cache = init_cache(cfg, B, 0, device=tokens.device)
+    cache = C.prefill_cache(sys.modules[__name__], cfg, B, 0, tokens)
     x = C.embed_tokens(model.embed, cfg, tokens)
     for i, lp in enumerate(model.layers):
         h = rmsnorm(lp["ln1"], x, cfg.norm_eps)

@@ -197,7 +197,8 @@ def prefill(model, cfg: ModelConfig, tokens, max_seq=None, media=None):
         raise ValueError("the VLM prefill needs media (patch embeddings)")
     B, S = tokens.shape
     positions = C.positions(tokens)
-    cache = init_cache(cfg, B, max_seq or S, device=tokens.device)
+    cache = C.prefill_cache(sys.modules[__name__], cfg, B, max_seq or S,
+                            tokens)
     x = C.embed_tokens(model.embed, cfg, tokens)
     media = media.to(x.dtype)
     for g, gp in enumerate(model.groups):
@@ -208,8 +209,8 @@ def prefill(model, cfg: ModelConfig, tokens, max_seq=None, media=None):
                                 L.attention_core(cfg, q, k, v, True))
             h = L.rmsnorm(lp["ln2"], x, cfg.norm_eps)
             x = x + L.mlp_apply(lp["ffn"], h)
-            cache["k"][g, j, :, :S] = k
-            cache["v"][g, j, :, :S] = v
+            C.put_rows(cache["k"], (g, j), k, S)
+            C.put_rows(cache["v"], (g, j), v, S)
         kv = L.cross_attention_kv(gp.cross["xattn"], cfg, media)
         x = _cross_layer(gp.cross, cfg, x, lambda p, h: (
             L.cross_attention_apply(p, cfg, h, None, kv=kv)))

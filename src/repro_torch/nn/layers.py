@@ -44,7 +44,7 @@ from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.distributed.sharding import (active_mesh, constrain,
                                               is_distributed, redistribute,
-                                              run_local, shard_block,
+                                              reshape, run_local, shard_block,
                                               weight_gather)
 from repro_torch.kernels.flash_attention import ops as _k5
 from repro_torch.nn.config import ModelConfig
@@ -124,9 +124,12 @@ def attention_template(cfg: ModelConfig):
 
 
 def _proj(x, w):
-    """einsum("bse,e...->bs...", x, w) as one matrix product."""
+    """einsum("bse,e...->bs...", x, w) as one matrix product (under a mesh
+    through :func:`~repro_torch.distributed.sharding.reshape`, which
+    gathers a shard DTensor could not carry through the reshapes)."""
     E = w.shape[0]
-    return (x @ w.reshape(E, -1)).reshape(*x.shape[:-1], *w.shape[1:])
+    y = x @ reshape(w, (E, -1))
+    return reshape(y, (*x.shape[:-1], *w.shape[1:]))
 
 
 def _qkv(params, cfg, x, positions, use_rope=True):
@@ -158,7 +161,8 @@ def _out_proj(params, out, gather: bool = False):
     if gather:
         wo = weight_gather(wo, ("heads", None, "embed"))
     H, D, E = wo.shape
-    return out.reshape(*out.shape[:-2], H * D) @ wo.reshape(H * D, E)
+    return (reshape(out, (*out.shape[:-2], H * D))
+            @ reshape(wo, (H * D, E)))
 
 
 def _gqa_scores_softmax_out(cfg, q, k, v, mask):

@@ -192,3 +192,48 @@ def distribute(params: nn.Module, mesh, rules) -> nn.Module:
             setattr(node, name, nn.Parameter(d, requires_grad=t.requires_grad))
         node._casts.clear()
     return params
+
+
+def abstract_params(params: nn.Module, *, mesh=None, rules=None,
+                    device="cuda") -> nn.Module:
+    """The reference's ``abstract_params``: every leaf of the module tree
+    ``params`` becomes a parameter that holds no data, for a dry run
+    (:mod:`repro_torch.launch.dryrun`).  Must run under a
+    ``FakeTensorMode``, where each leaf is a fake tensor of ``device`` in
+    its own type, unless ``device`` is ``"meta"``.  On a ``DeviceMesh``
+    each is a DTensor
+    built from this rank's shard alone, of the placements its logical axes
+    resolve to under ``rules``
+    (:func:`repro_torch.distributed.sharding.placements`); the whole tensor
+    is never made, so a count of live storages sees one rank's bytes.  A
+    leaf keeps its ``requires_grad``.  In place; returns ``params``."""
+    from torch._guards import detect_fake_mode
+
+    if detect_fake_mode() is None and torch.device(device).type != "meta":
+        raise RuntimeError("abstract_params runs under a FakeTensorMode "
+                           "or on meta (elsewhere it would allocate every "
+                           "leaf)")
+    for node in params.modules():
+        if not isinstance(node, Params):
+            continue
+        for name, axes in node._axes.items():
+            t = getattr(node, name)
+            if mesh is None:
+                leaf = torch.empty(t.shape, dtype=t.dtype, device=device)
+            else:
+                leaf = _abstract_shard(t.shape, t.dtype, axes, mesh, rules,
+                                       device)
+            setattr(node, name, nn.Parameter(leaf,
+                                             requires_grad=t.requires_grad))
+        node._casts.clear()
+    return params
+
+
+def _abstract_shard(shape, dtype, axes, mesh, rules, device):
+    """A DTensor of global ``shape`` on ``mesh`` made from this rank's
+    shard (fake) alone."""
+    from repro_torch.distributed.sharding import from_shard, placements
+
+    pl = placements(rules.pspec(axes, shape, mesh), mesh)
+    return from_shard(shape, pl, mesh, lambda local: torch.empty(
+        local, dtype=dtype, device=device))

@@ -25,7 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import (constrain, is_distributed,
-                                              run_local, weight_gather)
+                                              reshape, run_local,
+                                              weight_gather)
 from repro_torch.kernels.rwkv6 import ops as _k6
 from repro_torch.kernels.rwkv6.ref import wkv6_scan
 from repro_torch.nn.config import ModelConfig
@@ -83,7 +84,11 @@ def _rwkv_mix(params, x, xs):
     delta = torch.einsum("bsir,ire->bsie", lora, params.cast("mix_w2", dt))
     mu = params.cast("mu", dt)  # (5, E)
     mixed = x[:, :, None, :] + xx[:, :, None, :] * (mu[None, None] + delta)
-    return [mixed[:, :, i] for i in range(5)]  # r,k,v,w,g streams
+    # r,k,v,w,g streams, laid out as the activations (under a mesh the
+    # einsum may leave the sequence sharded, which the projections' (B*S)
+    # rows could then not be split by)
+    return [constrain(mixed[:, :, i], ("batch", "seq", "embed_act"))
+            for i in range(5)]
 
 
 def _rwkv_rkvwg(params, cfg, x, xs):
@@ -94,13 +99,18 @@ def _rwkv_rkvwg(params, cfg, x, xs):
     k = xk @ weight_gather(params.cast("wk", dt), ("embed", "heads"))
     v = xv @ weight_gather(params.cast("wv", dt), ("embed", "heads"))
     g = xg @ weight_gather(params.cast("wg", dt), ("embed", "heads"))
-    lw = xw @ params.cast("dec_w1", dt)
-    lw = torch.tanh(lw) @ params.cast("dec_w2", dt)
+    # the decay's lora laid out as the activations, so that neither it nor
+    # its gradient is left sharded over the sequence (whose (B*S) rows the
+    # products' gradients could then not be split by)
+    lw = constrain(xw @ params.cast("dec_w1", dt), ("batch", "seq", None))
+    lw = constrain(torch.tanh(lw) @ params.cast("dec_w2", dt),
+                   ("batch", "seq", "embed_act"))
     logw = -torch.exp(torch.clamp(params["w0"].float() + lw.float(), -8.0, 4.0))
     B, S = x.shape[:2]
     shp = (B, S, H, D)
-    return (r.reshape(shp), k.reshape(shp), v.reshape(shp), logw.reshape(shp),
-            g.reshape(shp), params["u"].float().reshape(H, D))
+    return (reshape(r, shp), reshape(k, shp), reshape(v, shp),
+            reshape(logw, shp), reshape(g, shp),
+            reshape(params["u"].float(), (H, D)))
 
 
 #: the logical axes of K6's operands under a mesh: split by head, as the
@@ -110,22 +120,24 @@ _U_AXES = ("heads", None)
 _STATE_AXES = ("batch", "heads", None, None)
 
 
-def _wkv6(r, k, v, logw, u, state0=None):
-    """Every K6 call.  Plain tensors go to the kernel as they are.  Under a
-    mesh (DTensors) it runs on each rank's local shards, r/k/v/log-decay,
-    ``u`` and the state split by head with the same placements, and its
-    outputs are wrapped back; the boundary is differentiable, so K6's
-    backward kernel runs on the shards too."""
-    if not is_distributed(r, k, v, logw, u, state0):
-        return _k6.wkv6(r, k, v, logw, u, state0=state0)
-    B, S, H, D = r.shape
-
-    def local(rl, kl, vl, wl, ul, sl, _pls):
+def _wkv6(r, k, v, logw, u, state0=None, fn=None):
+    """Every K6 call (``fn`` None), and the decode's exact recurrence
+    (``fn``: :func:`wkv6_scan`).  Plain tensors go to it as they are.
+    Under a mesh (DTensors) it runs on each rank's local shards,
+    r/k/v/log-decay, ``u`` and the state split by head with the same
+    placements, and its outputs are wrapped back; the boundary is
+    differentiable, so K6's backward kernel runs on the shards too."""
+    def call(rl, kl, vl, wl, ul, sl, _pls=None):
+        if fn is not None:
+            return fn(rl, kl, vl, wl, ul, sl)
         return _k6.wkv6(rl, kl, vl, wl, ul, state0=sl)
 
-    return run_local(local, [(r, _SEQ_AXES), (k, _SEQ_AXES), (v, _SEQ_AXES),
-                             (logw, _SEQ_AXES), (u, _U_AXES),
-                             (state0, _STATE_AXES)],
+    if not is_distributed(r, k, v, logw, u, state0):
+        return call(r, k, v, logw, u, state0)
+    B, S, H, D = r.shape
+    return run_local(call, [(r, _SEQ_AXES), (k, _SEQ_AXES), (v, _SEQ_AXES),
+                            (logw, _SEQ_AXES), (u, _U_AXES),
+                            (state0, _STATE_AXES)],
                      [(_SEQ_AXES, (B, S, H, D)),
                       (_STATE_AXES, (B, H, D, D))])
 
@@ -136,17 +148,15 @@ def rwkv6_apply(params, cfg: ModelConfig, x, chunked=True, state=None):
     r, k, v, logw, g, u = _rwkv_rkvwg(
         params, cfg, x, _token_shift(x, None if state is None else state[1]))
     s0 = None if state is None else state[0]
-    if chunked:
-        y, s_end = _wkv6(r, k, v, logw, u, state0=s0)
-    else:
-        y, s_end = wkv6_scan(r, k, v, logw, u, s0)
+    y, s_end = _wkv6(r, k, v, logw, u, state0=s0,
+                     fn=None if chunked else wkv6_scan)
     B, S = x.shape[:2]
     H, D = u.shape
     # per-head group norm (RWKV6 uses GroupNorm with n_heads groups)
-    y = rmsnorm({"scale": params["ln_x"]["scale"].reshape(H, D)},
-                y.reshape(B, S, H, D).to(x.dtype), cfg.norm_eps)
-    y = y.reshape(B, S, -1)
-    y = y * F.silu(g.reshape(B, S, -1).to(x.dtype))
+    y = rmsnorm({"scale": reshape(params["ln_x"]["scale"], (H, D))},
+                reshape(y, (B, S, H, D)).to(x.dtype), cfg.norm_eps)
+    y = reshape(y, (B, S, H * D))
+    y = y * F.silu(reshape(g, (B, S, H * D)).to(x.dtype))
     out = y @ weight_gather(params.cast("wo", x.dtype), ("heads", "embed"))
     return constrain(out, ("batch", "seq", "embed_act")), s_end, x[:, -1:]
 
@@ -286,10 +296,13 @@ def mamba_apply(params, cfg: ModelConfig, x, state=None):
     z = x @ weight_gather(params.cast("in_z", dt_), ("embed", "mlp"))
     h_tail = None if state is None else state[1]
     xc, tail = _depthwise_conv(xb, params.cast("conv", dt_), h_tail)
-    xc = F.silu(xc)
+    # laid out as the activations, neither the conv's output nor B and C
+    # sharded over the sequence (the products' (B*S) rows could then not
+    # be split by it)
+    xc = constrain(F.silu(xc), ("batch", "seq", "mlp_act"))
 
-    Bm = (xc @ params.cast("wB", dt_)).to(f32)
-    Cm = (xc @ params.cast("wC", dt_)).to(f32)
+    Bm = constrain(xc @ params.cast("wB", dt_), ("batch", "seq", None)).to(f32)
+    Cm = constrain(xc @ params.cast("wC", dt_), ("batch", "seq", None)).to(f32)
     delta = softplus((xc * params.cast("wdt", dt_)[:, 0]).to(f32)
                      + params["dt_bias"].to(f32))   # (B,S,E) step size
     A = -torch.exp(params["A_log"].to(f32))                   # (E,N)
@@ -309,6 +322,7 @@ def mamba_apply(params, cfg: ModelConfig, x, state=None):
     y = torch.bmm(hs.reshape(B * S, E, N),
                   Cm.reshape(B * S, N, 1)).reshape(B, S, E)
     y = y + params["D"].to(f32) * xc.to(f32)
-    y = y.to(dt_) * F.silu(z)
+    # the scan's slices may leave the sequence sharded: unsplit it first
+    y = constrain(y.to(dt_) * F.silu(z), ("batch", "seq", "mlp_act"))
     out = y @ weight_gather(params.cast("out", dt_), ("mlp", "embed"))
     return constrain(out, ("batch", "seq", "embed_act")), (hs[:, -1], tail)

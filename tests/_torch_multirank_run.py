@@ -6,7 +6,8 @@
 reads ``WORKDIR/inputs.pkl`` (the cases: each a config, the reference's
 parameters as numpy arrays, a host batch, its steps and its AdamW), spawns
 the ranks, which meet through a ``FileStore`` in ``WORKDIR``, and writes
-what rank 0 gathered to ``WORKDIR/result.pkl``.  :func:`run_case` is also
+what rank 0 gathered to ``WORKDIR/result.pkl``, with the collectives of
+one more qwen2 step that rank 0 recorded (:func:`record_step`).  :func:`run_case` is also
 the single-process run the test holds the ranks to (``mesh`` None)."""
 from __future__ import annotations
 
@@ -52,6 +53,38 @@ def run_case(cfg, tree, batch, mesh=None, rules=None, steps=STEPS,
             "params": run["params"], "grads": run["grads"], "logits": logits}
 
 
+def record_step(cfg, tree, batch, mesh, rules):
+    """One train step of ``cfg`` on the mesh from the parameter tree (the
+    dry run's form: ``accum`` micro-batches, the reference's
+    ``TrainConfig``), recorded by ``CommDebugMode`` and by the dry run's op
+    recorder (``repro_torch.launch.trace_analysis``).  -> {"comm": the
+    collectives ``CommDebugMode`` counted, by name; "collective_count",
+    "collective_bytes": the recorder's, by the reference's names}."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.data.pipeline import device_put_batch
+    from repro_torch.distributed.sharding import use_mesh_rules
+    from repro_torch.launch import trace_analysis
+    from repro_torch.models.common import get_family, load_reference_params
+    from repro_torch.nn.param import distribute
+    from repro_torch.train.steps import (TrainConfig, init_state,
+                                         make_train_step)
+
+    with use_mesh_rules(mesh, rules):
+        model = distribute(load_reference_params(get_family(cfg).build(cfg),
+                                                 tree), mesh, rules)
+        state = init_state(cfg, model)
+        b = device_put_batch(batch, mesh, rules)
+        step = make_train_step(cfg, TrainConfig(accum_steps=ACCUM))
+        with CommDebugMode() as comm, trace_analysis.Recorder() as rec:
+            step(state, b)
+    totals = trace_analysis.analyze(rec.trace)
+    return {"comm": {str(k).split(".")[-1]: v
+                     for k, v in comm.get_comm_counts().items()},
+            "collective_count": totals.collective_count,
+            "collective_bytes": totals.collective_bytes}
+
+
 def _rank(rank, world, workdir):
     import torch.distributed as dist
 
@@ -73,6 +106,12 @@ def _rank(rank, world, workdir):
             result[name] = run_case(cfg, case["tree"], case["batch"], mesh,
                                     strategy.rules_for(cfg),
                                     steps=case["steps"], opt=case["opt"])
+
+        # one step as the dry run traces it, its collectives recorded
+        case = inputs["cases"]["qwen2"]
+        result["recorded"] = record_step(case["cfg"], case["tree"],
+                                         case["batch"], mesh,
+                                         strategy.rules_for(case["cfg"]))
 
         # device_put_batch: this rank's shard is its rows of the host batch
         batch = inputs["cases"]["qwen2"]["batch"]

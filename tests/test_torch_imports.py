@@ -57,6 +57,7 @@ def test_import_loads_neither_jax_nor_reference():
             "repro_torch.checkpoint.store", "repro_torch.fault.tolerance",
             "repro_torch.distributed.sharding",
             "repro_torch.distributed.strategy", "repro_torch.launch.inputs",
+            "repro_torch.launch.dryrun", "repro_torch.launch.trace_analysis",
             "repro_torch.tree"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

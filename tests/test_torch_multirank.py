@@ -271,3 +271,44 @@ def _param_tree_np(model):
             return np.stack([x.detach().numpy() for x in t])
         return t.detach().numpy()
     return conv(param_tree(model))
+
+
+def test_dry_run_trace_has_the_real_runs_collectives(runs):
+    """The dry run's trace of the same step (a fake group of 8 ranks in
+    this process, the same (4, 2) CPU mesh, config, batch and rules, under
+    ``FakeTensorMode``) makes the collectives the real gloo ranks made:
+    the same count and result bytes of each kind, as the recorder counted
+    them there, and the same count as ``CommDebugMode`` did.  On a CPU mesh
+    DTensor makes a shard-to-shard move an all-gather and a chunk (gloo
+    has no all-to-all), in the fake trace as in the real run."""
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.distributed import strategy
+    from repro_torch.distributed.sharding import use_mesh_rules
+    from repro_torch.launch import dryrun, trace_analysis
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.steps import TrainConfig
+
+    inputs, result, _single = runs
+    real = result["recorded"]
+    case = inputs["cases"]["qwen2"]
+    cfg, (B, S) = case["cfg"], case["batch"]["tokens"].shape
+    rules = strategy.rules_for(cfg)
+    with dryrun.fake_group(8):
+        mesh = make_mesh(RUN.MESH_SHAPE, RUN.MESH_AXES, "cpu")
+        with FakeTensorMode(), use_mesh_rules(mesh, rules):
+            cell = dryrun.trace_cell(cfg, ShapeSpec("train", S, B, "train"),
+                                     mesh, rules, "cpu",
+                                     TrainConfig(accum_steps=RUN.ACCUM))
+    assert not dist.is_initialized()
+    fake = trace_analysis.analyze(cell["trace"])
+    assert fake.collective_count == real["collective_count"]
+    assert fake.collective_bytes == real["collective_bytes"]
+    assert "all-to-all" not in fake.collective_count
+    by_name = {"all_gather_into_tensor": "all-gather",
+               "all_reduce": "all-reduce",
+               "reduce_scatter_tensor": "reduce-scatter"}
+    assert {by_name[k]: v for k, v in real["comm"].items()} == \
+        fake.collective_count
