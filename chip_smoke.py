@@ -251,7 +251,18 @@ kernel from the sources in the checkout (nvcc into ``build/``).  Phases:
    of its 32 layers, one step of 2 x 4096, the same way (K6's forward and
    backward through ``ssm._wkv6``); one eager qwen2-1.5b decode step at
    the serve shape (batch 4) on a seeded cache placed by
-   ``launch.inputs.decode_specs``, its logits bit for bit; K5 and K6 split
+   ``launch.inputs.decode_specs``, its logits bit for bit;
+   granite-moe-3b-a800m at full width cut to 4 of its 32 layers (its
+   batch-local grids, experts replicated), one step of 2 x 4096 at the
+   published capacity factor: the loss, every parameter and each MoE
+   call's dropped pairs bit for bit, K5's forward (2 a layer under remat
+   "full") and backward through the boundary, then one dropless decode
+   step at the serve shape, its logits bit for bit; deepseek-v2-236b at
+   full width cut to 2 of its 60 layers in bf16 (its global grid, experts
+   over "model"): a prefill of 4 x 2048 and one decode step, the prefill's
+   logits, its ``ckv`` and ``krope`` and the decode's logits bit for bit,
+   K5's (192, 128) instance through the boundary (its training does not
+   fit the card); the phase within 124 s; K5 and K6 split
    by head block as 2 to 12 ranks on "model" would split them, block by
    block on the card, against the full call (``dist_split_checks``);
    ``optim.compress.compressed_psum_along`` over the NCCL group equal to
@@ -3904,8 +3915,15 @@ def dryrun_phase(dev):
 #: the meshed train steps of each model (each against as many un-meshed
 #: ones built from the same seed), and rwkv6-3b's cut for this phase
 DIST_QWEN_STEPS, DIST_RWKV_STEPS, DIST_RWKV_LAYERS = 2, 1, 4
-#: rwkv6-3b's batch here: 2 sequences of 4096 in one micro-batch
+#: rwkv6-3b's and granite-moe-3b-a800m's batch here: 2 sequences of 4096
+#: in one micro-batch
 DIST_RWKV_BATCH = 2
+#: granite-moe-3b-a800m's cut (4 of its 32 layers) and deepseek-v2-236b's
+#: (2 of its 60, bf16 parameters: about 18 GB)
+DIST_GRANITE_LAYERS, DIST_DEEPSEEK_LAYERS = 4, 2
+#: the phase, from its start to its end: 34 s for qwen2-1.5b, rwkv6-3b and
+#: the splits, and 90 s for the MoE families
+DIST_LIMIT_S = 124.0
 
 
 def dist_counts():
@@ -3941,14 +3959,18 @@ def dist_train(dev, cfg, batch, steps, accum, mesh=None, rules=None,
     run, on the card here and on gloo ranks of the CPU in
     ``tests/_torch_multirank_run.py``.  -> {"losses", "params" (on the
     host), "grads" (the first step's gradients, whole and on the host, with
-    ``grads``; else None), "grad_norms" (each step's, before the clip), "ms"
-    a step, "counts" (the kernels' launches over the steps), "state"}."""
+    ``grads``; else None), "grad_norms" (each step's, before the clip),
+    "dropped" (the dropped (token, slot) pairs of each MoE layer's forward
+    on a micro-batch, in call order: remat's recomputation stops at the
+    layer's last saved tensor, before the call returns), "ms" a step,
+    "counts" (the kernels' launches over the steps), "state"}."""
     import torch
 
     from repro_torch.data.pipeline import device_put_batch
     from repro_torch.distributed.sharding import use_mesh_rules
     from repro_torch.models.common import (get_family, init_model,
                                            load_reference_params)
+    from repro_torch.nn import layers
     from repro_torch.nn.param import distribute
     from repro_torch.optim import adamw
     from repro_torch.train.steps import (TrainConfig, init_state,
@@ -3964,13 +3986,19 @@ def dist_train(dev, cfg, batch, steps, accum, mesh=None, rules=None,
     cuda = dev.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
-    first = []
-    update = adamw.update
+    first, routed = [], []
+    update, moe = adamw.update, layers.moe_apply
 
     def recording(ocfg, params, g, *a):     # the step's averaged gradients
         if grads and not first:
             first.extend(host_copy(t) for t in leaves(g))
         return update(ocfg, params, g, *a)
+
+    def routing(*a, **kw):                  # each MoE call's drops
+        kw["routing"] = got = []
+        out = moe(*a, **kw)
+        routed.append(got[0].dropped)
+        return out
 
     with ctx:
         model = (init_model(fam, cfg, torch.Generator(dev).manual_seed(seed))
@@ -3982,9 +4010,9 @@ def dist_train(dev, cfg, batch, steps, accum, mesh=None, rules=None,
         else:
             b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         state = init_state(cfg, model)
-        losses, norms, ms = [], [], []
+        losses, norms, ms, dropped = [], [], [], []
         dist_reset()
-        adamw.update = recording
+        adamw.update, layers.moe_apply = recording, routing
         try:
             for _ in range(steps):
                 if cuda:
@@ -3994,13 +4022,15 @@ def dist_train(dev, cfg, batch, steps, accum, mesh=None, rules=None,
                 losses.append(host_copy(metrics["loss"]))
                 norms.append(host_copy(metrics["grad_norm"]))
                 ms.append((time.perf_counter() - t0) * 1e3)
+                dropped.extend(int(host_copy(d)) for d in routed)
+                routed.clear()
         finally:
-            adamw.update = update
+            adamw.update, layers.moe_apply = update, moe
         counts = dist_counts()
     return {"losses": losses, "grad_norms": norms,
             "params": [host_copy(p) for p in leaves(state["params"])],
-            "grads": first or None, "ms": ms, "counts": counts,
-            "state": state}
+            "grads": first or None, "dropped": dropped, "ms": ms,
+            "counts": counts, "state": state}
 
 
 def dist_decode(dev, cfg, model, shape, cache, tokens, pos, mesh=None,
@@ -4035,6 +4065,58 @@ def dist_decode(dev, cfg, model, shape, cache, tokens, pos, mesh=None,
                                         put(tokens, specs["tokens"].spec),
                                         pos)
             return host_copy(logits)
+
+
+def dist_prefill(dev, cfg, prompts, tokens, shape, mesh=None, rules=None,
+                 seed=0):
+    """A model of ``cfg`` drawn from seed ``seed`` on ``dev``, un-meshed
+    (``mesh`` None) or placed by ``distribute`` with the prompts placed by
+    ``launch.inputs.prefill_specs``: its prefill of ``prompts`` (B, S),
+    then one eager decode step of ``tokens`` at position S on a cache of
+    ``shape.seq_len`` positions that holds the prefill's rows
+    (:func:`dist_decode`).  -> {"logits" (the prefill's), "cache" (its
+    entries whole), "decode" (the step's logits), all on the host; "ms"
+    (prefill, decode); "counts" (the kernels' launches in the prefill)}."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.distributed.sharding import placements, use_mesh_rules
+    from repro_torch.launch.inputs import prefill_specs
+    from repro_torch.models.common import get_family, init_model
+    from repro_torch.nn.param import distribute
+
+    fam = get_family(cfg)
+    B, S = prompts.shape
+    ctx = (use_mesh_rules(mesh, rules) if mesh is not None
+           else contextlib.nullcontext())
+    with ctx, torch.no_grad():
+        model = init_model(fam, cfg, torch.Generator(dev).manual_seed(seed))
+        toks = prompts
+        if mesh is not None:
+            model = distribute(model, mesh, rules)
+            spec = prefill_specs(cfg, ShapeSpec("prefill", S, B, "prefill"),
+                                 mesh, rules)["tokens"].spec
+            toks = distribute_tensor(prompts, mesh, placements(spec, mesh),
+                                     src_data_rank=None)
+        dist_reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = fam.prefill(model, cfg, toks)
+        logits = host_copy(logits)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        counts = dist_counts()
+        cache = {k: host_copy(v) for k, v in cache.items()}
+    full = {}
+    for k, v in cache.items():          # the prefill's rows, then zeros
+        full[k] = torch.zeros((*v.shape[:2], shape.seq_len, *v.shape[3:]),
+                              dtype=v.dtype, device=dev)
+        full[k][:, :, :S] = v.to(dev)
+    t0 = time.perf_counter()
+    decode = dist_decode(dev, cfg, model, shape, full, tokens, S, mesh, rules)
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    return {"logits": logits, "cache": cache, "decode": decode,
+            "ms": (prefill_ms, decode_ms), "counts": counts}
 
 
 #: the head blocks the kernels' boundary is held to on one card: qwen2-1.5b's
@@ -4151,6 +4233,144 @@ def dist_same(label, got, want):
           f"{[float((got[i].float() - want[i].float()).abs().max()) for i in bad[:1]]})")
 
 
+def dist_granite(dev, mesh, seed, card):
+    """granite-moe-3b-a800m at full width (d 1536, 40 experts top-8, expert
+    d_ff 512, GQA 24/8 of 64) cut to :data:`DIST_GRANITE_LAYERS` layers,
+    under its own rules (experts replicated, tensor parallelism inside
+    them; the batch-local grids): one train step of 2 x 4096 at the
+    published capacity factor 1.25, meshed and as one un-meshed step from
+    the same seed, built one after the other; the loss, every parameter and
+    each MoE call's dropped pairs bit for bit, K5's forward and backward
+    through the kernel boundary.  Then one dropless decode step at the
+    serve shape (batch 4) on a seeded cache of 2048 + 32 positions, its
+    logits bit for bit.  -> K5's (forward, backward) launches over the
+    meshed step."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, HostDataLoader
+    from repro_torch.distributed import strategy
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                              n_layers=DIST_GRANITE_LAYERS)
+    rules = strategy.rules_for(cfg)
+    batch = next(HostDataLoader(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=DIST_RWKV_BATCH, seed=seed)))
+    B, prompt, gen = SERVE_KW["batch"], SERVE_KW["prompt_len"], \
+        SERVE_KW["gen"]
+    shape = ShapeSpec("serve", prompt + gen, B, "decode")
+    g = torch.Generator(dev).manual_seed(seed + 4)
+    cache = {k: torch.randn(v.shape, generator=g, device=dev).to(v.dtype)
+             for k, v in lm.init_cache(cfg, B, prompt + gen,
+                                       device=dev).items()}
+    tokens = torch.randint(0, cfg.vocab_size, (B, 1), generator=g,
+                           device=dev, dtype=torch.int32)
+    runs, launches = {}, None
+    for label, m in (("un-meshed", None), ("meshed", mesh)):
+        r = m and rules
+        run = dist_train(dev, cfg, batch, 1, 1, m, r, seed)
+        counts = run["counts"]
+        t0 = time.perf_counter()
+        logits = dist_decode(dev, cfg, run["state"]["model"], shape, cache,
+                             tokens, prompt, m, r)
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        runs[label] = (run["losses"], run["params"], run["dropped"], logits)
+        log(f"dist granite-moe-3b-a800m ({DIST_GRANITE_LAYERS} of 32 layers) "
+            f"{label}: 1 step of {DIST_RWKV_BATCH} x {TRAIN_SEQ}, ms a step "
+            f"{[round(t, 1) for t in run['ms']]}, loss "
+            f"{[float(l) for l in run['losses']]}, dropped pairs by MoE call "
+            f"{run['dropped']}, K5 launches forward {counts[0]} backward "
+            f"{counts[1]}; the decode step {decode_ms:.1f} ms; peak memory "
+            f"{peak:.3f} GB ({card})")
+        if m is not None:
+            want = DIST_GRANITE_LAYERS
+            check(counts[0] == 2 * want and counts[1] == want,
+                  f"dist granite-moe-3b-a800m: K5 launches {counts[:2]}, "
+                  f"expected ({2 * want}, {want}) through the boundary")
+            launches = counts[:2]
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    (la, pa, da, xa), (lb, pb, db, xb) = runs["un-meshed"], runs["meshed"]
+    dist_same("granite-moe-3b-a800m loss", lb, la)
+    dist_same("granite-moe-3b-a800m parameters", pb, pa)
+    dist_same("granite-moe-3b-a800m decode logits", [xb], [xa])
+    check(db == da and sum(da) > 0, f"dist granite-moe-3b-a800m: dropped "
+          f"pairs {db} meshed against {da}")
+    check(bool(torch.isfinite(xa).all()), "dist granite: logits finite")
+    log(f"dist granite-moe-3b-a800m: meshed = un-meshed bit for bit: "
+        f"{len(la)} loss, {len(pa)} parameters, the dropped pairs of "
+        f"{len(da)} MoE calls, decode logits {tuple(xa.shape)} at position "
+        f"{prompt}")
+    return launches
+
+
+def dist_deepseek(dev, mesh, seed, card):
+    """deepseek-v2-236b at full width (MLA, 160 experts top-6 + 2 shared,
+    the global grid) cut to :data:`DIST_DEEPSEEK_LAYERS` layers in bf16,
+    under its own rules (experts over "model", the grid's capacity
+    replicated): a prefill of 4 x 2048 and one decode step
+    (:func:`dist_prefill`), meshed and un-meshed from the same seed, built
+    one after the other; the prefill's logits, its compressed caches (ckv,
+    krope) and the decode's logits bit for bit, K5's (192, 128) instance
+    through the kernel boundary, once a layer.  A train step at this width
+    does not fit the card (16 bytes a parameter, 3.97 G a layer).  -> K5's
+    launches over the meshed prefill."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.distributed import strategy
+
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"),
+                              n_layers=DIST_DEEPSEEK_LAYERS,
+                              param_dtype="bfloat16")
+    rules = strategy.rules_for(cfg)
+    B, prompt, gen = SERVE_KW["batch"], SERVE_KW["prompt_len"], \
+        SERVE_KW["gen"]
+    shape = ShapeSpec("serve", prompt + gen, B, "decode")
+    g = torch.Generator(dev).manual_seed(seed + 5)
+    prompts = torch.randint(0, cfg.vocab_size, (B, prompt), generator=g,
+                            device=dev, dtype=torch.int32)
+    tokens = torch.randint(0, cfg.vocab_size, (B, 1), generator=g,
+                           device=dev, dtype=torch.int32)
+    runs, launches = {}, None
+    for label, m in (("un-meshed", None), ("meshed", mesh)):
+        torch.cuda.reset_peak_memory_stats(dev)
+        run = dist_prefill(dev, cfg, prompts, tokens, shape, m, m and rules,
+                           seed)
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        counts = run["counts"]
+        runs[label] = run
+        log(f"dist deepseek-v2-236b ({DIST_DEEPSEEK_LAYERS} of 60 layers, "
+            f"bf16) {label}: prefill of {B} x {prompt} "
+            f"{run['ms'][0]:.1f} ms, the decode step {run['ms'][1]:.1f} ms, "
+            f"K5 launches {counts[0]}; peak memory {peak:.3f} GB ({card})")
+        if m is not None:
+            check(counts[0] == DIST_DEEPSEEK_LAYERS,
+                  f"dist deepseek-v2-236b: K5 launches {counts[0]}, expected "
+                  f"{DIST_DEEPSEEK_LAYERS} through the boundary")
+            launches = counts[0]
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = runs["un-meshed"], runs["meshed"]
+    dist_same("deepseek-v2-236b prefill logits", [b["logits"]], [a["logits"]])
+    dist_same("deepseek-v2-236b caches", [b["cache"][k] for k in a["cache"]],
+              list(a["cache"].values()))
+    dist_same("deepseek-v2-236b decode logits", [b["decode"]], [a["decode"]])
+    check(all(bool(torch.isfinite(t).all()) for t in
+              (a["logits"], a["decode"])), "dist deepseek: logits finite")
+    log(f"dist deepseek-v2-236b: meshed = un-meshed bit for bit: prefill "
+        f"logits {tuple(a['logits'].shape)}, caches "
+        f"{ {k: tuple(v.shape) for k, v in a['cache'].items()} }, decode "
+        f"logits {tuple(a['decode'].shape)} at position {prompt}")
+    return launches
+
+
 def dist_phase(dev, seed):
     """The distributed layer on one NCCL rank (``world_size`` 1 on a
     ``HashStore``): ``launch.mesh.make_smoke_mesh`` on the card and
@@ -4164,11 +4384,14 @@ def dist_phase(dev, seed):
     :data:`DIST_RWKV_LAYERS` layers, one step of 2 x 4096, the same way,
     K6's forward and backward through the boundary.  One eager qwen2-1.5b
     decode step at the serve shape (batch 4) on a seeded cache placed by
-    ``launch.inputs.cache_specs``: the logits bit for bit.  The kernels'
+    ``launch.inputs.cache_specs``: the logits bit for bit.  The MoE
+    families (:func:`dist_granite`, :func:`dist_deepseek`).  The kernels'
     head split (:func:`dist_split_checks`).
     ``optim.compress.compressed_psum_along`` on the NCCL group equal to the
-    local decode.  The process group is destroyed on the way out.  -> the
-    K5, K5-backward, K6 and K6-backward launches over the meshed steps."""
+    local decode.  The process group is destroyed on the way out; the
+    phase's seconds are gated at :data:`DIST_LIMIT_S`.  -> the K5,
+    K5-backward, K6 and K6-backward launches over the meshed steps and
+    prefill."""
     import torch
     import torch.distributed as dist
 
@@ -4179,6 +4402,7 @@ def dist_phase(dev, seed):
     from repro_torch.launch.mesh import make_smoke_mesh
     from repro_torch.optim import compress
 
+    t_phase = time.perf_counter()
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                             world_size=1)
     try:
@@ -4275,6 +4499,14 @@ def dist_phase(dev, seed):
         log(f"dist rwkv6-3b: meshed = un-meshed bit for bit: {len(la)} "
             f"loss, {len(pa)} parameters")
         del runs, pa, pb
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the MoE families: granite's batch-local grids, deepseek's global
+        fwd, bwd = dist_granite(dev, mesh, seed, card)
+        fwd += dist_deepseek(dev, mesh, seed, card)
+        out["flash_attention"] += fwd
+        out["flash_attention_bwd"] += bwd
 
         dist_split_checks(dev, seed)
 
@@ -4294,6 +4526,10 @@ def dist_phase(dev, seed):
             "decode, bit for bit")
     finally:
         dist.destroy_process_group()
+    elapsed = time.perf_counter() - t_phase
+    log(f"dist phase: {elapsed:.1f} s (limit {DIST_LIMIT_S:.0f} s)")
+    check(elapsed <= DIST_LIMIT_S, f"dist phase took {elapsed:.1f} s "
+          f"(limit {DIST_LIMIT_S:.0f} s)")
     return out
 
 
@@ -4698,7 +4934,8 @@ def main(argv=None):
         t0 = time.perf_counter()
         dist_launches = dist_phase(dev, args.seed)
         log(f"launches (the kernels through the boundary over the meshed "
-            f"qwen2-1.5b and rwkv6-3b steps): {dist_launches}; dist phase "
+            f"qwen2-1.5b, rwkv6-3b and granite-moe-3b-a800m steps and "
+            f"deepseek-v2-236b's prefill): {dist_launches}; dist phase "
             f"{time.perf_counter() - t0:.1f} s")
         for name, n in dist_launches.items():
             check(n > 0, f"the meshed train path never launched {name}")

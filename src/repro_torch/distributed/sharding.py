@@ -39,7 +39,8 @@ from typing import Callable, Optional, Sequence
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor import (DTensor, Partial, Placement,
+                                      Replicate, Shard)
 
 from repro_torch.nn import param as pm
 
@@ -253,6 +254,11 @@ def redistribute(x, mesh: DeviceMesh, target: Sequence) -> DTensor:
     x = as_dtensor(x, mesh)
     if tuple(x.placements) == tuple(target):
         return x
+    if not x.is_contiguous():
+        # a redistribution's local result is contiguous, but DTensor keeps
+        # the input's strides as the output's: a later view would read the
+        # local memory in the wrong order
+        x = x.contiguous()
     return x.redistribute(mesh, tuple(target))
 
 
@@ -331,16 +337,21 @@ def run_local(fn: Callable, inputs: Sequence, out_specs: Sequence):
     of the inputs' placements.  ``out_specs``: one ``(logical axes, global
     shape)`` an output of ``fn``, whose local result is wrapped back as a
     DTensor of the placements those axes resolve to (evenly: the rules
-    shard only what divides).  Differentiable both ways: an input's
-    gradient keeps its placements, except on a mesh dimension where the
-    input is replicated and another input is sharded; there the local
-    gradients are partial sums (``Partial()``), summed over that
-    dimension's ranks."""
+    shard only what divides), or of the placements given in their stead
+    (a tuple of DTensor placements, one a mesh dimension; ``Partial()``
+    where the local results are partial sums).  Differentiable both ways:
+    an input's gradient keeps its placements, except on a mesh dimension
+    where the input is replicated and another input or an output is
+    sharded or partial; there the local gradients are partial sums
+    (``Partial()``), summed over that dimension's ranks."""
     mesh, rules = _CTX.get()
     pls = [None if t is None
            else placements(rules.pspec(axes, t.shape, mesh), mesh)
            for t, axes in inputs]
-    sharded = [any(pl is not None and isinstance(pl[i], Shard) for pl in pls)
+    out_pls = [_out_placements(spec, shape, mesh, rules)
+               for spec, shape in out_specs]
+    sharded = [any(pl is not None and isinstance(pl[i], (Shard, Partial))
+                   for pl in pls + out_pls)
                for i in range(mesh.ndim)]
     local = []
     for (t, _axes), pl in zip(inputs, pls):
@@ -354,11 +365,25 @@ def run_local(fn: Callable, inputs: Sequence, out_specs: Sequence):
     outs = fn(*local, tuple(pls))
     single = torch.is_tensor(outs)
     outs = (outs,) if single else tuple(outs)
-    wrapped = []
-    for o, (axes, shape) in zip(outs, out_specs):
-        pl = placements(rules.pspec(axes, shape, mesh), mesh)
-        wrapped.append(DTensor.from_local(o, mesh, pl, run_check=False))
+    wrapped = [DTensor.from_local(o, mesh, pl, run_check=False)
+               for o, pl in zip(outs, out_pls)]
     return wrapped[0] if single else tuple(wrapped)
+
+
+def _out_placements(spec, shape, mesh, rules) -> tuple:
+    """An output spec of :func:`run_local` -> its placements: logical axes
+    resolved under ``rules``, or placements given as they are."""
+    if len(spec) == mesh.ndim and all(isinstance(p, Placement)
+                                      for p in spec):
+        return tuple(spec)
+    return placements(rules.pspec(spec, shape, mesh), mesh)
+
+
+def mesh_placements(logical_axes: tuple, shape: Sequence[int]) -> tuple:
+    """The placements ``logical_axes`` of a tensor of ``shape`` resolve to
+    under the active rules on a ``DeviceMesh``."""
+    mesh, rules = _CTX.get()
+    return placements(rules.pspec(logical_axes, tuple(shape), mesh), mesh)
 
 
 # -- reshapes of sharded tensors ---------------------------------------------
@@ -451,10 +476,13 @@ def from_shard(shape: Sequence[int], pl: Sequence, mesh: DeviceMesh,
     for i, p in enumerate(pl):
         if isinstance(p, Shard):
             local[p.dim] //= mesh.size(i)
+    stride, n = [], 1                   # row-major, made of no tensor
+    for d in reversed(shape):
+        stride.insert(0, n)
+        n *= max(d, 1)
     return DTensor.from_local(
         make(local), mesh, tuple(pl), run_check=False,
-        shape=torch.Size(shape),
-        stride=torch.empty(shape, device="meta").stride())
+        shape=torch.Size(shape), stride=tuple(stride))
 
 
 def zeros(shape: Sequence[int], dtype, logical_axes: tuple, device):

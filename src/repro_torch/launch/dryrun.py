@@ -7,7 +7,11 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all            # 33 cells x 2 meshes
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh single
 
-Artifacts: artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-moe-3b-a800m --profile baseline
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch deepseek-v2-236b --shape train_4k --layers 2
+
+Artifacts: artifacts/dryrun_torch/<arch>__<shape>__<mesh>[__<profile>][__<n>layers].json
+(the profile named where it is not "optimized"; ``--layers`` cuts the depth)
 
 Where the reference lowers and compiles each cell on 512 forced host
 devices, the port runs the cell's step eagerly as rank 0 of a ``"fake"``
@@ -56,6 +60,17 @@ from repro_torch.models.common import get_family, param_tree
 from repro_torch.nn import param as pm
 from repro_torch.train.steps import init_state, make_train_step
 from repro_torch.tree import leaves
+
+#: profile -> (config overrides, rule overrides), the reference's: "baseline"
+#: the paper-faithful placements (dense attention, no weight-gather FSDP,
+#: the MoE dispatch grids' capacity replicated), "optimized" K5's attention
+#: and the per-arch grid sharding (weight-gather FSDP off: the reference
+#: measured it slower)
+PROFILES = {
+    "baseline": ({"attention_impl": "dense"},
+                 {"_weight_gather": False, "moe_cap": None}),
+    "optimized": ({}, {"_weight_gather": False}),
+}
 
 #: the custom ops whose calls an artifact counts
 CUSTOM_OPS = ("repro_torch.flash_fwd", "repro_torch.flash_bwd",
@@ -191,18 +206,28 @@ def _trace(cfg, shape, mesh, rules, device, tcfg):
                 output_bytes=out_bytes, alias_bytes=alias, loops=loops)
 
 
-def build_cell(arch: str, shape_name: str, multi_pod: bool):
-    """Trace one cell on its production mesh, in the reference's
-    "optimized" profile (its rules without weight-gather FSDP); returns the
+def cell_config(arch: str, profile: str = "optimized", layers=None):
+    """The config and the rules of a cell in ``profile`` (the reference's
+    ``build_cell``: the profile's config and rule overrides on the arch's
+    own), its depth cut to ``layers`` where given."""
+    cfg_over, rule_over = PROFILES[profile]
+    cfg = dataclasses.replace(get_config(arch), **cfg_over)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    base = strategy.rules_for(cfg)
+    return cfg, dataclasses.replace(base, rules={**base.rules, **rule_over})
+
+
+def build_cell(arch: str, shape_name: str, multi_pod: bool,
+               profile: str = "optimized", layers=None):
+    """Trace one cell on its production mesh in ``profile``
+    (:data:`PROFILES`), at its depth or cut to ``layers``; returns the
     artifact dict."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    cfg = get_config(arch)
+    cfg, rules = cell_config(arch, profile, layers)
     shape = SHAPES[shape_name]
     device = default_device()
-    base = strategy.rules_for(cfg)
-    rules = dataclasses.replace(
-        base, rules={**base.rules, "_weight_gather": False})
     n_dev = 512 if multi_pod else 256
     with fake_group(n_dev):
         mesh = make_production_mesh(multi_pod=multi_pod, device=device)
@@ -219,7 +244,10 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool):
     totals = trace_analysis.analyze(trace, cell["loops"])
     peak = trace.peak_bytes
     return {
-        "profile": "optimized",
+        "profile": profile,
+        "rules": {k: list(v) if isinstance(v, tuple) else v
+                  for k, v in sorted(rules.rules.items())},
+        "n_layers": cfg.n_layers,
         "arch": canonical(arch),
         "shape": shape_name,
         "kind": shape.kind,
@@ -269,19 +297,31 @@ def _where(exc: BaseException) -> str:
     return where
 
 
-def run_cells(cells, meshes, out_dir: str, fail_fast: bool = False):
+def cell_tag(arch, shape_name, mesh_name, profile="optimized",
+             layers=None) -> str:
+    """A cell's artifact name: ``<arch>__<shape>__<mesh>``, then the
+    profile where it is not "optimized" and the depth of a cut cell."""
+    tag = f"{canonical(arch)}__{shape_name}__{mesh_name}"
+    if profile != "optimized":
+        tag += f"__{profile}"
+    return tag + (f"__{layers}layers" if layers else "")
+
+
+def run_cells(cells, meshes, out_dir: str, fail_fast: bool = False,
+              profile: str = "optimized", layers=None):
     os.makedirs(out_dir, exist_ok=True)
     results = []
     for arch, shape_name in cells:
         for mesh_name in meshes:
-            tag = f"{canonical(arch)}__{shape_name}__{mesh_name}"
+            tag = cell_tag(arch, shape_name, mesh_name, profile, layers)
             path = os.path.join(out_dir, tag + ".json")
             if os.path.exists(path):
                 print(f"[skip] {tag} (artifact exists)")
                 continue
             print(f"[trace] {tag} ...", flush=True)
             try:
-                art = build_cell(arch, shape_name, mesh_name == "multi")
+                art = build_cell(arch, shape_name, mesh_name == "multi",
+                                 profile, layers)
                 with open(path, "w") as f:
                     json.dump(art, f, indent=1)
                 mem = art["memory_analysis"]
@@ -315,12 +355,11 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default="artifacts/dryrun_torch")
     ap.add_argument("--profile", default="optimized",
-                    choices=["optimized", "baseline"])
+                    choices=list(PROFILES))
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut each cell to this many layers (a quick trace)")
     ap.add_argument("--fail-fast", action="store_true")
     args = ap.parse_args(argv)
-    if args.profile != "optimized":
-        ap.error("--profile baseline (dense attention by attention_impl, "
-                 "moe_cap None) is not ported yet: ROADMAP Queue 1, item 6")
 
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
     if args.all:
@@ -331,7 +370,8 @@ def main(argv=None):
         shapes = [args.shape] if args.shape else shapes_for(args.arch)
         cells = [(args.arch, s) for s in shapes]
 
-    results = run_cells(cells, meshes, args.out, args.fail_fast)
+    results = run_cells(cells, meshes, args.out, args.fail_fast,
+                        args.profile, args.layers)
     print("\n== dry-run summary ==")
     for tag, status in results:
         print(f"{status:24s} {tag}")

@@ -346,7 +346,10 @@ def prefill_cache(fam, cfg: ModelConfig, batch: int, max_seq: int, tokens):
     of the family's cache sharding, made from this rank's shard alone."""
     if not is_distributed(tokens):
         return fam.init_cache(cfg, batch, max_seq, device=tokens.device)
-    shapes = fam.init_cache(cfg, batch, max_seq, device="meta")
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():      # shapes only, outside any trace
+        shapes = fam.init_cache(cfg, batch, max_seq, device="meta")
     axes = fam.cache_logical_axes(cfg)
     return {k: zeros(v.shape, v.dtype, axes[k], tokens.device)
             for k, v in shapes.items()}

@@ -31,7 +31,13 @@ The MoE layer (:func:`moe_apply`) is plain PyTorch, as the reference's is
 XLA outside any Pallas kernel: batched matrix products over a capacity grid
 of the experts, and a combine that gathers each token's K expert outputs and
 sums them in slot order, so a run on the card repeats bit for bit (no
-scatter-add, whose atomics add in any order).
+scatter-add, whose atomics add in any order).  Its grids take the
+reference's layouts and constraints; under a mesh the routing's integer
+bookkeeping and the gathers by index run on each rank's local shards.
+
+``cfg.attention_impl`` picks the full-sequence attention: ``"chunked"``
+(the default) is K5, ``"dense"`` the reference's dense scores and softmax
+(the dry run's "baseline" profile).
 """
 from __future__ import annotations
 
@@ -40,11 +46,12 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor import Partial, Replicate, Shard
 
 from repro_torch.distributed.sharding import (active_mesh, constrain,
-                                              is_distributed, redistribute,
-                                              reshape, run_local, shard_block,
+                                              is_distributed, mesh_placements,
+                                              redistribute, reshape,
+                                              run_local, shard_block,
                                               weight_gather)
 from repro_torch.kernels.flash_attention import ops as _k5
 from repro_torch.nn.config import ModelConfig
@@ -130,6 +137,15 @@ def _proj(x, w):
     E = w.shape[0]
     y = x @ reshape(w, (E, -1))
     return reshape(y, (*x.shape[:-1], *w.shape[1:]))
+
+
+def _flat_mm(x, w):
+    """x (..., E) @ w (E, n) as one product of x flattened to (tokens, E),
+    the flattening through :func:`~repro_torch.distributed.sharding.
+    reshape`, whose backward gathers a gradient's shard that it cannot carry
+    (a gradient sharded over the sequence)."""
+    y = reshape(x, (-1, x.shape[-1])) @ w
+    return reshape(y, (*x.shape[:-1], w.shape[1]))
 
 
 def _qkv(params, cfg, x, positions, use_rope=True):
@@ -246,12 +262,27 @@ def _flash(q, k, v, *, causal: bool, window: int = 0):
     return _by_heads(k5, q, k, v)
 
 
+def _dense(cfg) -> bool:
+    """Does the config ask for the reference's dense attention
+    (``attention_impl="dense"``, the dry run's "baseline" profile)?  The
+    default, ``"chunked"``, is K5."""
+    if cfg.attention_impl not in ("chunked", "dense"):
+        raise ValueError(f"unknown attention_impl {cfg.attention_impl!r}")
+    return cfg.attention_impl == "dense"
+
+
 def attention_core(cfg, q, k, v, is_global: bool):
     """Causal self-attention over a full sequence whose positions are
     ``arange(S)`` (train / prefill): K5 on CUDA, its plain version on the
     CPU.  q: (B,S,H,D), k/v: (B,S,K,D) -> (B,S,H,D).  Global layers take
     no window, which is the reference mask ``causal & (within |
-    is_global)``."""
+    is_global)``.  ``attention_impl="dense"``: the reference's dense
+    attention instead, the scores and the softmax whole and its
+    probabilities rounded to the compute type."""
+    if _dense(cfg):
+        pos = torch.arange(q.shape[1], dtype=torch.int32, device=q.device)
+        mask = causal_window_mask(pos[None], pos[None], cfg.window, is_global)
+        return _gqa_scores_softmax_out(cfg, q, k, v, mask[:, None, None])
     window = 0 if is_global else cfg.window
     return _flash(q, k, v, causal=True, window=window)
 
@@ -423,7 +454,7 @@ def _mla_q(params, cfg, x):
     dt = x.dtype
     if cfg.q_lora_rank > 0:
         wq_a = weight_gather(params.cast("wq_a", dt), ("embed", "q_lora"))
-        cq = rmsnorm(params["q_norm"], x @ wq_a, cfg.norm_eps)
+        cq = rmsnorm(params["q_norm"], _flat_mm(x, wq_a), cfg.norm_eps)
         return _proj(cq, weight_gather(params.cast("wq_b", dt),
                                        ("q_lora", "heads", None)))
     return _proj(x, weight_gather(params.cast("wq", dt),
@@ -438,7 +469,7 @@ def _mla_kv(params, cfg, x, positions, gather: bool = False):
     wkv_a = params.cast("wkv_a", x.dtype)
     if gather:
         wkv_a = weight_gather(wkv_a, ("embed", None))
-    ckv = x @ wkv_a
+    ckv = _flat_mm(x, wkv_a)
     c_kv = rmsnorm(params["kv_norm"], ckv[..., :kr], cfg.norm_eps)
     k_rope = rope(ckv[..., kr:][:, :, None, :], positions,
                   cfg.rope_theta)[:, :, 0, :]
@@ -454,7 +485,8 @@ def mla_prefill(params, cfg: ModelConfig, x, positions):
     products for the scores (no-RoPE and RoPE dims) and, past
     ``attention_chunk_min_t``, streams key blocks; K5 takes the one
     (dn + dr)-wide product for both, which differs in f32 only in the order
-    of the sums."""
+    of the sums.  ``attention_impl="dense"``: the reference's dense branch
+    (:func:`_mla_dense`) instead of K5."""
     dt = x.dtype
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     B, S = x.shape[:2]
@@ -467,10 +499,33 @@ def mla_prefill(params, cfg: ModelConfig, x, positions):
     H = kv.shape[2]
     k = torch.cat([kv[..., :dn], k_rope[:, :, None, :].expand(B, S, H, dr)],
                   dim=-1)
-    out = _flash(q, k, kv[..., dn:], causal=True)
+    if _dense(cfg):
+        out = _mla_dense(cfg, q, k, kv[..., dn:])
+    else:
+        out = _flash(q, k, kv[..., dn:], causal=True)
     out = constrain(_out_proj(params, out, gather=True),
                     ("batch", "seq", "embed_act"))
     return out, c_kv, k_rope
+
+
+def _mla_dense(cfg, q, k, v):
+    """The reference's dense MLA (``attention_impl="dense"``): q/k (B,S,H,
+    dn+dr), v (B,S,H,dv); the scores two summed products, of the no-RoPE
+    and of the RoPE dims, in the compute type, lifted to f32 by the scale;
+    the causal softmax's probabilities rounded to the compute type.  Under
+    a mesh on each rank's heads (:func:`_by_heads`)."""
+    if is_distributed(q, k, v):
+        return _by_heads(lambda ql, kl, vl: _mla_dense(cfg, ql, kl, vl),
+                         q, k, v)
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    S = q.shape[1]
+    scores = (torch.einsum("bshd,bthd->bhst", q[..., :dn], k[..., :dn])
+              + torch.einsum("bshd,bthd->bhst", q[..., dn:], k[..., dn:]))
+    scores = scores.float() * (1.0 / math.sqrt(dn + dr))
+    pos = torch.arange(S, device=q.device)
+    mask = pos[:, None] >= pos[None, :]
+    w = torch.softmax(torch.where(mask, scores, NEG_INF), dim=-1).to(q.dtype)
+    return torch.einsum("bhst,bthd->bshd", w, v)
 
 
 def mla_apply(params, cfg: ModelConfig, x, positions):
@@ -582,20 +637,29 @@ def _top_k(probs, k: int):
     return top_p[:, :k], top_i[:, :k]
 
 
-def _experts(params, h, dt, rows=None):
+#: the logical axes of the reference's dispatch grids, each for the grid
+#: and for its hidden activations: the batch-local grids (B, X, C, E) and
+#: the global grid (X, C, E)
+_LOCAL_GRID = ("batch", "experts", None, None)
+_GLOBAL_GRID = ("experts", "moe_cap", None)
+#: a batch's tokens (B, S, E) and their routing (B, S, K)
+_TOKENS = ("batch", None, None)
+
+
+def _experts(params, h, dt, fence=None):
     """The SwiGLU experts on (X, rows, E) -> (X, rows, E), one batched
-    product a weight; ``h`` may broadcast over X.  ``rows``: the logical
-    axis of a grid's rows, which the grid and its hidden activations are
-    constrained to, as the reference's dispatch grids are."""
+    product a weight; ``h`` may broadcast over X.  ``fence``: the
+    reference's constraint of a grid, applied to the grid and to its hidden
+    activations."""
     wi = weight_gather(params.cast("wi", dt), ("experts", "embed", "mlp"))
     wg = weight_gather(params.cast("wg", dt), ("experts", "embed", "mlp"))
     wo = weight_gather(params.cast("wo", dt), ("experts", "mlp", "embed"))
-    if rows is not None:
-        h = constrain(h, ("experts", rows, None))
+    if fence is not None:
+        h = fence(h)
     g = torch.matmul(h, wg)
     h = F.silu(g) * torch.matmul(h, wi)
-    if rows is not None:
-        h = constrain(h, ("experts", rows, None))
+    if fence is not None:
+        h = fence(h)
     return torch.matmul(h, wo)
 
 
@@ -606,15 +670,23 @@ def _combine(ye, cell, top_p):
     return (ye[cell] * top_p[..., None]).sum(dim=1)
 
 
-def _moe_grid(params, xt, top_p, top_i, X, groups, C):
-    """Capacity-grid dispatch over ``groups`` equal runs of tokens (the
-    batch rows for the reference's batch-local grid, 1 for its global
-    grid): within a group the (token, slot) pairs are sorted stably by
-    expert, and a pair whose rank in its expert is C or more is dropped.
-    -> (out (T, E), dropped pairs, a 0-d tensor)."""
-    dt, dev = xt.dtype, xt.device
-    T, E = xt.shape
-    K = top_i.shape[1]
+def _rows_at(x, idx):
+    """The rows of x (n, E) at the indices ``idx``, a zero row where an
+    index is n -> idx.shape + (E,)."""
+    return torch.cat([x, x.new_zeros(1, x.shape[1])])[idx]
+
+
+def _moe_plan(top_i, X: int, groups: int, C: int):
+    """The capacity routing of the (token, slot) pairs ``top_i`` (T, K)
+    over ``groups`` equal runs of tokens (the batch rows for the batch-local
+    grids, 1 for the global grid): within a group the pairs are sorted
+    stably by expert, and a pair whose rank in its expert is C or more is
+    dropped.  -> (tok (groups, X, C): the token of each cell of the (X,
+    groups, C) grid, T where it is empty; cell (T, K): each pair's cell of
+    that grid, flattened, X·groups·C where the pair was dropped; the
+    dropped pairs, a 0-d tensor).  Integers, on plain tensors."""
+    dev = top_i.device
+    T, K = top_i.shape
     N = T // groups * K                                  # pairs a group
     flat_e = top_i.reshape(groups, N)
     order = torch.argsort(flat_e, dim=1, stable=True)    # group by expert
@@ -625,45 +697,201 @@ def _moe_grid(params, xt, top_p, top_i, X, groups, C):
     rank = (torch.arange(N, device=dev)[None]
             - starts.gather(1, e_sorted))
     keep = rank < C
-    # each pair's cell of the (X, groups, C) grid; a dropped pair points
-    # past it, at a zero row
     g = torch.arange(groups, device=dev)[:, None]
     cell_sorted = torch.where(keep, (e_sorted * groups + g) * C + rank,
                               X * groups * C)
     cell = torch.empty_like(cell_sorted).scatter_(1, order, cell_sorted)
     # the pair that fills cell (x, g, c) is the group's sorted pair
-    # starts[g, x] + c, if c < counts[g, x]; an empty cell reads row T,
-    # a zero row
+    # starts[g, x] + c, if c < counts[g, x]
     c = torch.arange(C, device=dev)
     at = (starts[:, :, None] + c).clamp(max=N - 1).reshape(groups, X * C)
     pair = order.gather(1, at).reshape(groups, X, C)
     tok = torch.where(c < counts[:, :, None],
                       g[:, :, None] * (T // groups) + pair // K, T)
-    x_pad = torch.cat([xt, xt.new_zeros(1, E)])
-    xg = x_pad[tok.transpose(0, 1).reshape(X, groups * C)]
-    # the global grid's capacity or the batch-local grids' (batch, capacity)
-    rows = "moe_cap" if groups == 1 else "batch"
-    ye = _experts(params, xg, dt, rows).reshape(X * groups * C, E)
-    ye = torch.cat([ye, ye.new_zeros(1, E)])
-    out = _combine(ye, cell.reshape(T, K), top_p)
-    return out, (~keep).sum()
+    return tok, cell.reshape(T, K), (~keep).sum()
+
+
+def _partial_grid(tokens_pl, grid_pl) -> tuple:
+    """The placements of a grid that each rank fills from its own tokens
+    (``tokens_pl``, their batch along dim 0): partial sums on the mesh
+    dimensions that shard the tokens, the grid's experts (dim 0) where
+    ``grid_pl`` shards them, replicated elsewhere."""
+    out = []
+    for t, g in zip(tokens_pl, grid_pl):
+        experts = isinstance(g, Shard) and g.dim == 0
+        if isinstance(t, Shard) and experts:
+            raise ValueError(f"one mesh dimension shards both the tokens "
+                             f"{tokens_pl} and the grid's experts {grid_pl}")
+        out.append(Partial() if isinstance(t, Shard)
+                   else g if experts else Replicate())
+    return tuple(out)
+
+
+def _combine_grid(ye, axes, cell, top_p, lead=None, cells=None, pad=True):
+    """out (B, S, E): each token's K expert outputs, the rows of ``ye`` at
+    ``cell`` (B, S, K), weighted by ``top_p`` (B, S, K) and summed in slot
+    order (:func:`_combine`); ``pad``: a dropped pair's cell points past
+    the rows, at a zero row.  ``ye``: the experts' outputs in a grid whose
+    dim 0 is the experts once ``lead`` (a view) has put them first;
+    ``cells``: ``cell`` from the routing, on local tensors (the dropless
+    form's).  Under a mesh it runs on each rank's local shards, ``ye`` at
+    the logical axes ``axes``: a rank that holds a block of the experts
+    sums the pairs of its experts and points the others at its zero row,
+    so its sums are partial over the experts' mesh dimensions."""
+    B, S, K = cell.shape
+    E = ye.shape[-1]
+
+    def local(yl, cl, pl, pls=None):
+        bl = cl.shape[0]
+        if cells is not None:
+            cl = cells(cl)
+        if lead is not None:
+            yl = lead(yl)
+        xl = yl.shape[0]
+        rows = yl.reshape(-1, E)
+        xi, xn = (0, 1) if pls is None else shard_block(active_mesh(),
+                                                        pls[0], xdim)
+        if xn > 1:                      # this rank's experts
+            per = rows.shape[0] // xl
+            e = cl // per
+            cl = torch.where((e >= xi * xl) & (e < (xi + 1) * xl),
+                             cl - xi * xl * per, xl * per)
+        if pad or xn > 1:
+            rows = torch.cat([rows, rows.new_zeros(1, E)])
+        return _combine(rows, cl.reshape(-1, K),
+                        pl.reshape(-1, K)).reshape(bl, S, E)
+
+    xdim = 1 if lead is not None else 0
+    if not is_distributed(ye, cell, top_p):
+        return local(ye, cell, top_p)
+    ye_pl = mesh_placements(axes, ye.shape)
+    out_pl = tuple(Partial() if isinstance(y, Shard) and y.dim == xdim
+                   else t for t, y in zip(
+                       mesh_placements(_TOKENS, (B, S, E)), ye_pl))
+    return run_local(local, [(ye, axes), (cell, _TOKENS), (top_p, _TOKENS)],
+                     [(out_pl, (B, S, E))])
+
+
+def _moe_grid_local(params, x, top_p, top_i, X, C):
+    """The reference's batch-local grids (``moe_impl="grid_local"``): a
+    capacity grid a batch row, (B, X, C, E), whose gathered rows and hidden
+    activations are constrained to ``("batch", "experts", None, None)``.
+    Under a mesh each rank routes its own batch rows on its local shards
+    (no collective) and fills its block of the experts.  Products run on
+    the grid as (X, B·C, E), a view of it.  -> (out (B, S, E), dropped
+    pairs, a 0-d tensor: under a mesh partial over the batch's mesh
+    dimensions)."""
+    dt = x.dtype
+    B, S, E = x.shape
+    K = top_i.shape[-1]
+    meshed = is_distributed(x, top_i)
+    xi, xn = (shard_block(active_mesh(), mesh_placements(
+        _LOCAL_GRID, (B, X, C, E)), 1) if meshed else (0, 1))
+
+    def dispatch(xl, il, _pls=None):
+        bl = xl.shape[0]
+        tok, cell, dropped = _moe_plan(il.reshape(bl * S, K), X, bl, C)
+        if xn > 1:                      # this rank's experts
+            tok = tok[:, xi * X // xn:(xi + 1) * X // xn]
+        xg = _rows_at(xl.reshape(bl * S, E), tok.transpose(0, 1))
+        return xg.transpose(0, 1), cell.reshape(bl, S, K), dropped
+
+    if meshed:
+        batch = mesh_placements(_TOKENS, (B, S, E))
+        xg, cell, dropped = run_local(
+            dispatch, [(x, _TOKENS), (top_i, _TOKENS)],
+            [(_LOCAL_GRID, (B, X, C, E)), (_TOKENS, (B, S, K)),
+             (tuple(Partial() if isinstance(p, Shard) else Replicate()
+                    for p in batch), ())])
+    else:
+        xg, cell, dropped = dispatch(x, top_i)
+
+    def grid(t):        # (X, B·C, n) -> the (B, X, C, n) grid, a view
+        return reshape(t, (X, B, C, t.shape[-1])).transpose(0, 1)
+
+    def rows(t):        # the grid -> (X, B·C, n)
+        return reshape(t.transpose(0, 1), (X, B * C, t.shape[-1]))
+
+    ye = _experts(params, rows(xg), dt,
+                  lambda t: rows(constrain(grid(t), _LOCAL_GRID)))
+    out = _combine_grid(grid(ye), _LOCAL_GRID, cell, top_p,
+                        lead=lambda y: y.transpose(0, 1))
+    return out, dropped
+
+
+def _moe_grid_global(params, x, top_p, top_i, X, C):
+    """The reference's global grid (``moe_impl="grid"``): one capacity grid
+    (X, C, E) over all B·S tokens in their global order, the grid and its
+    hidden activations constrained to ``("experts", "moe_cap", None)``.
+    Under a mesh every rank ranks all the pairs (the (B, S, K) experts
+    gathered over the batch: integers), so a sharded run keeps and drops
+    the pairs one process does.  Each rank fills the rows of its block of
+    the experts from its own tokens, zeros where another rank holds the
+    token, and the grid's constraint sums the ranks' grids over the batch's
+    mesh dimensions (an all-reduce, a reduce-scatter where "moe_cap"
+    shards).  The combine brings each expert's rows back to the ranks of
+    its tokens.  -> (out (B, S, E), dropped pairs, a 0-d tensor)."""
+    dt = x.dtype
+    B, S, E = x.shape
+    K = top_i.shape[-1]
+    T = B * S
+    meshed = is_distributed(x, top_i)
+    xi, xn, bi, bn = 0, 1, 0, 1
+    if meshed:
+        mesh = active_mesh()
+        batch = mesh_placements(_TOKENS, (B, S, E))
+        grid_pl = _partial_grid(batch, mesh_placements(_GLOBAL_GRID,
+                                                       (X, C, E)))
+        (xi, xn), (bi, bn) = (shard_block(mesh, grid_pl, 0),
+                              shard_block(mesh, batch, 0))
+
+    def dispatch(xl, il, _pls=None):
+        tok, cell, dropped = _moe_plan(il.reshape(T, K), X, 1, C)
+        tok, tl = tok[0], xl.shape[0] * S
+        if xn > 1:                      # this rank's experts
+            tok = tok[xi * X // xn:(xi + 1) * X // xn]
+        if bn > 1:                      # this rank's tokens
+            tok = tok - bi * tl
+            tok = torch.where((tok >= 0) & (tok < tl), tok, tl)
+            cell = cell[bi * tl:(bi + 1) * tl]
+        return (_rows_at(xl.reshape(tl, E), tok), cell.reshape(-1, S, K),
+                dropped)
+
+    if meshed:
+        xg, cell, dropped = run_local(
+            dispatch, [(x, _TOKENS), (top_i, (None, None, None))],
+            [(grid_pl, (X, C, E)), (_TOKENS, (B, S, K)), ((), ())])
+    else:
+        xg, cell, dropped = dispatch(x, top_i)
+    ye = _experts(params, xg, dt, lambda t: constrain(t, _GLOBAL_GRID))
+    return _combine_grid(ye, ("experts", None, None), cell, top_p), dropped
 
 
 def _moe_dropless(params, xt, top_p, top_i, X):
     """Dropless dispatch (the reference's ``ragged_dot``): every expert
     runs every token, one batched product a weight whatever the routing,
-    and each token takes the rows of its K experts.  The products a pair
-    needs are the ones ``ragged_dot`` computes; the other X - K rows a token
-    cost X/K times the work, which keeps the launch count independent of
-    the routing.  It also reads every expert's weights, where
-    ``ragged_dot`` reads only those of the experts that hold a pair, at
-    most T·K of the X: at the decode's 4 tokens that is 32 of granite's 40
-    experts but 24 of deepseek-v2's 160, so there the step reads at least
-    160/24 = 6.7 times the expert bytes it needs (ROADMAP.md, Queue 1)."""
-    T, E = xt.shape
-    ye = _experts(params, xt[None], xt.dtype).reshape(X * T, E)
-    cell = top_i * T + torch.arange(T, device=xt.device)[:, None]
-    return _combine(ye, cell, top_p)
+    and each token takes the rows of its K experts (xt (T, E); top_p,
+    top_i (B, S, K); -> (B, S, E)).  The products a pair needs are the ones
+    ``ragged_dot`` computes; the other X - K rows a token cost X/K times
+    the work, which keeps the launch count independent of the routing.  It
+    also reads every expert's weights, where ``ragged_dot`` reads only
+    those of the experts that hold a pair, at most T·K of the X: at the
+    decode's 4 tokens that is 32 of granite's 40 experts but 24 of
+    deepseek-v2's 160, so there the step reads at least 160/24 = 6.7 times
+    the expert bytes it needs (ROADMAP.md, Queue 1).  Under a mesh the
+    rows are gathered by cell on each rank's local shards
+    (:func:`_combine_grid`)."""
+    B, S, K = top_i.shape
+    E = xt.shape[-1]
+    ye = _experts(params, xt[None], xt.dtype)            # (X, T, E)
+
+    def cells(il):                      # a local token's row of its expert
+        n = il.shape[0] * S
+        return il * n + torch.arange(n, device=il.device).view(-1, S, 1)
+
+    return _combine_grid(reshape(ye, (X, B, S, E)),
+                         ("experts", "batch", None, None), top_i, top_p,
+                         cells=cells, pad=False)
 
 
 def moe_apply(params, cfg: ModelConfig, x, dropless: bool = False,
@@ -674,33 +902,36 @@ def moe_apply(params, cfg: ModelConfig, x, dropless: bool = False,
     * ``dropless=True`` or ``moe_impl="ragged"``: exact, no capacity
       (:func:`_moe_dropless`; the reference's decode path);
     * ``moe_impl="grid"``: one capacity grid over all B·S tokens, C =
-      ceil(B·S·K/X·cf);
-    * otherwise (``"grid_local"``): a grid a batch row, C = ceil(S·K/X·cf).
+      ceil(B·S·K/X·cf) (:func:`_moe_grid_global`);
+    * otherwise (``"grid_local"``): a grid a batch row, C = ceil(S·K/X·cf)
+      (:func:`_moe_grid_local`).
 
     Pairs past capacity are dropped (standard capacity-factor semantics).
     Shared experts, if any, are added after.  ``routing``, a list, gets one
-    :class:`Routing` a call."""
+    :class:`Routing` a call.  Under a mesh the routing's bookkeeping
+    (argsort, counts, ranks, cells) and the gathers by index run on each
+    rank's local shards (:func:`~repro_torch.distributed.sharding.
+    run_local`); the products and the reference's constraints on DTensors."""
     dt = x.dtype
     B, S, E = x.shape
     X, K = cfg.n_experts, cfg.experts_per_token
     T = B * S
-    xt = x.reshape(T, E)
+    xt = reshape(x, (T, E))
 
     logits = xt @ params.cast("router", dt)
     probs = torch.softmax(logits.float(), dim=-1)
     top_p, top_i = _top_k(probs, K)
     top_p = (top_p / top_p.sum(dim=-1, keepdim=True)).to(dt)
+    bp, bi = reshape(top_p, (B, S, K)), reshape(top_i, (B, S, K))
 
     if dropless or cfg.moe_impl == "ragged":
-        out = _moe_dropless(params, xt, top_p, top_i, X)
-        dropped = None
+        out, dropped = _moe_dropless(params, xt, bp, bi, X), None
     elif cfg.moe_impl == "grid":
-        out, dropped = _moe_grid(params, xt, top_p, top_i, X, 1,
-                                 _capacity(T, cfg))
+        out, dropped = _moe_grid_global(params, x, bp, bi, X,
+                                        _capacity(T, cfg))
     else:
-        out, dropped = _moe_grid(params, xt, top_p, top_i, X, B,
-                                 _capacity(S, cfg))
-    out = out.reshape(B, S, E)
+        out, dropped = _moe_grid_local(params, x, bp, bi, X,
+                                       _capacity(S, cfg))
     if cfg.n_shared_experts > 0:
         out = out + mlp_apply(params["shared"], x)
     out = constrain(out, ("batch", "seq", "embed_act"))

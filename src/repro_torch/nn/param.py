@@ -143,6 +143,8 @@ class Params(nn.Module):
         if (self.grad_dtype is not None and isinstance(t, nn.Parameter)
                 and t.requires_grad and torch.is_grad_enabled()
                 and t.is_floating_point()):
+            if _is_dtensor(t):
+                return _ShardedCast.apply(t, self.grad_dtype)
             return t.to(self.grad_dtype)
         return t
 
@@ -168,6 +170,33 @@ class Params(nn.Module):
         for m in self.modules():
             if isinstance(m, Params):
                 m._casts.clear()
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+class _ShardedCast(torch.autograd.Function):
+    """A DTensor parameter read in ``dtype`` under grad, whose gradient
+    takes the parameter's own placements as the backward reaches it (in
+    the parameter's type, then reduce-scattered where the products left
+    partial sums), as the reference's gradient is sharded as its
+    parameter.  DTensor alone would keep the products' partial sums, a
+    full-size tensor a rank, until the optimizer."""
+
+    @staticmethod
+    def forward(ctx, p, dtype):
+        ctx.dtype, ctx.mesh, ctx.placements = (p.dtype, p.device_mesh,
+                                               tuple(p.placements))
+        return p.to(dtype) if p.dtype != dtype else p.view_as(p)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.to(ctx.dtype)
+        if _is_dtensor(g) and tuple(g.placements) != ctx.placements:
+            g = g.redistribute(ctx.mesh, ctx.placements)
+        return g, None
 
 
 def distribute(params: nn.Module, mesh, rules) -> nn.Module:

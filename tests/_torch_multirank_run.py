@@ -4,7 +4,8 @@
     python tests/_torch_multirank_run.py WORKDIR
 
 reads ``WORKDIR/inputs.pkl`` (the cases: each a config, the reference's
-parameters as numpy arrays, a host batch, its steps and its AdamW), spawns
+parameters as numpy arrays, a host batch, its steps, its AdamW and its rule
+overrides, where not the config's own ``strategy.rules_for``), spawns
 the ranks, which meet through a ``FileStore`` in ``WORKDIR``, and writes
 what rank 0 gathered to ``WORKDIR/result.pkl``, with the collectives of
 one more qwen2 step that rank 0 recorded (:func:`record_step`).  :func:`run_case` is also
@@ -32,7 +33,8 @@ def run_case(cfg, tree, batch, mesh=None, rules=None, steps=STEPS,
     on the cache (f32, zeros) at position 0 with the batch's first tokens
     (``chip_smoke.dist_decode``): un-meshed (``mesh`` None) or sharded by
     ``rules``.  -> {"losses", "grad_norms", "params", "grads" (the first
-    step's), "logits"} on the host."""
+    step's), "dropped" (each MoE layer call's dropped pairs), "logits"} on
+    the host."""
     if ROOT not in sys.path:        # chip_smoke.py holds the one harness
         sys.path.append(ROOT)
     from chip_smoke import dist_decode, dist_train
@@ -50,7 +52,8 @@ def run_case(cfg, tree, batch, mesh=None, rules=None, steps=STEPS,
                          torch.as_tensor(batch["tokens"][:, :1]), 0, mesh,
                          rules)
     return {"losses": run["losses"], "grad_norms": run["grad_norms"],
-            "params": run["params"], "grads": run["grads"], "logits": logits}
+            "params": run["params"], "grads": run["grads"],
+            "dropped": run["dropped"], "logits": logits}
 
 
 def record_step(cfg, tree, batch, mesh, rules):
@@ -103,9 +106,11 @@ def _rank(rank, world, workdir):
         result = {}
         for name, case in inputs["cases"].items():
             cfg = case["cfg"]
+            rules = (strategy.rules_for(cfg) if case.get("rules") is None
+                     else strategy.make_rules(**case["rules"]))
             result[name] = run_case(cfg, case["tree"], case["batch"], mesh,
-                                    strategy.rules_for(cfg),
-                                    steps=case["steps"], opt=case["opt"])
+                                    rules, steps=case["steps"],
+                                    opt=case["opt"])
 
         # one step as the dry run traces it, its collectives recorded
         case = inputs["cases"]["qwen2"]

@@ -12,9 +12,11 @@
   process group outlives it.
 * An un-meshed cell traced on meta tensors holds the fake trace's ops,
   bytes and peak; meta tensors take the card's route only in a trace.
-* The refusals: the reference's "baseline" profile, a second process
-  group, ``abstract_params`` outside a fake mode off meta; ``make_mesh``
-  takes a CUDA mesh without a card on a fake group only.
+* The reference's "baseline" profile on a cut cell through the CLI, and
+  the MoE families' cells, cut, on both production meshes.
+* The refusals: a second process group, ``abstract_params`` outside a
+  fake mode off meta; ``make_mesh`` takes a CUDA mesh without a card on a
+  fake group only.
 """
 import dataclasses
 import json
@@ -31,6 +33,7 @@ from repro_torch.distributed import strategy
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_mesh, make_production_mesh
 from repro_torch.models.common import param_tree
+from repro_torch.nn import layers as L
 from repro_torch.nn import param as pm
 from repro_torch.tree import leaves
 
@@ -92,7 +95,7 @@ def test_param_bytes_per_device_equal_the_reference(arch, multi_pod):
 
 #: every key of a port artifact (the reference's, ``trace_s`` for its
 #: ``compile_s``, the trace's block for ``xla_cost_analysis``)
-KEYS = {"profile", "arch", "shape", "kind", "mesh", "mesh_shape",
+KEYS = {"profile", "rules", "n_layers", "arch", "shape", "kind", "mesh", "mesh_shape",
         "n_devices", "seq_len", "global_batch", "trace_s", "trace_device",
         "param_bytes_per_device", "n_params", "memory_analysis",
         "trace_analysis", "hlo_flops", "hlo_hbm_bytes", "collective_bytes",
@@ -237,12 +240,87 @@ def test_meta_takes_the_card_route_only_in_a_trace():
         k5.flash_attention(q, q, q)
 
 
-def test_baseline_profile_is_refused(tmp_path, capsys):
-    with pytest.raises(SystemExit):
-        dryrun.main(["--arch", "qwen2-1.5b", "--profile", "baseline",
-                     "--out", str(tmp_path)])
-    assert "not ported yet" in capsys.readouterr().err
+def test_baseline_profile_traces_a_cut_cell(tmp_path, capsys):
+    """``--profile baseline``: qwen2-1.5b's prefill_32k on the (16, 16)
+    mesh cut to 2 layers, through the CLI.  The artifact names its profile,
+    its depth and its rules (the reference's baseline overrides: no
+    weight-gather FSDP, the grids' capacity replicated), and its attention
+    is the reference's dense one: no K5 call."""
+    rc = dryrun.main(["--arch", "qwen2-1.5b", "--shape", "prefill_32k",
+                      "--mesh", "single", "--profile", "baseline",
+                      "--layers", "2", "--out", str(tmp_path)])
+    assert rc == 0, capsys.readouterr().out[-2000:]
     assert not dist.is_initialized()
+    name = "qwen2_1_5b__prefill_32k__single__baseline__2layers.json"
+    with open(tmp_path / name) as f:
+        art = json.load(f)
+    assert art["profile"] == "baseline" and art["n_layers"] == 2
+    assert art["rules"]["moe_cap"] is None
+    assert art["rules"]["_weight_gather"] is False
+    assert art["rules"]["batch"] == ["pod", "data"]
+    assert set(art["trace_analysis"]["custom_op_calls"].values()) == {0}
+    assert art["trip_counts"] == [["layers", 2]]
+
+
+#: the MoE cells, each cut to 2 layers and, for a train cell, to one of
+#: its micro-batches (the loop repeats the same ops): the (X, C) grid's
+#: experts a rank holds (granite's replicated, deepseek's over "model")
+MOE_CELLS = [(arch, shape, mesh) for arch in ("granite-moe-3b-a800m",
+                                              "deepseek-v2-236b")
+             for shape in ("train_4k", "decode_32k")
+             for mesh in ("single", "multi")]
+
+
+@pytest.mark.parametrize("arch,shape_name,mesh_name", MOE_CELLS)
+def test_moe_cells_trace_on_the_production_meshes(arch, shape_name,
+                                                  mesh_name):
+    """The MoE families through the rules on the fake (16, 16) and (2, 16,
+    16) meshes: granite's batch-local grids (experts replicated, tensor
+    parallelism inside them), deepseek's global grid (experts over
+    "model", the capacity replicated) and the dropless decode.  A train
+    cell's grid rows are its rank's: granite's (X, B·C/ranks, E) with its
+    own batch rows, deepseek's (X/16, C, E); K5's forward runs twice a
+    layer (remat "full") and its backward once; the decode runs no K5."""
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.train.steps import TrainConfig
+
+    cfg, rules = dryrun.cell_config(arch, layers=2)
+    shape = SHAPES[shape_name]
+    accum = strategy.train_config_for(cfg, shape_name).accum_steps
+    if shape.kind == "train":
+        shape = dataclasses.replace(shape,
+                                    global_batch=shape.global_batch // accum)
+    multi = mesh_name == "multi"
+    with dryrun.fake_group(512 if multi else 256):
+        mesh = make_production_mesh(multi_pod=multi, device="cpu")
+        with FakeTensorMode(), dryrun.use_mesh_rules(mesh, rules):
+            cell = dryrun.trace_cell(cfg, shape, mesh, rules, "cpu",
+                                     TrainConfig(accum_steps=1))
+    assert not dist.is_initialized()
+    trace = cell["trace"]
+    calls = {n: trace.calls("repro_torch." + n)
+             for n in ("flash_fwd", "flash_bwd")}
+    assert calls == ({"flash_fwd": 4, "flash_bwd": 2}
+                     if shape.kind == "train" else
+                     {"flash_fwd": 0, "flash_bwd": 0})
+    # the gathers by index: the grid's rows (train), the rows each token
+    # takes of the experts' outputs (the dropless decode)
+    index = [(op.shapes[0], op.shapes[1]) for op in trace.ops
+             if op.name == "aten.index.Tensor"]
+    X, K = cfg.n_experts, cfg.experts_per_token
+    ranks = 32 if multi else 16
+    bl = shape.global_batch // ranks            # a rank's batch rows
+    if shape.kind == "train" and arch.startswith("granite"):
+        C = L._capacity(shape.seq_len, cfg)
+        assert (X, bl, C) in [i for _, i in index]
+    elif shape.kind == "train":
+        C = L._capacity(shape.global_batch * shape.seq_len, cfg)
+        assert (X // 16, C) in [i for _, i in index]
+    else:
+        # deepseek's rank holds 10 of the experts and points a pair of
+        # another's at a zero row
+        rows = bl * X if arch.startswith("granite") else bl * X // 16 + 1
+        assert (rows, (bl, K)) in [(r[0], i) for r, i in index]
 
 
 def test_fake_group_is_destroyed_and_refuses_a_second():

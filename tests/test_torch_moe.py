@@ -357,3 +357,54 @@ def test_forced_experts_give_the_same_bits():
         assert torch.equal(cache[name], cache_f[name])
     drops = [int(r.dropped) for r in own]
     assert drops == [int(r.dropped) for r in routing] and min(drops) > 0
+
+
+#: (arch, moe_impl, dropless): granite's batch-local grid, deepseek-v2's
+#: global grid (with its shared expert), and the dropless decode of each
+CONSTRAIN_CASES = [("granite_moe_3b", "grid_local", False),
+                   ("deepseek_v2_236b", "grid", False),
+                   ("granite_moe_3b", "grid_local", True),
+                   ("deepseek_v2_236b", "grid", True)]
+
+
+@pytest.mark.parametrize("arch,impl,dropless", CONSTRAIN_CASES)
+def test_moe_constraints_are_the_references(arch, impl, dropless):
+    """Every ``constrain`` of one MoE layer, as (logical axes, shape), in
+    both packages, call for call: the batch-local grid (B, X, C, E) and its
+    hidden activations under ("batch", "experts", None, None), the global
+    grid (X, C, E) under ("experts", "moe_cap", None), a shared expert's,
+    the output's.  The reference's module attribute is patched in this
+    test; no file of it changes."""
+    rc = dataclasses.replace(ref_config(arch, smoke=True),
+                             compute_dtype="float32", moe_impl=impl)
+    pc = dataclasses.replace(get_config(arch, smoke=True),
+                             compute_dtype="float32", moe_impl=impl)
+    tree, params = _layer(rc, pc)
+    x = _x(pc, 7)
+    calls = {"ref": [], "port": []}
+
+    def recorder(name, fn):
+        def rec(t, axes, *a, **kw):
+            calls[name].append((tuple(axes), tuple(t.shape)))
+            return fn(t, axes, *a, **kw)
+        return rec
+
+    with mock.patch.object(RL, "constrain", recorder("ref", RL.constrain)):
+        RL.moe_apply(tree, rc, jnp.asarray(x), dropless=dropless)
+    with mock.patch.object(L, "constrain", recorder("port", L.constrain)):
+        L.moe_apply(params, pc, torch.as_tensor(x), dropless=dropless)
+    assert calls["port"] == calls["ref"]
+    X, K = pc.n_experts, pc.experts_per_token
+    grids = [c for c in calls["port"] if c[0][0] != "batch" or
+             c[0][1] == "experts"]
+    if dropless:
+        assert grids == []
+    elif impl == "grid":
+        C = L._capacity(B * S, pc)
+        assert grids == [(("experts", "moe_cap", None), (X, C, pc.d_model)),
+                         (("experts", "moe_cap", None), (X, C, pc.d_ff))]
+    else:
+        C = L._capacity(S, pc)
+        axes = ("batch", "experts", None, None)
+        assert grids == [(axes, (B, X, C, pc.d_model)),
+                         (axes, (B, X, C, pc.d_ff))]

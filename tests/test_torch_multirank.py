@@ -1,8 +1,10 @@
 """The port's distributed layer on ranks of a gloo process group on the CPU.
 
 Eight ranks on a (4, 2) ("data", "model") mesh, one subprocess that spawns
-them (``tests/_torch_multirank_run.py``): qwen2 and rwkv6 smoke configs in
-f32, the reference's parameters carried across, train 4 sharded steps of
+them (``tests/_torch_multirank_run.py``): qwen2, rwkv6, granite-moe and
+deepseek-v2 smoke configs in f32 (the MoE ones at capacity factor 0.5, so
+their grids drop pairs, each layer as many as one process drops), the
+reference's parameters carried across, train 4 sharded steps of
 B 8, S 32 in 2 micro-batches by the reference's ``TrainConfig(accum_steps=2)``
 and decode one step on the sharded cache, as the reference's
 ``tests/test_multidevice.py`` tries to.  The reference's own 8-device run
@@ -45,7 +47,7 @@ LOSS_RTOL, PARAM_REL_L2, PARAM_ATOL, LOGITS_ATOL = 1e-5, 1e-4, 1e-5, 1e-4
 #: out) and the global norm's relative gap
 GRAD_REL_L2, GRAD_NORM_RTOL = 1e-4, 1e-5
 #: the subprocess's own limit (import, spawn and every case)
-TIMEOUT_S = 300
+TIMEOUT_S = 480
 
 
 F32 = {"compute_dtype": "float32"}
@@ -71,23 +73,40 @@ def _batch(cfg, B=8, S=32, seed=1):
     return {"tokens": tokens, "labels": np.roll(tokens, -1, 1)}
 
 
+#: the MoE cases' capacity factor: every layer's grids drop pairs
+MOE_F32 = {**F32, "capacity_factor": 0.5}
+#: the cases of the sharded run
+NAMES = ("qwen2", "rwkv6", "gqa", "granite", "deepseek")
+
+
 def _cases():
-    """name -> {"cfg", "tree", "batch", "steps", "opt"}: qwen2 and rwkv6 on
-    the reference's ``TrainConfig(accum_steps=2)`` schedule (lr 3e-4 warmed
-    up over 100 steps); the GQA case one step that moves the weights (lr
-    3e-3, no warm-up: ``chip_smoke.dist_train``'s AdamW, ``opt`` None)."""
+    """name -> {"cfg", "tree", "batch", "steps", "opt", "rules"}: qwen2,
+    rwkv6 and the MoE cases on the reference's ``TrainConfig(accum_steps=2)``
+    schedule (lr 3e-4 warmed up over 100 steps); the GQA case one step that
+    moves the weights (lr 3e-3, no warm-up: ``chip_smoke.dist_train``'s
+    AdamW, ``opt`` None).  granite-smoke runs granite's own rules (its
+    experts replicated, tensor parallelism inside them: batch-local grids
+    with no collective in the routing); deepseek-smoke the default ones
+    (its 8 experts over "model", the global grid's capacity over "data":
+    the grid's partial sums reduce-scattered)."""
+    from repro_torch.distributed import strategy
     from repro_torch.optim.adamw import AdamWConfig
 
     out = {}
-    for name, arch, fields, steps, opt in (
-            ("qwen2", "qwen2-1.5b", F32, RUN.STEPS, AdamWConfig()),
-            ("rwkv6", "rwkv6-3b", F32, RUN.STEPS, AdamWConfig()),
+    for name, arch, fields, steps, opt, rules in (
+            ("qwen2", "qwen2-1.5b", F32, RUN.STEPS, AdamWConfig(), None),
+            ("rwkv6", "rwkv6-3b", F32, RUN.STEPS, AdamWConfig(), None),
             # 4 q heads to 1 KV head: a rank's 2 q heads are fewer than
             # the group of 4
-            ("gqa", "qwen2-1.5b", {**F32, "n_kv_heads": 1}, 1, None)):
+            ("gqa", "qwen2-1.5b", {**F32, "n_kv_heads": 1}, 1, None, None),
+            ("granite", "granite-moe-3b-a800m", MOE_F32, RUN.STEPS,
+             AdamWConfig(), strategy.RULE_OVERRIDES["granite-moe-3b-a800m"]),
+            ("deepseek", "deepseek-v2-236b", MOE_F32, RUN.STEPS,
+             AdamWConfig(), None)):
         cfg = dataclasses.replace(get_config(arch, smoke=True), **fields)
         out[name] = {"cfg": cfg, "tree": _ref_tree(arch, **fields),
-                     "batch": _batch(cfg), "steps": steps, "opt": opt}
+                     "batch": _batch(cfg), "steps": steps, "opt": opt,
+                     "rules": rules}
     return out
 
 
@@ -129,7 +148,7 @@ def _rel_l2(a, b):
 
 
 @pytest.mark.parametrize("name,part", [
-    (name, part) for name in ("qwen2", "rwkv6", "gqa")
+    (name, part) for name in NAMES
     for part in ("losses", "params", "logits")])
 def test_sharded_run_matches_single_process(runs, name, part):
     """Eight ranks against one process: the losses of every step, every
@@ -167,7 +186,7 @@ def test_sharded_run_matches_single_process(runs, name, part):
         assert gap <= LOGITS_ATOL
 
 
-@pytest.mark.parametrize("name", ["qwen2", "rwkv6", "gqa"])
+@pytest.mark.parametrize("name", NAMES)
 def test_sharded_first_step_gradients_match_single_process(runs, name):
     """The first step's gradients (each DTensor's whole, before the
     optimizer) against one process's, leaf by leaf, and their global norm:
@@ -185,6 +204,23 @@ def test_sharded_first_step_gradients_match_single_process(runs, name):
     assert all(np.isfinite(r) for r in rels)
     assert max(rels) <= GRAD_REL_L2, rels
     assert abs(norm[0] - norm[1]) <= GRAD_NORM_RTOL * norm[1]
+
+
+@pytest.mark.parametrize("name", ["granite", "deepseek"])
+def test_sharded_moe_drops_the_single_process_pairs(runs, name):
+    """Each MoE layer call's dropped (token, slot) pairs, summed over the
+    ranks, equal one process's exactly: granite's batch-local grids by
+    batch row, deepseek's global grid over every token in their global
+    order (each rank ranks the gathered experts of all of them).  At
+    capacity factor 0.5 every call drops pairs; a call is a layer's
+    forward on a micro-batch (remat's recomputation stops at the layer's
+    last saved tensor, before the MoE call returns)."""
+    inputs, result, single = runs
+    case = inputs["cases"][name]
+    got, want = result[name]["dropped"], single[name]["dropped"]
+    print(f"{name} dropped pairs by call: {got}")
+    assert len(want) == case["steps"] * RUN.ACCUM * case["cfg"].n_layers
+    assert got == want and min(want) > 0
 
 
 def test_device_put_batch_shards_are_rows_of_the_host_batch(runs):
@@ -227,12 +263,14 @@ def test_compressed_psum_along_sums_the_local_decodes(runs, axis):
             torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "rwkv6-3b",
+                                  "granite-moe-3b-a800m", "deepseek-v2-236b"])
 def test_one_rank_mesh_step_is_the_unmeshed_step_bit_for_bit(arch):
     """One gloo rank, the (1, 1) smoke mesh (every placement a size-1
     shard or a replica): the meshed smoke step (the config as it is, bf16
-    compute) gives the un-meshed step's losses, parameters and decode
-    logits bit for bit."""
+    compute; the MoE configs at capacity factor 0.5, so their grids drop
+    pairs) gives the un-meshed step's losses, parameters, dropped pairs
+    and decode logits bit for bit."""
     import torch.distributed as dist
 
     from repro_torch.distributed import strategy
@@ -240,6 +278,8 @@ def test_one_rank_mesh_step_is_the_unmeshed_step_bit_for_bit(arch):
     from repro_torch.models.common import get_family, init_model
 
     cfg = get_config(arch, smoke=True)
+    if cfg.is_moe:
+        cfg = dataclasses.replace(cfg, capacity_factor=0.5)
     ref_tree = _param_tree_np(init_model(get_family(cfg), cfg,
                                          torch.Generator().manual_seed(3)))
     batch = _batch(cfg)
@@ -257,6 +297,8 @@ def test_one_rank_mesh_step_is_the_unmeshed_step_bit_for_bit(arch):
         for g, w in zip(got[part], want[part]):
             assert torch.equal(g, w), part
     assert torch.equal(got["logits"], want["logits"])
+    assert got["dropped"] == want["dropped"]
+    assert (min(want["dropped"]) > 0) if cfg.is_moe else not want["dropped"]
 
 
 def _param_tree_np(model):
