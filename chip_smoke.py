@@ -296,6 +296,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -4034,11 +4035,12 @@ def dist_train(dev, cfg, batch, steps, accum, mesh=None, rules=None,
 
 
 def dist_decode(dev, cfg, model, shape, cache, tokens, pos, mesh=None,
-                rules=None):
+                rules=None, with_cache=False):
     """One eager decode step of ``model`` at ``pos`` on a copy of
     ``cache``, un-meshed or with the cache and tokens placed by
     ``decode_specs`` (the cache keeps its own dtype) -> the logits on the
-    host."""
+    host; with ``with_cache``, (the logits, the copy after the step, its
+    entries DTensors on a mesh)."""
     import torch
     from torch.distributed.tensor import distribute_tensor
 
@@ -4051,7 +4053,8 @@ def dist_decode(dev, cfg, model, shape, cache, tokens, pos, mesh=None,
     with torch.no_grad():
         if mesh is None:
             logits, _ = fam.decode_step(model, cfg, cache, tokens, pos)
-            return host_copy(logits)
+            return (host_copy(logits), cache) if with_cache else \
+                host_copy(logits)
         with use_mesh_rules(mesh, rules):
             specs = decode_specs(cfg, shape, mesh, rules)
             for k, v in specs["cache"].items():
@@ -4064,7 +4067,8 @@ def dist_decode(dev, cfg, model, shape, cache, tokens, pos, mesh=None,
             logits, _ = fam.decode_step(model, cfg, cache,
                                         put(tokens, specs["tokens"].spec),
                                         pos)
-            return host_copy(logits)
+            return (host_copy(logits), cache) if with_cache else \
+                host_copy(logits)
 
 
 def dist_prefill(dev, cfg, prompts, tokens, shape, mesh=None, rules=None,
@@ -4218,6 +4222,121 @@ def dist_split_checks(dev, seed):
             + ", ".join(f"{m} {e}" for m, e in same.items()))
         check(all(same.values()),
               f"dist split K6 into {n} blocks differs from the full call")
+
+
+#: flash-decode's position splits held on one card: (label, q's shape,
+#: the cache's (B, T, K, D), window, is_global, block counts).  qwen2-1.5b's
+#: serve decode, and gemma3-12b's long_500k global and local layers
+DIST_DECODE_SPLITS = (
+    ("qwen2-1.5b", (4, 1, 12, 128), (4, 32768, 2, 128), 0, True,
+     (2, 4, 8, 16)),
+    ("gemma3-12b global", (1, 1, 16, 256), (1, 524288, 8, 256), 1024, True,
+     (16, 256)),
+    ("gemma3-12b local", (1, 1, 16, 256), (1, 524288, 8, 256), 1024, False,
+     (16, 256)))
+#: deepseek-v2-236b's MLA decode: 128 heads, the compressed cache (B, T,
+#: kv_lora 512) and (B, T, rope 64), q/k heads 128 + 64 wide, in 16 blocks
+DIST_MLA_SPLIT = (4, 32768, 128, 512, 64, 128, 16)
+#: the split against the whole positions, relative L2: f32 (the sums'
+#: order), bf16 two units of bf16 roundoff (u = 2**-8): each path rounds
+#: the output once, and a weight rounds apart only where its f32 value
+#: lies within the denominator's reordering of a rounding boundary
+DECODE_SPLIT_F32, DECODE_SPLIT_BF16 = 1e-5, 2 * 2.0 ** -8
+
+
+def dist_decode_splits(dev, seed):
+    """Flash-decode's local step and combine at full width on the card:
+    the cache's positions cut into n blocks as n ranks of a mesh hold them,
+    side by side (``layers.fold_blocks``), each block's step the function
+    the mesh calls (``layers.gqa_decode_block``, ``mla_decode_block``) and
+    the all-reduces a max or sum over the blocks (``layers.block_reduce``).
+    Each split, at a position on a block boundary (T / 2), is held to the
+    whole-positions path on plain tensors (``layers._decode_attention``,
+    ``layers._mla_attention``), in f32 and in bf16, its distance printed;
+    the same split with the partials of the block that holds position
+    T / 2 - 1 dropped from the sums must fail the gate.  The whole path's
+    bf16 products accumulate in f32 throughout, as the reference's dot
+    does (cuBLAS's reduced-precision split-K reduction is off for the
+    check)."""
+    import torch
+
+    matmul = torch.backends.cuda.matmul
+    reduced = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        _decode_splits(dev, seed)
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+
+
+def _decode_splits(dev, seed):
+    import types
+
+    import torch
+
+    from repro_torch.nn import layers as L
+
+    g = torch.Generator(dev).manual_seed(seed + 4)
+
+    def dropping(n, block):             # the planted fault
+        def reduce(x, op):
+            xs = x.unflatten(0, (n, -1))
+            keep = torch.arange(n, device=x.device) != block
+            r = xs.amax(0) if op == "max" else xs[keep].sum(0)
+            return r.repeat(n, *(1,) * (r.dim() - 1))
+        return reduce
+
+    def held(label, T, n, want, split, gate):
+        rel = _rel_l2(split(L.block_reduce(n)), want)
+        bad = _rel_l2(split(dropping(n, (T // 2 - 1) // (T // n))), want)
+        log(f"dist decode split {label}, {n} blocks of {T // n}: relative "
+            f"L2 {rel:.3e} (gate {gate:.3e}); a block dropped {bad:.3e}")
+        check(rel <= gate, f"dist decode split {label} into {n} blocks "
+              f"differs from the whole positions: {rel:.3e}")
+        check(bad > gate, f"dist decode split {label}: a dropped block "
+              f"passes the gate ({bad:.3e})")
+
+    for label, qs, cs, window, is_global, splits in DIST_DECODE_SPLITS:
+        B, T = cs[:2]
+        pos = torch.full((1,), T // 2, dtype=torch.int64, device=dev)
+        q = torch.randn(qs, generator=g, device=dev)
+        k, v = (torch.randn(cs, generator=g, device=dev) for _ in range(2))
+        mask = L.causal_window_mask(
+            pos.view(1, 1), torch.arange(T, dtype=torch.int32, device=dev)[
+                None], window, is_global)[:, None, None].expand(
+                    B, 1, 1, 1, T)
+        cfg = types.SimpleNamespace(window=window)
+        for dt, gate in ((torch.float32, DECODE_SPLIT_F32),
+                         (torch.bfloat16, DECODE_SPLIT_BF16)):
+            qd, kd, vd = (t.to(dt) for t in (q, k, v))
+            want = L._decode_attention(cfg, qd, kd, vd, pos, is_global)
+            for n in splits:
+                kf, vf = L.fold_blocks(kd, n), L.fold_blocks(vd, n)
+                mf, qf = L.fold_blocks(mask, n, 4), qd.repeat(n, 1, 1, 1)
+                held(f"{label} {str(dt)[6:]}", T, n, want,
+                     lambda red: L.gqa_decode_block(qf, kf, vf, mf, red)[:B],
+                     gate)
+                del kf, vf
+            del qd, kd, vd, want
+        del q, k, v, mask
+        torch.cuda.empty_cache()
+
+    B, T, H, kr, dr, dn, n = DIST_MLA_SPLIT
+    pos = torch.full((1,), T // 2, dtype=torch.int64, device=dev)
+    scale = 1.0 / math.sqrt(dn + dr)
+    ins = [torch.randn(s, generator=g, device=dev) for s in (
+        (B, 1, H, kr), (B, 1, H, dr), (B, T, kr), (B, T, dr))]
+    mask = (torch.arange(T, device=dev) <= pos).expand(B, T)
+    for dt, gate in ((torch.float32, DECODE_SPLIT_F32),
+                     (torch.bfloat16, DECODE_SPLIT_BF16)):
+        qa, qr, ckv, krope = (t.to(dt) for t in ins)
+        want = L._mla_attention(qa, qr, ckv, krope, pos, scale)
+        qaf, qrf = qa.repeat(n, 1, 1, 1), qr.repeat(n, 1, 1, 1)
+        cf, rf = L.fold_blocks(ckv, n), L.fold_blocks(krope, n)
+        mf = L.fold_blocks(mask, n)[:, None, None, :]
+        held(f"deepseek-v2-236b MLA {str(dt)[6:]}", T, n, want,
+             lambda red: L.mla_decode_block(qaf, qrf, cf, rf, mf, scale,
+                                            red)[:B], gate)
 
 
 def dist_same(label, got, want):
@@ -4386,7 +4505,8 @@ def dist_phase(dev, seed):
     decode step at the serve shape (batch 4) on a seeded cache placed by
     ``launch.inputs.cache_specs``: the logits bit for bit.  The MoE
     families (:func:`dist_granite`, :func:`dist_deepseek`).  The kernels'
-    head split (:func:`dist_split_checks`).
+    head split (:func:`dist_split_checks`) and flash-decode's position
+    split (:func:`dist_decode_splits`).
     ``optim.compress.compressed_psum_along`` on the NCCL group equal to the
     local decode.  The process group is destroyed on the way out; the
     phase's seconds are gated at :data:`DIST_LIMIT_S`.  -> the K5,
@@ -4509,6 +4629,7 @@ def dist_phase(dev, seed):
         out["flash_attention_bwd"] += bwd
 
         dist_split_checks(dev, seed)
+        dist_decode_splits(dev, seed)
 
         # the compressed all-reduce on the NCCL group
         g = torch.Generator(dev).manual_seed(seed + 2)

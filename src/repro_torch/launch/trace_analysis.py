@@ -34,7 +34,9 @@ Methodology (:func:`analyze`, the reference's fields):
 
 The recorder also counts the bytes of live storages (its outputs, and the
 tensors given to :meth:`Recorder.hold`) and keeps their peak: the dry
-run's memory estimate.
+run's memory estimate.  A collective's ``wait_tensor`` returns its input
+in an eager run, where under ``FakeTensorMode`` it makes a new storage:
+the recorder counts the waited tensor as its input's storage, once.
 
 On meta tensors (an un-meshed dry run traced without a fake mode) the
 recorder also keeps the output layouts of each op that makes new tensors
@@ -194,6 +196,8 @@ def _local(t):
 # global-shaped fake tensors of the active fake mode: those ops are no
 # rank's work, and the recorder skips them
 _PROPAGATING = threading.local()
+#: a functional collective's wait, which returns its input
+_WAIT = "_c10d_functional.wait_tensor"
 #: the method of DTensor's ``ShardingPropagator`` that runs those ops
 _PROPAGATE = "_propagate_tensor_meta_non_cached"
 
@@ -284,6 +288,9 @@ class Recorder(TorchDispatchMode):
         # a meta op's key (:func:`_meta_key`) -> its outputs' layouts
         self._layouts: dict = {}
         self._marked = False         # DTensor's propagation marked
+        # a waited tensor's storage -> the collective's output storage it
+        # stands for, kept alive (so counted) while it lives
+        self._waited: dict[int, object] = {}
 
     # -- live storages --------------------------------------------------
     def _track(self, t: torch.Tensor) -> None:
@@ -303,6 +310,21 @@ class Recorder(TorchDispatchMode):
         key = self._keys.pop(id(ref), None)
         if key is not None:
             self._now -= self._live.pop(key)[0]
+            self._waited.pop(key, None)
+
+    def _alias(self, src: torch.Tensor, dst: torch.Tensor) -> None:
+        """``dst`` is ``src`` (a collective's wait): ``dst``'s storage, and
+        any view of it, counts no bytes, and ``src``'s stays counted while
+        ``dst``'s lives."""
+        st = _local(src).untyped_storage()
+        waited = _local(dst).untyped_storage()
+        key = waited._cdata
+        if key == st._cdata or key in self._live:
+            return
+        ref = weakref.ref(waited, self._free)
+        self._live[key] = (0, ref)
+        self._keys[id(ref)] = key
+        self._waited[key] = st
 
     def hold(self, tensors) -> None:
         """Count the storages of ``tensors`` (any tree; a DTensor by its
@@ -378,6 +400,9 @@ class Recorder(TorchDispatchMode):
             op.bytes = float(sum(_nbytes(t) for t in ins)
                              + sum(_nbytes(o) for o in outs))
         self.trace.ops.append(op)
+        if str(func._overloadpacket) == _WAIT and ins and outs:
+            self._alias(ins[0], outs[0])
+            return
         for o in outs:
             self._track(o)
 

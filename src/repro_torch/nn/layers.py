@@ -16,7 +16,11 @@ same bits.
 Full-sequence self-attention (train / prefill, positions ``arange(S)``) goes
 through K5 (:mod:`repro_torch.kernels.flash_attention`): the kernel on CUDA
 tensors, its plain version on CPU tensors.  The one-token decode keeps the
-reference's plain masked softmax over the cache.  MLA's prefill attention
+reference's plain masked softmax over the cache; under a mesh whose rules
+split the cache's positions over ranks it is the reference's flash-decode
+(:func:`gqa_decode_block`, :func:`mla_decode_block`): each rank's own
+positions, combined by all-reduces of the softmax's max and sum and of the
+output.  MLA's prefill attention
 is K5 too, on 192-wide q/k heads and 128-wide v heads (deepseek-v2); its
 decode keeps the reference's absorbed query over the compressed cache.
 The enc-dec family's encoder self-attention and its cross-attention over
@@ -184,9 +188,11 @@ def _out_proj(params, out, gather: bool = False):
 def _gqa_scores_softmax_out(cfg, q, k, v, mask):
     """q: (B,S,H,D), k/v: (B,T,K,D), mask: (B,1,1,S,T) or (1,1,1,S,T), or
     None for every key (the reference's all-true mask).  Under a mesh on
-    each rank's q heads against their KV heads, as K5 (:func:`_by_heads`);
-    the keys are gathered whole (no flash-decode over a cache sharded by
-    position)."""
+    each rank's q heads against their KV heads, as K5 (:func:`_by_heads`),
+    every key position on every rank: the dense full-sequence attention and
+    the cross-attention, whose keys no rule splits by position.  The decode
+    over a cache whose positions the ranks split is flash-decode instead
+    (:func:`_decode_attention`)."""
     if is_distributed(q, k, v):
         extra = () if mask is None else ((mask, (
             "batch" if mask.shape[0] == q.shape[0] else None,
@@ -342,15 +348,27 @@ def attention_decode(params, cfg: ModelConfig, x, cache_k, cache_v, pos,
     q, k, v = _qkv(params, cfg, x, positions, use_rope)
     cache_write(cache_k, pos, k)
     cache_write(cache_v, pos, v)
-    ck = constrain(cache_k, ("batch", "cache_seq", None, None))
-    cv = constrain(cache_v, ("batch", "cache_seq", None, None))
-    T = cache_k.shape[1]
-    pk = torch.arange(T, dtype=torch.int32, device=x.device)[None, :]
-    mask = causal_window_mask(positions, pk, cfg.window, is_global)
-    mask = mask[:, None, None, :, :]
-    out = _gqa_scores_softmax_out(cfg, q, ck.to(q.dtype), cv.to(q.dtype),
-                                  mask)
+    ck = constrain(cache_k, _CACHE_AXES)
+    cv = constrain(cache_v, _CACHE_AXES)
+    out = _decode_attention(cfg, q, ck.to(q.dtype), cv.to(q.dtype), pos,
+                            is_global)
     return _out_proj(params, out, gather=True), cache_k, cache_v
+
+
+def _decode_attention(cfg, q, ck, cv, pos, is_global):
+    """The one-token attention of q (B,1,H,D) over the cache ck/cv
+    (B,T,K,D) at position ``pos`` (1-element tensor), masked causally and
+    by the layer's window.  A cache whose positions the ranks split
+    (:func:`positions_split`) runs flash-decode (:func:`_flash_decode`);
+    otherwise the reference's softmax over every position
+    (:func:`_gqa_scores_softmax_out`)."""
+    if positions_split(ck):
+        return _flash_decode(q, ck, cv, pos, cfg.window, is_global)
+    B, T = q.shape[0], ck.shape[1]
+    positions = pos.view(1, 1).expand(B, 1)
+    pk = torch.arange(T, dtype=torch.int32, device=q.device)[None, :]
+    mask = causal_window_mask(positions, pk, cfg.window, is_global)
+    return _gqa_scores_softmax_out(cfg, q, ck, cv, mask[:, None, None, :, :])
 
 
 def cache_write(cache, pos, row):
@@ -373,6 +391,157 @@ def cache_write(cache, pos, row):
     at = rel.clamp(0, tl - 1)
     here = ((rel >= 0) & (rel < tl)).view((1, 1) + (1,) * (r.dim() - 2))
     local.index_copy_(1, at, torch.where(here, r, local.index_select(1, at)))
+
+
+# ---------------------------------------------------------------------------
+# flash-decode: the one-token attention over a cache sharded by position
+# ---------------------------------------------------------------------------
+
+#: the decode cache's logical axes (the rules' ``cache_seq`` splits its
+#: positions) and the one-token query's, its heads whole on every rank
+_CACHE_AXES = ("batch", "cache_seq", None, None)
+_DECODE_Q_AXES = ("batch", None, None, None)
+
+
+def positions_split(cache) -> bool:
+    """Is ``cache`` (B, T, ...) a DTensor whose T positions more than one
+    rank splits (the rules' ``cache_seq``)?"""
+    if not is_distributed(cache):
+        return False
+    return shard_block(cache.device_mesh, cache.placements, 1)[1] > 1
+
+
+def decode_softmax(s, reduce):
+    """The reference's softmax over key positions split into blocks: ``s``
+    one block's scores (..., Tl), f32, masked by ``NEG_INF``; ``reduce(x,
+    op)`` gives ``x`` reduced by ``op`` ("max" or "sum") over the blocks
+    (every block gets the result: an all-reduce).  The global maximum comes
+    before any exponential, so a block whose positions are all masked adds
+    exp(NEG_INF - m) = 0 to the sum, never a NaN.  -> the block's weights
+    e / l in f32."""
+    m = reduce(s.amax(-1, keepdim=True), "max")
+    e = torch.exp(s - m)
+    return e / reduce(e.sum(-1, keepdim=True), "sum")
+
+
+def gqa_decode_block(q, k, v, mask, reduce):
+    """The GQA decode attention's local step and combine on one block of
+    the cache's positions: q (B,S,H,D), k/v (B,Tl,K,D), ``mask``
+    broadcastable to (B,K,G,S,Tl) (the global positions this block holds,
+    causal and windowed), ``reduce`` as :func:`decode_softmax`'s.  The
+    reference's order (:func:`_gqa_scores_softmax_out`): f32 scores, the softmax's
+    max and sum reduced over the blocks, the weights rounded to q's type,
+    then the weighted sum over the block's value rows in f32, summed over
+    the blocks and rounded once.  -> (B,S,H,D) in q's type."""
+    B, S, H, D = q.shape
+    K = k.shape[2]
+    qg = q.reshape(B, S, K, H // K, D)
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k).float() / math.sqrt(D)
+    w = decode_softmax(torch.where(mask, s, NEG_INF), reduce).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", w.float(), v.float())
+    return reduce(out, "sum").to(q.dtype).reshape(B, S, H, D)
+
+
+def mla_decode_block(q_abs, q_rope, ckv, krope, mask, scale, reduce):
+    """MLA's absorbed decode attention on one block of the compressed
+    cache's positions: q_abs (B,S,H,kr), q_rope (B,S,H,dr), ckv (B,Tl,kr),
+    krope (B,Tl,dr), ``mask`` broadcastable to (B,H,S,Tl), ``reduce`` as
+    :func:`decode_softmax`'s.  The reference's order (:func:`mla_decode`):
+    the two products summed in the compute type and scaled in f32, the
+    softmax reduced over the blocks, the weights rounded, the block's
+    weighted ckv rows in f32 summed over the blocks and rounded once.
+    -> out_c (B,S,H,kr) in the compute type."""
+    dt = q_abs.dtype
+    s = (torch.einsum("bshr,btr->bhst", q_abs, ckv)
+         + torch.einsum("bshd,btd->bhst", q_rope, krope)).float() * scale
+    w = decode_softmax(torch.where(mask, s, NEG_INF), reduce).to(dt)
+    out_c = torch.einsum("bhst,btr->bshr", w.float(), ckv.float())
+    return reduce(out_c, "sum").to(dt)
+
+
+def _all_reduce_over(mesh, dims):
+    """``reduce(x, op)`` for :func:`decode_softmax`: an all-reduce of ``x``
+    over the ranks of the mesh dimensions ``dims``, one after another."""
+    from torch.distributed import _functional_collectives as funcol
+
+    def reduce(x, op):
+        for d in dims:
+            x = funcol.all_reduce(x, op, (mesh, d))
+            if isinstance(x, funcol.AsyncCollectiveTensor):
+                x = x.wait()
+        return x
+    return reduce
+
+
+def _position_block(cache_pl, tl: int, device):
+    """(the global positions of this rank's block of the cache, (Tl,)
+    int32; ``reduce`` over the mesh dimensions that split them), for a
+    cache of placements ``cache_pl`` whose local block holds ``tl``
+    positions."""
+    mesh = active_mesh()
+    idx, _ = shard_block(mesh, cache_pl, 1)
+    dims = [i for i, p in enumerate(cache_pl)
+            if isinstance(p, Shard) and p.dim == 1 and mesh.size(i) > 1]
+    pk = idx * tl + torch.arange(tl, dtype=torch.int32, device=device)
+    return pk, _all_reduce_over(mesh, dims)
+
+
+def _flash_decode(q, ck, cv, pos, window: int, is_global):
+    """Flash-decode over a cache whose positions the ranks split: each rank
+    runs :func:`gqa_decode_block` on its own positions (masked by their
+    global indices) and the blocks combine by all-reduces of a (B,K,G,1,1)
+    max, a sum of that shape and the (B,1,H,D) f32 output, so nothing that
+    moves grows with the cache.  q's heads are gathered (B,1,H,D): the
+    reference constrains them over "model", which the positions also take
+    under its rules, and the query is the smaller operand to move.  ->
+    (B,1,H,D), its heads whole."""
+    B, S, H, D = q.shape
+
+    def local(ql, kl, vl, pls):
+        pk, reduce = _position_block(pls[1], kl.shape[1], kl.device)
+        mask = causal_window_mask(pos.view(1, 1), pk[None], window, is_global)
+        return gqa_decode_block(ql, kl, vl, mask[:, None, None], reduce)
+
+    return run_local(local, [(q, _DECODE_Q_AXES), (ck, _CACHE_AXES),
+                             (cv, _CACHE_AXES)],
+                     [(_DECODE_Q_AXES, (B, S, H, D))])
+
+
+def _flash_decode_mla(q_abs, q_rope, ckv, krope, pos, scale):
+    """:func:`_flash_decode` for MLA: :func:`mla_decode_block` on each
+    rank's positions of ``ckv`` and ``krope`` (B,T,·), the query heads
+    gathered; -> out_c (B,1,H,kr), all-reduced before ``wkv_b``'s value
+    half."""
+    B, S, H, kr = q_abs.shape
+    axes = _CACHE_AXES[:3]
+
+    def local(qa, qr, cl, rl, pls):
+        pk, reduce = _position_block(pls[2], cl.shape[1], cl.device)
+        return mla_decode_block(qa, qr, cl, rl, pk <= pos, scale, reduce)
+
+    return run_local(local, [(q_abs, _DECODE_Q_AXES),
+                             (q_rope, _DECODE_Q_AXES), (ckv, axes),
+                             (krope, axes)],
+                     [(_DECODE_Q_AXES, (B, S, H, kr))])
+
+
+def fold_blocks(x, n: int, dim: int = 1):
+    """``x``'s positions (dimension ``dim``) cut into ``n`` equal blocks
+    stacked on dimension 0, block-major: what ``n`` ranks hold, side by
+    side on one device (the card's check and the CPU tests of the local
+    step; the query goes with them repeated, ``x.repeat(n, ...)``)."""
+    return torch.cat(x.chunk(n, dim), 0)
+
+
+def block_reduce(n: int):
+    """``reduce(x, op)`` over ``n`` blocks stacked by :func:`fold_blocks`:
+    the max or the sum over the blocks, given to each: the all-reduce of
+    ``n`` ranks on one device."""
+    def reduce(x, op):
+        xs = x.unflatten(0, (n, -1))
+        r = xs.amax(0) if op == "max" else xs.sum(0)
+        return r.repeat(n, *(1,) * (r.dim() - 1))
+    return reduce
 
 
 # ---------------------------------------------------------------------------
@@ -555,19 +724,30 @@ def mla_decode(params, cfg: ModelConfig, x, cache_ckv, cache_krope, pos):
 
     wkv_b = params.cast("wkv_b", dt)                      # (kr, H, dn+dv)
     q_abs = torch.einsum("bshd,rhd->bshr", q_nope, wkv_b[..., :dn])
-    ckv = constrain(cache_ckv, ("batch", "cache_seq", None)).to(dt)
-    krope = constrain(cache_krope, ("batch", "cache_seq", None)).to(dt)
+    ckv = constrain(cache_ckv, _CACHE_AXES[:3]).to(dt)
+    krope = constrain(cache_krope, _CACHE_AXES[:3]).to(dt)
+    out_c = _mla_attention(q_abs, q_rope, ckv, krope, pos,
+                           1.0 / math.sqrt(dn + dr))      # (B,1,H,kr)
+    out = torch.einsum("bshr,rhd->bshd", out_c, wkv_b[..., dn:])
+    return _out_proj(params, out), cache_ckv, cache_krope
+
+
+def _mla_attention(q_abs, q_rope, ckv, krope, pos, scale):
+    """The absorbed query's attention over the compressed cache ckv/krope
+    (B,T,·) at ``pos`` -> out_c (B,1,H,kr).  A cache whose positions the
+    ranks split runs flash-decode (:func:`_flash_decode_mla`); otherwise
+    the reference's softmax over every position."""
+    if positions_split(ckv):
+        return _flash_decode_mla(q_abs, q_rope, ckv, krope, pos, scale)
     # the reference's scale is a numpy float64, which lifts the bf16 sum
     # of the two products to f32 before it scales
     scores = (torch.einsum("bshr,btr->bhst", q_abs, ckv)
               + torch.einsum("bshd,btd->bhst", q_rope, krope)).float()
-    scores = scores * (1.0 / math.sqrt(dn + dr))
-    T = cache_ckv.shape[1]
-    mask = torch.arange(T, device=x.device) <= pos
-    w = torch.softmax(torch.where(mask, scores, NEG_INF), dim=-1).to(dt)
-    out_c = torch.einsum("bhst,btr->bshr", w, ckv)        # (B,1,H,kr)
-    out = torch.einsum("bshr,rhd->bshd", out_c, wkv_b[..., dn:])
-    return _out_proj(params, out), cache_ckv, cache_krope
+    scores = scores * scale
+    mask = torch.arange(ckv.shape[1], device=ckv.device) <= pos
+    w = torch.softmax(torch.where(mask, scores, NEG_INF),
+                      dim=-1).to(q_abs.dtype)
+    return torch.einsum("bhst,btr->bshr", w, ckv)
 
 
 # ---------------------------------------------------------------------------

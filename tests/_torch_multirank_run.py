@@ -5,11 +5,13 @@
 
 reads ``WORKDIR/inputs.pkl`` (the cases: each a config, the reference's
 parameters as numpy arrays, a host batch, its steps, its AdamW and its rule
-overrides, where not the config's own ``strategy.rules_for``), spawns
-the ranks, which meet through a ``FileStore`` in ``WORKDIR``, and writes
-what rank 0 gathered to ``WORKDIR/result.pkl``, with the collectives of
-one more qwen2 step that rank 0 recorded (:func:`record_step`).  :func:`run_case` is also
-the single-process run the test holds the ranks to (``mesh`` None)."""
+overrides, where not the config's own ``strategy.rules_for``; and the
+decode-only cases: a config, parameters, a host cache, tokens and a
+position), spawns the ranks, which meet through a ``FileStore`` in
+``WORKDIR``, and writes what rank 0 gathered to ``WORKDIR/result.pkl``,
+with the collectives of one more qwen2 step that rank 0 recorded
+(:func:`record_step`).  :func:`run_case` and :func:`decode_case` are also
+the single-process runs the test holds the ranks to (``mesh`` None)."""
 from __future__ import annotations
 
 import os
@@ -54,6 +56,62 @@ def run_case(cfg, tree, batch, mesh=None, rules=None, steps=STEPS,
     return {"losses": run["losses"], "grad_norms": run["grad_norms"],
             "params": run["params"], "grads": run["grads"],
             "dropped": run["dropped"], "logits": logits}
+
+
+def decode_case(cfg, tree, cache, tokens, pos, mesh=None, rules=None):
+    """One decode step of ``cfg`` from the parameter tree ``tree`` at
+    ``pos`` on the host cache ``cache`` (numpy arrays) with ``tokens``
+    (B, 1) (``chip_smoke.dist_decode``), un-meshed (``mesh`` None) or with
+    the cache placed by ``cache_specs`` under ``rules``.  -> {"logits";
+    "rows": each position cache's rows at ``pos`` after the step, (layers,
+    B, ...), where this rank holds them (no entry where it does not); on a mesh
+    "kept": each position cache's local shard after the step equals it
+    before but for the rows at ``pos``; "blocks": the positions' blocks}."""
+    if ROOT not in sys.path:
+        sys.path.append(ROOT)
+    from chip_smoke import dist_decode
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.distributed.sharding import (placements, shard_block,
+                                                  use_mesh_rules)
+    from repro_torch.launch.inputs import cache_specs
+    from repro_torch.models.common import get_family, load_reference_params
+
+    fam = get_family(cfg)
+    host = {k: torch.as_tensor(v) for k, v in cache.items()}
+    seq = {k: a.index("cache_seq")
+           for k, a in fam.cache_logical_axes(cfg).items()
+           if "cache_seq" in a}
+    first = next(iter(seq))
+    shape = ShapeSpec("decode", host[first].shape[seq[first]],
+                      tokens.shape[0], "decode")
+    model = load_reference_params(fam.build(cfg), tree)
+    logits, after = dist_decode(torch.device("cpu"), cfg, model, shape, host,
+                                torch.as_tensor(tokens), pos, mesh, rules,
+                                with_cache=True)
+    out = {"logits": logits, "rows": {}, "kept": {}, "blocks": {}}
+    if mesh is None:
+        out["rows"] = {k: after[k].select(d, pos).clone()
+                       for k, d in seq.items()}
+        return out
+    with use_mesh_rules(mesh, rules):
+        specs = cache_specs(cfg, shape, mesh, rules)
+        for k, d in seq.items():
+            pl = placements(specs[k].spec, mesh)
+            before = distribute_tensor(host[k], mesh, pl,
+                                       src_data_rank=None).to_local()
+            now = after[k].to_local()
+            idx, n = shard_block(mesh, pl, d)
+            tl = now.shape[d]
+            others = torch.tensor([i for i in range(tl)
+                                   if idx * tl + i != pos])
+            out["kept"][k] = torch.equal(now.index_select(d, others),
+                                         before.index_select(d, others))
+            out["blocks"][k] = n
+            if idx * tl <= pos < (idx + 1) * tl:
+                out["rows"][k] = now.select(d, pos - idx * tl).clone()
+    return out
 
 
 def record_step(cfg, tree, batch, mesh, rules):
@@ -112,6 +170,13 @@ def _rank(rank, world, workdir):
                                     rules, steps=case["steps"],
                                     opt=case["opt"])
 
+        decoded = {}            # each rank's, gathered below
+        for name, case in inputs["decode"].items():
+            cfg = case["cfg"]
+            decoded[name] = decode_case(
+                cfg, case["tree"], case["cache"], case["tokens"],
+                case["pos"], mesh, strategy.rules_for(cfg))
+
         # one step as the dry run traces it, its collectives recorded
         case = inputs["cases"]["qwen2"]
         result["recorded"] = record_step(case["cfg"], case["tree"],
@@ -141,7 +206,7 @@ def _rank(rank, world, workdir):
                 for axis in MESH_AXES}
         gathered = [None] * world
         dist.all_gather_object(gathered, {
-            "shards_ok": shards_ok, "psum": psum,
+            "shards_ok": shards_ok, "psum": psum, "decoded": decoded,
             "coords": (mesh.get_local_rank("data"),
                        mesh.get_local_rank("model"))})
         if rank == 0:

@@ -323,6 +323,52 @@ def test_moe_cells_trace_on_the_production_meshes(arch, shape_name,
         assert (rows, (bl, K)) in [(r[0], i) for r, i in index]
 
 
+#: decode cells traced at two cache lengths on the (16, 16) mesh: (arch,
+#: layers, batch, lengths).  qwen2-1.5b and deepseek-v2-236b (MLA) at
+#: decode_32k's batch 128 (the positions over "model"), gemma3-12b at
+#: long_500k's batch 1 (the positions over both axes) cut to 6 layers,
+#: five local (window 1024) and one global
+FLASH_DECODE_CELLS = [("qwen2-1.5b", 2, 128, (32768, 65536)),
+                      ("deepseek-v2-236b", 2, 128, (32768, 65536)),
+                      ("gemma3-12b", 6, 1, (524288, 1048576))]
+
+
+@pytest.mark.parametrize("arch,layers,batch,lengths", FLASH_DECODE_CELLS)
+def test_decode_collectives_do_not_grow_with_the_cache(arch, layers, batch,
+                                                       lengths):
+    """Flash-decode over the position-sharded cache: the decode's
+    collectives (kind, count and bytes) are the same at both cache
+    lengths; what moves is per-layer maxima, sums and the (B, 1, H, D)
+    output, never a cache's positions.  The parent's decode gathered each
+    layer's cache whole, so its bytes doubled with the length."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import trace_analysis
+
+    cfg, rules = dryrun.cell_config(arch, layers=layers)
+    totals = []
+    with dryrun.fake_group(256):
+        mesh = make_production_mesh(multi_pod=False, device="cpu")
+        for T in lengths:
+            shape = ShapeSpec("decode", T, batch, "decode")
+            with FakeTensorMode(), dryrun.use_mesh_rules(mesh, rules):
+                cell = dryrun.trace_cell(cfg, shape, mesh, rules, "cpu")
+            totals.append(trace_analysis.analyze(cell["trace"]))
+    assert not dist.is_initialized()
+    a, b = totals
+    assert a.collective_bytes == b.collective_bytes
+    assert a.collective_count == b.collective_count
+    # the combine: a max, a sum and the f32 output of every layer, all
+    # reduced over each mesh dimension that splits the positions
+    axes = 1 if batch % 16 == 0 else 2
+    assert a.collective_count["all-reduce"] >= 3 * layers * axes
+    # no collective takes an operand with a dimension of positions, a
+    # rank's block or the whole
+    T = lengths[1]
+    moved = [op.shapes for op in cell["trace"].ops if op.collective
+             and {T, T // 16 ** axes} & {d for s in op.shapes for d in s}]
+    assert not moved, moved
+
+
 def test_fake_group_is_destroyed_and_refuses_a_second():
     with pytest.raises(RuntimeError, match="boom"):
         with dryrun.fake_group(4):

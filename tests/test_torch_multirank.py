@@ -15,8 +15,15 @@ step's gradients are held leaf by leaf, so a gradient summed wrongly over
 the ranks shows whatever the optimizer's step does with it.  Then a GQA
 config whose ranks hold fewer q heads than a KV group, one step at lr 3e-3
 with no warm-up, ``device_put_batch``'s shards and ``compressed_psum_along``
-over each mesh axis.  Last, one gloo rank on the (1, 1) mesh: the meshed
-step equals the un-meshed one bit for bit."""
+over each mesh axis.  The decode of those cases (batch 8: the cache's
+positions split over "model" = 2) and four decode-only cases at batch 1 or
+2, where "batch" leaves "data" free and the cache's positions take both
+axes, 8 blocks of 8: qwen2-smoke, gemma3-smoke (window 8, a global layer
+every 6), hymba-smoke and deepseek-smoke's MLA run flash-decode
+(``layers.gqa_decode_block``, ``mla_decode_block``); their logits are held
+to one process's, and each rank's shard of every position cache keeps its
+rows but the one written.  Last, one gloo rank on the (1, 1) mesh: the
+meshed step equals the un-meshed one bit for bit."""
 import dataclasses
 import importlib.util
 import os
@@ -110,12 +117,46 @@ def _cases():
     return out
 
 
+#: the decode-only cases: name -> (arch, batch, position); the cache's
+#: 64 positions split into 8 blocks of 8, the position at a block's start
+#: (qwen2, deepseek), inside one (gemma3: its local layers' window of 8
+#: spans blocks 3 and 4, the other six wholly masked) and the last (hymba)
+DECODE_CASES = {"qwen2": ("qwen2-1.5b", 1, 40),
+                "gemma3": ("gemma3-12b", 1, 37),
+                "hymba": ("hymba-1.5b", 2, 63),
+                "deepseek": ("deepseek-v2-236b", 1, 24)}
+DECODE_T = 64
+
+
+def _decode_cases():
+    """name -> {"cfg", "tree", "cache", "tokens", "pos"}: the smoke config
+    in f32, parameters drawn by the port's ``init_model`` (seed 5), a cache
+    of seeded normal rows in every entry, and seeded tokens."""
+    from repro_torch.models.common import get_family, init_model
+
+    out = {}
+    for name, (arch, B, pos) in DECODE_CASES.items():
+        cfg = dataclasses.replace(get_config(arch, smoke=True), **F32)
+        fam = get_family(cfg)
+        rng = np.random.default_rng(7)
+        out[name] = {
+            "cfg": cfg, "pos": pos,
+            "tree": _param_tree_np(init_model(
+                fam, cfg, torch.Generator().manual_seed(5))),
+            "cache": {k: rng.normal(size=v.shape).astype(np.float32)
+                      for k, v in fam.init_cache(cfg, B, DECODE_T,
+                                                 device="meta").items()},
+            "tokens": rng.integers(0, cfg.vocab_size, (B, 1)).astype(
+                np.int32)}
+    return out
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """-> (the inputs, the eight ranks' result, each case's single-process
-    result)."""
+    result; a decode-only case's under "decode NAME")."""
     work = tmp_path_factory.mktemp("multirank")
-    inputs = {"cases": _cases()}
+    inputs = {"cases": _cases(), "decode": _decode_cases()}
     with open(work / "inputs.pkl", "wb") as f:
         pickle.dump(inputs, f)
     env = dict(os.environ)
@@ -138,6 +179,9 @@ def runs(tmp_path_factory):
     single = {name: RUN.run_case(c["cfg"], c["tree"], c["batch"],
                                  steps=c["steps"], opt=c["opt"])
               for name, c in inputs["cases"].items()}
+    for name, c in inputs["decode"].items():
+        single["decode " + name] = RUN.decode_case(
+            c["cfg"], c["tree"], c["cache"], c["tokens"], c["pos"])
     return inputs, result, single
 
 
@@ -221,6 +265,36 @@ def test_sharded_moe_drops_the_single_process_pairs(runs, name):
     print(f"{name} dropped pairs by call: {got}")
     assert len(want) == case["steps"] * RUN.ACCUM * case["cfg"].n_layers
     assert got == want and min(want) > 0
+
+
+@pytest.mark.parametrize("name", DECODE_CASES)
+def test_position_split_decode_logits_match_single_process(runs, name):
+    """Flash-decode over 8 position blocks: every rank's logits within
+    ``LOGITS_ATOL`` of one process's."""
+    ranks, want = runs[1]["ranks"], runs[2]["decode " + name]["logits"]
+    assert all(set(r["decoded"][name]["blocks"].values()) == {8}
+               for r in ranks)
+    gaps = [float((r["decoded"][name]["logits"] - want).abs().max())
+            for r in ranks]
+    print(f"{name} split decode logits: max abs {max(gaps):.3e}")
+    assert all(bool(torch.isfinite(r["decoded"][name]["logits"]).all())
+               for r in ranks)
+    assert max(gaps) <= LOGITS_ATOL
+
+
+@pytest.mark.parametrize("name", DECODE_CASES)
+def test_position_split_decode_writes_one_row_of_the_local_shard(runs,
+                                                                 name):
+    """Each rank's shard of every position cache after the step equals it
+    before, but for the row at the position; the one rank that holds that
+    row wrote one process's row into it (within ``LOGITS_ATOL``)."""
+    ranks, want = runs[1]["ranks"], runs[2]["decode " + name]["rows"]
+    assert all(all(r["decoded"][name]["kept"].values()) for r in ranks)
+    for k, row in want.items():
+        held = [r["decoded"][name]["rows"][k] for r in ranks
+                if k in r["decoded"][name]["rows"]]
+        assert len(held) == 1, k
+        assert float((held[0] - row).abs().max()) <= LOGITS_ATOL, k
 
 
 def test_device_put_batch_shards_are_rows_of_the_host_batch(runs):

@@ -20,6 +20,7 @@ and K5's and K6's custom ops, on the CPU.
   :func:`ref_attention_flops` and :func:`ref_wkv_flops` state, on the same
   calls.  The remainders agree within 0.1%.
 """
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -209,6 +210,42 @@ def test_bytes_skip_views_and_factories_and_peak_counts_live():
     assert rec.trace.peak_bytes == 2 * 4 * 64 * 16
     assert rec.live_bytes == 4 * 64 * 16 + 4 * 8
     del y, z
+
+
+def _gather_and_double(world, shape, fake):
+    """(the recorder's peak, its live bytes after) an all-gather of ones
+    over ``world`` ranks of a fake group, waited and doubled, on real or
+    fake tensors."""
+    import torch.distributed as dist
+
+    c10d = torch.ops._c10d_functional
+    with FakeTensorMode() if fake else contextlib.nullcontext():
+        x = torch.ones(shape)
+        with ta.Recorder() as rec:
+            # the collective's output kept, as a redistribution keeps it
+            gathered = c10d.all_gather_into_tensor(
+                x, world, dist.group.WORLD.group_name)
+            # a view of the waited tensor, doubled: a quarter of it
+            z = c10d.wait_tensor(gathered)[:shape[0]] * 2
+            live = rec.live_bytes
+    del gathered, z
+    return rec.trace.peak_bytes, live
+
+
+def test_a_collectives_wait_counts_its_input_once():
+    """An all-gather's ``wait_tensor`` returns its input in an eager run;
+    under ``FakeTensorMode`` it makes a new storage.  The recorder counts
+    the gathered tensor once either way, a view of the waited one included:
+    the same peak, the gathered bytes and a quarter more, all live at the
+    end."""
+    from repro_torch.launch.dryrun import fake_group
+
+    world, shape = 4, (256, 64)
+    with fake_group(world):
+        got = [_gather_and_double(world, shape, fake) for fake in (False,
+                                                                   True)]
+    gathered = 4 * world * shape[0] * shape[1]
+    assert got[0] == got[1] == (gathered * 5 // 4, gathered * 5 // 4)
 
 
 def test_meta_ops_repeat_from_their_layouts():
